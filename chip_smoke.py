@@ -1,0 +1,566 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (stlpose_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--seed 0] [--iters 5] [--out DIR]
+
+Phases, each fatal on failure:
+  1. print the card (nvidia-smi name, power limit); TF32 off;
+  2. build the three CUDA kernels from stlpose_tpu_torch/kernels/csrc
+     (one nvcc per source, in parallel) and print the build time;
+  3. per kernel, at the main path's shapes, compare the kernel with its
+     plain PyTorch version on the card; bound = the bytes the function
+     must move at 3.35 TB/s (or its f32 operations at 67 TFLOP/s, if
+     that is longer);
+  4. drive the fused two-stage serving path end to end at full width
+     (Faster R-CNN ResNet50-FPN 400x400 + HRNet-W32 256x192, float32,
+     B = 8, seeded random weights) with every launch counter set to 0
+     first; check shapes, finiteness, that each kernel was launched, and
+     agreement with the same program run on the plain versions; time
+     images/s and crops/s, then the detector, HRNet and NMS stages alone;
+  5. under torch.profiler: the device time of each kernel, its plain
+     version and (where one exists) the single PyTorch call computing the
+     same function; one fused call's kernel launches, device busy time
+     and idle share (its 40 largest kernels into
+     DIR/chip_smoke_profile.txt when --out is given).
+All host-clock and CUDA-event times are taken before the first profiler
+session.
+The second-to-last line is the kernels' JSON record, the last line
+{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
+F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+B, MAX_DETS, BUDGET = 8, 8, 64
+# Random weights give person scores spread around 0.5: a threshold of 0
+# keeps every valid detection, so 8 per image fill the 64-crop budget.
+BBOX_THR = 0.0
+
+
+def fail(msg):
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def elapsed_ms(torch, fn, iters):
+    """CUDA-event time per call of ``fn`` over ``iters`` back-to-back calls
+    after a warm-up call (as the stream sees it, launch gaps included)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_profile(torch, fn, iters=1):
+    """(kernel launches, summed kernel time in ms) per call of ``fn`` from
+    torch.profiler's CUDA trace; (None, None) if the trace holds no device
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        return None, None
+    return (sum(c for _, c, _ in rows) / iters,
+            sum(t for t, _, _ in rows) / iters)
+
+
+def device_rows(prof):
+    """[(ms, count, name)] of the device-side events (kernels, copies,
+    memsets) of a profile, largest first; CPU-side ops are left out so no
+    time is counted twice."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    return sorted(rows, reverse=True)
+
+
+def bound_ms(n_bytes, flops=0.0):
+    """Least time for the work: bytes over HBM rate vs f32 operations over
+    the f32 peak, whichever is larger."""
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+LABELS = ("", "plain_", "library_")   # kernel, plain version, library call
+
+
+def event_times(torch, fns, iters=20):
+    """``<x>events_ms``: CUDA-event time per call of the kernel, the plain
+    version and the library call (None where there is none), launch gaps
+    and host overhead included. Taken before any profiler session."""
+    return {label + "events_ms": None if fn is None else
+            elapsed_ms(torch, fn, iters) for label, fn in zip(LABELS, fns)}
+
+
+def device_times(torch, rec, fns):
+    """``<x>ms``: the summed device time of the kernels one call launches
+    (torch.profiler), or the CUDA-event time where the trace holds no
+    device events."""
+    for label, fn in zip(LABELS, fns):
+        dv = None if fn is None else device_profile(torch, fn)[1]
+        rec[label + "ms"] = rec[label + "events_ms"] if dv is None else dv
+
+
+# ------------------------------------------------------------------ kernels
+def check_decode(torch, k1, dev, rng):
+    """K1 at (64 crops, 17 joints, 64x48), NCHW memory as HRNet writes it,
+    with planted ties (also across warp lanes), all-negative maps and
+    peaks on and next to the border. Exact agreement required."""
+    N, J, H, W = BUDGET, 17, 64, 48
+    hm = torch.rand((N, J, H, W), generator=rng, device=dev) * 1.5 - 0.5
+    hm[0, 0] = -hm[0, 0].abs() - 0.1                  # all negative
+    hm[1] = -hm[1].abs()                              # whole crop <= 0
+    hm[2, 1, 3, 31] = hm[2, 1, 5, 7] = 2.0            # tie, flat 175 < 247
+    hm[2, 2, 0, 31] = hm[2, 2, 0, 32] = 2.5           # tie across lanes
+    hm[3, 3, 0, 0] = 3.0
+    hm[3, 4, H - 1, W - 1] = 3.0
+    hm[3, 5, 1, 20] = 3.0
+    hm[3, 6, 30, W - 2] = 3.0
+    hm[4, 7, 20, 20] = 3.0                            # flat neighbours
+    hm[4, 7, 20, 19] = hm[4, 7, 20, 21] = 1.0
+    hm[4, 7, 19, 20] = hm[4, 7, 21, 20] = 1.0
+    got = k1.heatmap_peaks(hm)
+    ref = k1.heatmap_peaks_plain(hm)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    # the same maps as a strided (NHWC-memory) view
+    nhwc = hm.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    err = max(err, max(float((g - r).abs().max()) for g, r in
+                       zip(k1.heatmap_peaks(nhwc), ref)))
+    if err != 0.0:
+        fail(f"K1 decode differs from its plain version by {err}")
+    if tuple(got[0][2, 1].tolist()) != (31.0, 3.0) or \
+            tuple(got[0][2, 2].tolist()) != (31.0, 0.0):
+        fail("K1 decode broke a tie toward the higher index")
+    flat = hm.reshape(N, J, H * W)
+    n_bytes = hm.numel() * 4 + N * J * 5 * 4
+    b, by = bound_ms(n_bytes, flops=hm.numel())
+    fns = (lambda: k1.heatmap_peaks(hm), lambda: k1.heatmap_peaks_plain(hm),
+           lambda: torch.max(flat, dim=-1))
+    return dict(name="heatmap_peaks", route="cuda",
+                source="stlpose_tpu_torch/kernels/csrc/decode.cu",
+                replaces="stlpose_tpu/ops/pallas_decode.py:74",
+                max_abs_err=err, tolerance=0.0, bound_ms=b, bound_by=by,
+                shape=[N, J, H, W], **event_times(torch, fns)), fns
+
+
+def check_warp(torch, k2, affine, dev, rng):
+    """K2: K = 64 crops of 256x192 from B = 8 images of 400x400, boxes
+    partly outside the image. Tolerance 1e-3 on the 0-255 scale."""
+    import torch.nn.functional as F
+    S = 400
+    images = torch.rand((B, S, S, 3), generator=rng, device=dev) * 255.0
+    u = torch.rand((BUDGET, 4), generator=rng, device=dev)
+    centers = torch.stack([u[:, 0] * 480 - 40, u[:, 1] * 480 - 40], -1)
+    scales = torch.stack([0.2 + 1.6 * u[:, 2], 0.3 + 2.0 * u[:, 3]], -1)
+    img_idx = torch.randint(0, B, (BUDGET,), generator=rng, device=dev,
+                            dtype=torch.int32)
+    a, bb, tx, ty = affine.get_affine_params(
+        centers, scales, torch.zeros(BUDGET, device=dev), (192, 256),
+        inv=True)
+    params = torch.stack([a, bb, tx, ty], -1).contiguous()
+    got = k2.affine_crop(images, params, img_idx, (192, 256))
+    ref = k2.affine_crop_plain(images, params, img_idx, (192, 256))
+    err = float((got - ref).abs().max())
+    if not err <= 1e-3:
+        fail(f"K2 warp differs from its plain version by {err}")
+    if not 0.01 < float((ref == 0).float().mean()) < 0.99:
+        fail("K2 check boxes do not straddle the image border")
+    # library yardstick: grid_sample on the gathered images
+    gathered = images[img_idx.long()].permute(0, 3, 1, 2).contiguous()
+    gy, gx = torch.meshgrid(torch.arange(256., device=dev),
+                            torch.arange(192., device=dev), indexing="ij")
+    sx = a[:, None, None] * gx - bb[:, None, None] * gy + tx[:, None, None]
+    sy = bb[:, None, None] * gx + a[:, None, None] * gy + ty[:, None, None]
+    grid = torch.stack([sx * (2.0 / (S - 1)) - 1.0,
+                        sy * (2.0 / (S - 1)) - 1.0], -1)
+    lib_out = F.grid_sample(gathered, grid, mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+    lib_err = float((lib_out.permute(0, 2, 3, 1) - ref).abs().max())
+    n_imgs = int(torch.unique(img_idx).numel())
+    n_bytes = got.numel() * 4 + n_imgs * S * S * 3 * 4 + BUDGET * 20
+    b, by = bound_ms(n_bytes, flops=got.numel() * 7 + got.numel() / 3 * 20)
+    fns = (lambda: k2.affine_crop(images, params, img_idx, (192, 256)),
+           lambda: k2.affine_crop_plain(images, params, img_idx, (192, 256)),
+           lambda: F.grid_sample(gathered, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True))
+    return dict(name="affine_crop", route="cuda",
+                source="stlpose_tpu_torch/kernels/csrc/warp.cu",
+                replaces="stlpose_tpu/ops/pallas_warp.py:235",
+                max_abs_err=err, tolerance=1e-3, bound_ms=b, bound_by=by,
+                library_max_abs_err=lib_err,
+                shape=[B, S, S, 3, BUDGET, 256, 192],
+                **event_times(torch, fns)), fns
+
+
+def check_roi(torch, k3, roi_ops, dev, rng):
+    """K3: B = 8, P = 256 boxes per image, C = 256, P2..P5 of 100/50/25/13;
+    random boxes plus extreme-aspect, degenerate and far-edge level-2
+    boxes. Tolerance 1e-5."""
+    S, P, C = 400, 256, 256
+    sizes = (100, 50, 25, 13)
+    feats = [torch.randn((B, s, s, C), generator=rng, device=dev)
+             for s in sizes]
+    u = torch.rand((B, P, 4), generator=rng, device=dev)
+    x1, y1 = u[..., 0] * (S - 2), u[..., 1] * (S - 2)
+    boxes = torch.stack([x1, y1, torch.clamp(x1 + 1 + u[..., 2] * S, max=S),
+                         torch.clamp(y1 + 1 + u[..., 3] * S, max=S)], -1)
+    special = torch.tensor([
+        [0.0, 0.0, S - 1.0, 10.0], [S - 20.0, 0.0, S, S], [0.0, 0.0, S, S],
+        [0.0, 100.0, S, 130.0], [10.0, 10.0, 11.0, 11.0], [5.0, 5.0, 5.0, 5.0],
+        [370.0, 250.0, 400.0, 295.0], [170.0, 390.0, 280.0, 400.0],
+        [380.0, 295.0, 400.0, 400.0], [360.0, 80.0, 400.0, 225.0],
+        [390.0, 390.0, 400.0, 400.0], [0.0, 370.0, 45.0, 400.0]],
+        device=dev)
+    boxes[:, :len(special)] = special
+    levels = roi_ops._assign_levels(boxes, 4)
+    # a 400-px canvas never assigns P5 (sqrt(area) < 448): pool the last
+    # 16 boxes of each image from it anyway, and one box from no level
+    # (its output must be zeros), so every branch of the kernel runs
+    levels[:, -17:-1] = 3
+    levels[:, -1] = -1
+    strides = (4, 8, 16, 32)
+    got = k3.roi_align(feats, boxes, levels, strides)
+    ref = k3.roi_align_plain(feats, boxes, levels, strides)
+    err = float((got - ref).abs().max())
+    if not err <= 1e-5:
+        fail(f"K3 RoIAlign differs from its plain version by {err}")
+    if bool(got[:, -1].any()) or not bool(got[:, -17:-1].any()):
+        fail("K3 RoIAlign: P5 boxes pooled zeros or a level -1 box did not")
+    n_bytes = (got.numel() * 4 + sum(f.numel() for f in feats) * 4 +
+               boxes.numel() * 4 + levels.numel() * 4)
+    # per output: 4 samples x (4 taps x 2 flops + 3 weights) + the mean
+    b, by = bound_ms(n_bytes, flops=got.numel() * 4 * 12)
+    fns = (lambda: k3.roi_align(feats, boxes, levels, strides),
+           lambda: k3.roi_align_plain(feats, boxes, levels, strides), None)
+    return dict(name="roi_align", route="cuda",
+                source="stlpose_tpu_torch/kernels/csrc/roi_align.cu",
+                replaces="stlpose_tpu/ops/pallas_roi.py:286",
+                max_abs_err=err, tolerance=1e-5, bound_ms=b, bound_by=by,
+                level_counts=[int((levels == i).sum()) for i in range(4)],
+                shape=[B, P, C, *sizes], **event_times(torch, fns, 10)), fns
+
+
+# ---------------------------------------------------------------- main path
+def seeded_weights(torch, module, seed):
+    """Random weights from ``seed``: fan-in scaled normal convolution and
+    dense kernels, small biases, BatchNorm left at its identity
+    statistics, so activations stay O(1) through both deep networks."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() > 1:
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=g) / fan_in ** 0.5)
+            elif name.endswith("bias") and ".bn." not in name \
+                    and "_bn." not in name:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    return module
+
+
+@contextlib.contextmanager
+def plain_versions(k1, k2, k3):
+    """Route the three kernel entry points to their plain versions (the
+    comparison run only)."""
+    saved = (k1.heatmap_peaks, k2.affine_crop, k3.roi_align)
+    k1.heatmap_peaks = k1.heatmap_peaks_plain
+    k2.affine_crop = k2.affine_crop_plain
+    k3.roi_align = k3.roi_align_plain
+    try:
+        yield
+    finally:
+        k1.heatmap_peaks, k2.affine_crop, k3.roi_align = saved
+
+
+def main_path(torch, mods, dev, args):
+    k1, k2, k3 = mods["k1"], mods["k2"], mods["k3"]
+    t0 = time.time()
+    det = seeded_weights(torch, mods["FasterRCNN"](mods["FasterRCNNConfig"](),
+                                                   device=dev), args.seed)
+    pose = seeded_weights(torch, mods["PoseHighResolutionNet"](
+        mods["get_hrnet_config"]("w32_256x192"), device=dev), args.seed + 1)
+    fused = mods["build_fused_two_stage"](det, pose, bbox_thr=BBOX_THR,
+                                          max_dets=MAX_DETS, budget=BUDGET,
+                                          device=dev)
+    g = torch.Generator(device="cpu").manual_seed(args.seed + 2)
+    images = torch.randint(0, 256, (B, 400, 400, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    print(f"models built in {time.time() - t0:.1f} s "
+          f"(detector {sum(p.numel() for p in det.parameters())} params, "
+          f"HRNet {sum(p.numel() for p in pose.parameters())})", flush=True)
+
+    fused(images)                                   # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+    out = fused(images)
+    torch.cuda.synchronize()
+    launches = {"heatmap_peaks": k1.LAUNCHES, "affine_crop": k2.LAUNCHES,
+                "roi_align": k3.LAUNCHES}
+    print("main-path launches per fused call:", json.dumps(launches))
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the main path was not launched: {launches}")
+
+    shapes = {"sel_boxes": (B, MAX_DETS, 4), "sel_scores": (B, MAX_DETS),
+              "sel_valid": (B, MAX_DETS), "img_idx": (BUDGET,),
+              "picked_valid": (BUDGET,), "crop_kpts": (BUDGET, 17, 3),
+              "img_kpts": (BUDGET, 17, 3)}
+    for k, s in shapes.items():
+        if tuple(out[k].shape) != s:
+            fail(f"{k} has shape {tuple(out[k].shape)}, expected {s}")
+    pv = out["picked_valid"]
+    n_valid = int(pv.sum())
+    if n_valid == 0:
+        fail("no valid detection reached the pose stage")
+    for k in ("crop_kpts", "img_kpts"):
+        if not bool(torch.isfinite(out[k][pv]).all()):
+            fail(f"non-finite {k}")
+    scores = out["sel_scores"][out["sel_valid"]]
+    print(f"valid crops {n_valid}/{BUDGET}; person scores "
+          f"{float(scores.min()):.4f}..{float(scores.max()):.4f}; "
+          f"heatmap peaks {float(out['crop_kpts'][pv][..., 2].min()):.3f}.."
+          f"{float(out['crop_kpts'][pv][..., 2].max()):.3f}")
+
+    with plain_versions(k1, k2, k3):
+        ref = fused(images)
+    torch.cuda.synchronize()
+    for k in ("sel_valid", "picked_valid", "img_idx"):
+        if not torch.equal(out[k], ref[k]):
+            fail(f"{k} differs between the kernels and the plain versions")
+    both = pv & ref["picked_valid"]
+    diffs = {k: float((out[k][both][..., :2] - ref[k][both][..., :2])
+                      .abs().max()) for k in ("crop_kpts", "img_kpts")}
+    diffs["maxvals"] = float((out["img_kpts"][both][..., 2] -
+                              ref["img_kpts"][both][..., 2]).abs().max())
+    diffs["sel_boxes"] = float((out["sel_boxes"] - ref["sel_boxes"])
+                               .abs().max())
+    print("kernels vs plain versions on the main path:", json.dumps(diffs))
+    # keypoints to 1e-3 px, heatmap peaks to 1e-4, boxes to 1e-3 px
+    if not (diffs["crop_kpts"] <= 1e-3 and diffs["img_kpts"] <= 1e-3 and
+            diffs["maxvals"] <= 1e-4 and diffs["sel_boxes"] <= 1e-3):
+        fail(f"main path disagrees with its plain-version run: {diffs}")
+
+    tput = throughput(torch, fused, images, n_valid, args.iters)
+    print("end to end:", json.dumps(tput))
+    return launches, tput, (det, pose, fused, images, n_valid)
+
+
+def throughput(torch, fused, images, n_valid, iters):
+    """images/s and crops/s of the fused call on the host clock, over
+    ``iters`` calls after two warm-up calls, each end synchronised."""
+    for _ in range(2):
+        fused(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fused(images)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"images_per_s": B * iters / dt, "crops_per_s": n_valid * iters / dt,
+            "ms_per_call": dt / iters * 1e3, "iters": iters}
+
+
+def nms_inputs(torch, dev):
+    """Random boxes at the main path's two NMS shapes: proposals (B, 2147
+    candidates, 256 picks) and detections (B, 256 candidates, 64 picks)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    for label, M, keep in (("proposal_nms", 2147, 256),
+                           ("detection_nms", 256, 64)):
+        xy = torch.rand((B, M, 2), generator=g) * 380
+        bx = torch.cat([xy, xy + torch.rand((B, M, 2), generator=g) * 60], -1)
+        yield label, bx.to(dev), torch.rand((B, M), generator=g).to(dev), keep
+
+
+def stage_times(torch, mods, state):
+    """CUDA-event ms per call of the path's stages alone, at its shapes:
+    the detector, its backbone + FPN, HRNet-W32 on the crop budget, the
+    two NMS loops; the fused call and the detector with NMS stubbed out
+    (every valid candidate kept: what the loops cost in place); HRNet
+    with cuDNN's autotuner on. Taken before any profiler session."""
+    det, pose, fused, images, _ = state
+    nms = mods["box_nms_topk"]
+    images01 = images.to(torch.float32) / 255.0
+    crops = torch.rand((BUDGET, 256, 192, 3), device=images.device)
+    with torch.inference_mode():
+        stages = {
+            "detector_predict": elapsed_ms(
+                torch, lambda: det.predict(images01), 3),
+            "detector_backbone_fpn": elapsed_ms(
+                torch, lambda: det.features(
+                    images01.permute(0, 3, 1, 2).contiguous()), 3),
+            "hrnet_w32": elapsed_ms(torch, lambda: pose(crops), 3)}
+        for label, bx, sc, keep in nms_inputs(torch, images.device):
+            stages[label] = elapsed_ms(
+                torch, lambda: nms(bx, sc, 0.5, None, keep), 3)
+        frcnn = sys.modules[type(det).__module__]
+        frcnn.box_nms_topk = lambda b, s, t, valid, k: valid & (s > -1e30)
+        try:
+            stages["detector_predict_nms_stubbed"] = elapsed_ms(
+                torch, lambda: det.predict(images01), 3)
+            stages["fused_call_nms_stubbed"] = elapsed_ms(
+                torch, lambda: fused(images), 3)
+        finally:
+            frcnn.box_nms_topk = nms
+        torch.backends.cudnn.benchmark = True
+        try:
+            stages["hrnet_w32_cudnn_benchmark"] = elapsed_ms(
+                torch, lambda: pose(crops), 3)
+        finally:
+            torch.backends.cudnn.benchmark = False
+    print("stages alone (ms per call):", json.dumps(stages))
+    return stages
+
+
+def profile_main_path(torch, mods, state, ms_per_call, out_dir):
+    """One fused call under torch.profiler: kernel launches, device busy
+    time and idle share (against the unprofiled ``ms_per_call``), the
+    kernels that take the time; the NMS loops' launch counts; and the
+    throughput once more, now that the profiler has run."""
+    from torch.profiler import ProfilerActivity, profile
+    _, _, fused, images, n_valid = state
+    fused(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fused(images)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    n_kernels = sum(r[1] for r in rows)
+
+    nms = mods["box_nms_topk"]
+    nms_counts = {}
+    for label, bx, sc, keep in nms_inputs(torch, images.device):
+        n, ms = device_profile(torch, lambda: nms(bx, sc, 0.5, None, keep))
+        nms_counts[label] = {"kernel_launches": n, "device_ms": ms}
+    after = throughput(torch, fused, images, n_valid, 3)
+    summary = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+               "idle_share": 1.0 - busy / ms_per_call,
+               "kernel_launches": n_kernels, "nms": nms_counts,
+               "ms_per_call_after_profiling": after["ms_per_call"]}
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
+            f.write(json.dumps(summary) + "\n")
+            for t, c, k in rows[:40]:
+                f.write(f"{t:10.3f} ms {c:6d}x  {k}\n")
+    print("profile of one fused call:", json.dumps(summary))
+    for t, c, k in rows[:8]:
+        print(f"  {t:9.3f} ms {c:6d}x  {k[:90]}")
+    return summary
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--out", default=None,
+                    help="directory for the profile's 40 largest kernels")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from stlpose_tpu_torch.config import FasterRCNNConfig, get_hrnet_config
+    from stlpose_tpu_torch.engines.vase_evaluator import build_fused_two_stage
+    from stlpose_tpu_torch.kernels import _build
+    from stlpose_tpu_torch.kernels import decode as k1
+    from stlpose_tpu_torch.kernels import roi_align as k3
+    from stlpose_tpu_torch.kernels import warp as k2
+    from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
+    from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
+    from stlpose_tpu_torch.ops import affine
+    from stlpose_tpu_torch.ops import roi_align as roi_ops
+    from stlpose_tpu_torch.ops.nms import box_nms_topk
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    print("torch", torch.__version__, "cuda", torch.version.cuda,
+          "device", torch.cuda.get_device_name(0), flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    t0 = time.time()
+    logs = _build.build(["decode", "warp", "roi_align"])
+    print(f"built {sorted(logs) or 'nothing (cached)'} in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  [{name}] {line.strip()}")
+
+    rng = torch.Generator(device=dev).manual_seed(args.seed)
+    checks = [check_decode(torch, k1, dev, rng),
+              check_warp(torch, k2, affine, dev, rng),
+              check_roi(torch, k3, roi_ops, dev, rng)]
+    for k, _ in checks:
+        print(f"{k['name']}: max_abs_err {k['max_abs_err']} (tol "
+              f"{k['tolerance']})", flush=True)
+
+    mods = dict(k1=k1, k2=k2, k3=k3, FasterRCNN=FasterRCNN,
+                FasterRCNNConfig=FasterRCNNConfig,
+                PoseHighResolutionNet=PoseHighResolutionNet,
+                get_hrnet_config=get_hrnet_config,
+                build_fused_two_stage=build_fused_two_stage,
+                box_nms_topk=box_nms_topk)
+    launches, tput, state = main_path(torch, mods, dev, args)
+    stages = stage_times(torch, mods, state)
+
+    # torch.profiler from here on: every host-clock and CUDA-event time
+    # above was taken before its first session
+    kernels = []
+    for k, fns in checks:
+        device_times(torch, k, fns)
+        k["launches"] = launches[k["name"]]
+        kernels.append(k)
+        print(f"{k['name']}: kernel {k['ms']} ms, plain {k['plain_ms']} ms, "
+              f"library {k['library_ms']} ms, bound {k['bound_ms']} ms "
+              f"({k['bound_by']}), launches on the main path "
+              f"{k['launches']}", flush=True)
+    prof = profile_main_path(torch, mods, state, tput["ms_per_call"],
+                             args.out)
+
+    print(card)
+    print(json.dumps({"kernels": kernels, "end_to_end": tput,
+                      "stages_ms": stages, "profile": prof}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,133 @@
+"""K3: multilevel FPN RoIAlign (CUDA kernel ``csrc/roi_align.cu``).
+
+Replaces ``stlpose_tpu/ops/pallas_roi.py::_roi_chunk_call`` (Pallas
+kernels ``_roi_kernel_pp`` and ``_roi_kernel``) behind
+``multilevel_roi_align_pallas_batched``. Bound on the H100: the pooled
+output written plus the feature maps read once. Design: one block per
+box, the box's 14+14 sample positions in shared memory, threads over
+(bin, channel) with the channel fastest so NHWC taps coalesce.
+
+``roi_align`` launches the kernel for CUDA tensors and runs
+``roi_align_plain`` for CPU tensors. ``LAUNCHES`` counts kernel launches.
+The level of each box is an input: the caller computes it once
+(``ops/roi_align.py::_assign_levels``) and hands the same vector to either
+version, since a level flip is a large error, not a rounding one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stlpose_tpu_torch.kernels import _build
+from stlpose_tpu_torch.kernels._build import F32, I32, P
+
+LAUNCHES = 0
+OUTPUT_SIZE = 7
+SAMPLING_RATIO = 2
+MAX_LEVELS = 4
+
+
+def roi_align_single_level(features, boxes, img, spatial_scale: float):
+    """RoIAlign of (N, 4) xyxy image-space boxes, box n against image
+    ``img[n]`` of the (B, H, W, C) map; torchvision aligned=False border
+    rules, 7x7 bins of 2x2 samples. Returns (N, 7, 7, C)."""
+    B, H, W, C = features.shape
+    n, sr = OUTPUT_SIZE, SAMPLING_RATIO
+    dev = features.device
+    s = torch.arange(n * sr, device=dev)
+    pos = (s // sr).to(torch.float32) + ((s % sr).to(torch.float32) + 0.5) / sr
+    b = boxes * spatial_scale
+    # a device tensor, not a Python number: CUDA divides by a host scalar
+    # as a multiply by its reciprocal, one rounding off the kernel's
+    n_t = torch.tensor(float(n), device=dev)
+
+    def axis(lo, hi, size):
+        roi = torch.clamp(hi - lo, min=1.0)
+        g = lo[:, None] + pos[None, :] * (roi / n_t)[:, None]   # (N, ns)
+        inside = (g >= -1.0) & (g <= size)
+        gc = torch.clamp(g, 0.0, size - 1)
+        g0 = torch.floor(gc)
+        i0 = g0.to(torch.int64)
+        return i0, (i0 + 1).clamp(max=size - 1), gc - g0, inside
+
+    x0, x1, fx, inx = axis(b[:, 0], b[:, 2], W)
+    y0, y1, fy, iny = axis(b[:, 1], b[:, 3], H)
+    flat = features.reshape(B * H * W, C)
+    base = img.to(torch.int64)[:, None, None] * (H * W)
+
+    def tap(yi, xi):                                 # (N, ns_y, ns_x, C)
+        return flat[base + yi[:, :, None] * W + xi[:, None, :]]
+
+    fx, fy = fx[:, None, :, None], fy[:, :, None, None]
+    v = (tap(y0, x0) * ((1.0 - fx) * (1.0 - fy)) +
+         tap(y0, x1) * (fx * (1.0 - fy)) +
+         tap(y1, x0) * ((1.0 - fx) * fy) +
+         tap(y1, x1) * (fx * fy))
+    inside = (iny[:, :, None] & inx[:, None, :])[..., None]
+    v = torch.where(inside, v, 0.0).reshape(-1, n, sr, n, sr, C)
+    return (v[:, :, 0, :, 0] + v[:, :, 0, :, 1] + v[:, :, 1, :, 0] +
+            v[:, :, 1, :, 1]) * 0.25
+
+
+def roi_align_plain(feature_levels, boxes, levels, strides):
+    """Plain PyTorch version of the kernel.
+
+    feature_levels: L <= 4 maps (B, h_l, w_l, C) f32; boxes (B, P, 4)
+    xyxy image pixels; levels (B, P) int32 in [0, L) (a box with another
+    level pools zeros); strides: per level. Returns (B, P, 7, 7, C)."""
+    B, P = boxes.shape[:2]
+    C = feature_levels[0].shape[-1]
+    flat = boxes.reshape(B * P, 4)
+    lv = levels.reshape(B * P)
+    img = torch.arange(B, device=boxes.device).repeat_interleave(P)
+    out = torch.zeros((B * P, OUTPUT_SIZE, OUTPUT_SIZE, C),
+                      dtype=torch.float32, device=boxes.device)
+    for li, (feat, stride) in enumerate(zip(feature_levels, strides)):
+        sel = torch.nonzero(lv == li)[:, 0]
+        if sel.numel():
+            out[sel] = roi_align_single_level(feat, flat[sel], img[sel],
+                                              1.0 / stride)
+    return out.reshape(B, P, OUTPUT_SIZE, OUTPUT_SIZE, C)
+
+
+def roi_align(feature_levels, boxes, levels, strides):
+    """Multilevel RoIAlign; see ``roi_align_plain`` for the contract."""
+    if boxes.device.type == "cpu":
+        return roi_align_plain(feature_levels, boxes, levels, strides)
+    global LAUNCHES
+    B, NB = boxes.shape[:2]
+    L = len(feature_levels)
+    C = feature_levels[0].shape[-1]
+    dev = boxes.device
+    if not 1 <= L <= MAX_LEVELS or len(strides) < L:
+        raise ValueError(f"roi_align: 1..{MAX_LEVELS} levels with strides "
+                         f"expected, got {L} levels, {len(strides)} strides")
+    for f in feature_levels:
+        if (f.device != dev or f.dtype != torch.float32 or f.dim() != 4
+                or f.shape[0] != B or f.shape[-1] != C):
+            raise ValueError("roi_align: every level must be a float32 "
+                             f"(B={B}, h, w, C={C}) map on {dev}")
+    if (dev.type != "cuda" or boxes.dtype != torch.float32
+            or boxes.shape != (B, NB, 4) or levels.shape != (B, NB)
+            or levels.device != dev):
+        raise ValueError("roi_align: expected float32 CUDA boxes (B, P, 4) "
+                         "and levels (B, P) on the same device")
+    feats = [f.contiguous() for f in feature_levels]
+    boxes = boxes.contiguous()
+    lv32 = levels.to(torch.int32).contiguous()
+    out = torch.empty((B, NB, OUTPUT_SIZE, OUTPUT_SIZE, C),
+                      dtype=torch.float32, device=dev)
+    ptrs = [f.data_ptr() for f in feats] + [None] * (MAX_LEVELS - L)
+    hw = []
+    for i in range(MAX_LEVELS):
+        hw += ([feats[i].shape[1], feats[i].shape[2]] if i < L else [0, 0])
+    scales = [1.0 / s for s in strides[:L]] + [0.0] * (MAX_LEVELS - L)
+    launch = _build.launcher(
+        "roi_align", "roi_align_launch",
+        [P] * MAX_LEVELS + [I32] * (2 * MAX_LEVELS) + [F32] * MAX_LEVELS +
+        [I32] * 2 + [P] * 2 + [I32] * 2 + [P] * 2)
+    with torch.cuda.device(dev):
+        launch(*ptrs, *hw, *scales, L, C, boxes.data_ptr(), lv32.data_ptr(),
+               B, NB, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,211 @@
+"""HRNet pose network (W32, 256x192 -> 64x48x17 heatmaps) as nn.Modules.
+
+Port of ``stlpose_tpu/models/hrnet.py`` in its float32, un-folded,
+eval-BatchNorm form. Inside, tensors are NCHW; the public forward keeps
+the JAX package's layout: (N, 256, 192, 3) NHWC in, (N, 64, 48, J) out
+(a permuted view of the NCHW heatmaps, so decode reads them in place).
+
+Submodule names repeat the Flax module tree (``stem1.conv``,
+``stage2_m0.branch0_block0.cb1.bn``, ...), so weights carry across by
+layout alone (``models/convert.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from stlpose_tpu_torch import resolve_device
+from stlpose_tpu_torch.config import HRNetConfig, HRNetStageConfig, \
+    get_hrnet_config
+
+
+def _upsample_nearest(x, factor: int):
+    """Nearest-neighbour 2^k upsample of NCHW by repetition."""
+    return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
+
+
+class ConvBN(nn.Module):
+    """conv (no bias, symmetric k//2 padding) + eval BatchNorm (eps 1e-5,
+    the reference's) [+ ReLU]."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3,
+                 stride: int = 1, relu: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
+                              bias=False)
+        self.bn = nn.BatchNorm2d(cout)
+        self.relu = relu
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.relu else x
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 ConvBNs with a residual."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.cb1 = ConvBN(cin, features, 3, stride)
+        self.cb2 = ConvBN(features, features, 3, 1, relu=False)
+        self.down = (ConvBN(cin, features, 1, stride, relu=False)
+                     if downsample else None)
+
+    def forward(self, x):
+        y = self.cb2(self.cb1(x))
+        residual = x if self.down is None else self.down(x)
+        return F.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 (x4) with a residual."""
+    expansion = 4
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.cb1 = ConvBN(cin, features, 1, 1)
+        self.cb2 = ConvBN(features, features, 3, stride)
+        self.cb3 = ConvBN(features, features * self.expansion, 1, 1,
+                          relu=False)
+        self.down = (ConvBN(cin, features * self.expansion, 1, stride,
+                            relu=False) if downsample else None)
+
+    def forward(self, x):
+        y = self.cb3(self.cb2(self.cb1(x)))
+        residual = x if self.down is None else self.down(x)
+        return F.relu(y + residual)
+
+
+class HighResolutionModule(nn.Module):
+    """Parallel BasicBlock branches + all-to-all cross-resolution fusion."""
+
+    def __init__(self, stage: HRNetStageConfig,
+                 multi_scale_output: bool = True):
+        super().__init__()
+        self.stage = stage
+        chans = stage.num_channels
+        for b in range(stage.num_branches):
+            for k in range(stage.num_blocks[b]):
+                self.add_module(f"branch{b}_block{k}",
+                                BasicBlock(chans[b], chans[b]))
+        self.n_out = (stage.num_branches if multi_scale_output else 1) \
+            if stage.num_branches > 1 else 0
+        for i in range(self.n_out):
+            for j in range(stage.num_branches):
+                if j > i:
+                    self.add_module(f"fuse{i}_{j}",
+                                    ConvBN(chans[j], chans[i], 1, 1,
+                                           relu=False))
+                elif j < i:
+                    for k in range(i - j):
+                        last = k == i - j - 1
+                        self.add_module(
+                            f"fuse{i}_{j}_{k}",
+                            ConvBN(chans[j], chans[i] if last else chans[j],
+                                   3, 2, relu=not last))
+
+    def forward(self, xs):
+        st = self.stage
+        ys = []
+        for b in range(st.num_branches):
+            y = xs[b]
+            for k in range(st.num_blocks[b]):
+                y = getattr(self, f"branch{b}_block{k}")(y)
+            ys.append(y)
+        if st.num_branches == 1:
+            return ys
+        fused = []
+        for i in range(self.n_out):
+            acc = None
+            for j in range(st.num_branches):
+                if j == i:
+                    z = ys[j]
+                elif j > i:
+                    z = _upsample_nearest(getattr(self, f"fuse{i}_{j}")(ys[j]),
+                                          2 ** (j - i))
+                else:
+                    z = ys[j]
+                    for k in range(i - j):
+                        z = getattr(self, f"fuse{i}_{j}_{k}")(z)
+                acc = z if acc is None else acc + z
+            fused.append(F.relu(acc))
+        return fused
+
+
+class PoseHighResolutionNet(nn.Module):
+    """HRNet keypoint-heatmap regressor: (N, 256, 192, 3) NHWC ->
+    (N, 64, 48, num_joints) heatmaps, float32, eval mode."""
+
+    def __init__(self, config: HRNetConfig = get_hrnet_config("w32_256x192"),
+                 device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = cfg = config
+        self.stem1 = ConvBN(3, cfg.stem_channels, 3, 2)
+        self.stem2 = ConvBN(cfg.stem_channels, cfg.stem_channels, 3, 2)
+        cin = cfg.stem_channels
+        for k in range(cfg.stage1_num_blocks):
+            self.add_module(f"layer1_{k}",
+                            Bottleneck(cin, cfg.stem_channels,
+                                       downsample=(k == 0)))
+            cin = cfg.stem_channels * Bottleneck.expansion
+
+        prev = [cin]
+        stages = (cfg.stage2, cfg.stage3, cfg.stage4)
+        for s, stage in enumerate(stages, start=2):
+            for i in range(stage.num_branches):
+                if i < len(prev):
+                    if prev[i] != stage.num_channels[i]:
+                        self.add_module(
+                            f"transition{s - 1}_{i}",
+                            ConvBN(prev[i], stage.num_channels[i], 3, 1))
+                else:
+                    c = prev[-1]
+                    for j in range(i + 1 - len(prev)):
+                        out_ch = (stage.num_channels[i]
+                                  if j == i - len(prev) else prev[-1])
+                        self.add_module(f"transition{s - 1}_{i}_{j}",
+                                        ConvBN(c, out_ch, 3, 2))
+                        c = out_ch
+            for m in range(stage.num_modules):
+                mso = not (s == 4 and m == stage.num_modules - 1)
+                self.add_module(f"stage{s}_m{m}",
+                                HighResolutionModule(stage, mso))
+            prev = list(stage.num_channels)
+
+        k = cfg.final_conv_kernel
+        self.final_layer = nn.Conv2d(cfg.stage4.num_channels[0],
+                                     cfg.num_joints, k, 1,
+                                     1 if k == 3 else 0)
+        self.to(device)
+        self.eval()
+
+    def forward(self, x):
+        cfg = self.config
+        x = x.permute(0, 3, 1, 2).contiguous()
+        x = self.stem2(self.stem1(x))
+        for k in range(cfg.stage1_num_blocks):
+            x = getattr(self, f"layer1_{k}")(x)
+        xs = [x]
+        n_prev = 1
+        for s, stage in enumerate((cfg.stage2, cfg.stage3, cfg.stage4),
+                                  start=2):
+            nxt = []
+            for i in range(stage.num_branches):
+                if i < n_prev:
+                    t = getattr(self, f"transition{s - 1}_{i}", None)
+                    nxt.append(xs[i] if t is None else t(xs[i]))
+                else:
+                    z = xs[-1]
+                    for j in range(i + 1 - n_prev):
+                        z = getattr(self, f"transition{s - 1}_{i}_{j}")(z)
+                    nxt.append(z)
+            xs = nxt
+            for m in range(stage.num_modules):
+                xs = getattr(self, f"stage{s}_m{m}")(xs)
+            n_prev = stage.num_branches
+        return self.final_layer(xs[0]).permute(0, 2, 3, 1)
