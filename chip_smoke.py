@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name, power limit); TF32 off;
-  2. build the three CUDA kernels from stlpose_tpu_torch/kernels/csrc
+  2. build the four CUDA kernels from stlpose_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel) and print the build time;
-  3. per kernel, at the main path's shapes, compare the kernel with its
+  3. per kernel, at its main path's shapes, compare the kernel with its
      plain PyTorch version on the card; bound = the bytes the function
      must move at 3.35 TB/s (or its f32 operations at 67 TFLOP/s, if
      that is longer);
@@ -17,11 +17,21 @@ Phases, each fatal on failure:
      first; check shapes, finiteness, that each kernel was launched, and
      agreement with the same program run on the plain versions; time
      images/s and crops/s, then the detector, HRNet and NMS stages alone;
-  5. under torch.profiler: the device time of each kernel, its plain
+  5. drive the pose training path at full width (HRNet-W32 256x192, f32,
+     B = 32, Adam lr 1e-3, seeded weights): batches from the device-warp
+     collate on seeded 640x640 uint8 canvases with the COCO augmentation
+     recipe, train steps, one eval step and one scheduler step, counters
+     set to 0 first; check a finite loss, moved parameters and BatchNorm
+     statistics, K4 and K1 launched, K1 against its plain version on the
+     last timed step's own prediction and target heatmaps, and one step
+     on the kernels against the same step on the plain versions (cuDNN
+     deterministic: loss, PCK hits and count, every peak, parameters);
+     time samples/s and ms per step, split into finalize and step;
+  6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
-     same function; one fused call's kernel launches, device busy time
-     and idle share (its 40 largest kernels into
-     DIR/chip_smoke_profile.txt when --out is given).
+     same function; one fused call's and one training iteration's kernel
+     launches, device busy time and idle share (their 40 largest kernels
+     into DIR/chip_smoke_profile.txt when --out is given).
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -39,12 +49,23 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 B, MAX_DETS, BUDGET = 8, 8, 64
 # Random weights give person scores spread around 0.5: a threshold of 0
 # keeps every valid detection, so 8 per image fill the 64-crop budget.
 BBOX_THR = 0.0
+# Pose training: batch of stlpose_tpu/config.py, canvas of the device-warp
+# pipeline, HRNet's COCO augmentation (scripts/profile_input_pipeline.py)
+TRAIN_B, CANVAS, TRAIN_STEPS = 32, 640, 10
+AUG = {"dataset": {"scale_factor": 0.35, "rot_factor": 45, "flip": True,
+                   "num_joints_half_body": 8, "prob_half_body": 0.3}}
+EXP = {"training": {"learning_rate": 1e-3, "optimizer": "adam",
+                    "scheduler": "plateau", "learning_rate_factor": 0.1,
+                    "patience": 3, "perceptual_loss": True},
+       "dataset": {"dataset_name": "styled_coco"}}
 
 
 def fail(msg):
@@ -86,12 +107,15 @@ def device_profile(torch, fn, iters=1):
 
 def device_rows(prof):
     """[(ms, count, name)] of the device-side events (kernels, copies,
-    memsets) of a profile, largest first; CPU-side ops are left out so no
-    time is counted twice."""
+    memsets) of a profile, largest first; CPU-side ops and the device-side
+    spans of user annotations (``Optimizer.step#Adam.step`` covers the
+    optimizer's kernels and the gaps between them) are left out so no time
+    is counted twice."""
     from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
+        if (getattr(e, "device_type", None) != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
@@ -266,6 +290,102 @@ def check_roi(torch, k3, roi_ops, dev, rng):
                 shape=[B, P, C, *sizes], **event_times(torch, fns, 10)), fns
 
 
+def synthetic_records(mods, seed):
+    """TRAIN_B seeded uint8 images of CANVAS x CANVAS (the letterbox size,
+    so the pipeline needs no cv2 for them) and one person record on each:
+    a random box, 17 joints inside it (80% visible), a perceptual loss."""
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (TRAIN_B, CANVAS, CANVAS, 3), np.uint8)
+    recs = []
+    for i in range(TRAIN_B):
+        w, h = rng.uniform(80, 300), rng.uniform(150, 450)
+        x, y = rng.uniform(0, CANVAS - w), rng.uniform(0, CANVAS - h)
+        c, sc = mods["xywh_to_cs"](x, y, w, h)
+        joints = np.stack([x + rng.rand(17) * w, y + rng.rand(17) * h],
+                          -1).astype(np.float32)
+        recs.append(mods["PoseRecord"](
+            image=f"synthetic_{i}", original_image=f"synthetic_{i}",
+            image_id=i, center=c, scale=sc, joints=joints,
+            joints_vis=(rng.rand(17) > 0.2).astype(np.float32),
+            perceptual_loss=float(rng.rand())))
+    return images, recs
+
+
+def two_pass_footprint(torch, params, S, out_hw):
+    """Canvas pixels, over the batch, that the two-pass warp's in-bounds
+    taps read (each read once: the bound's input bytes)."""
+    N = params.shape[0]
+    DH, DW = out_hw
+    dev = params.device
+    gy = torch.arange(DH, dtype=torch.float32, device=dev)[:, None]
+    gx = torch.arange(DW, dtype=torch.float32, device=dev)[None, :]
+    u, r, txr, b, a, ty, swap = (params[:, i, None, None] for i in range(7))
+    n = torch.arange(N, device=dev)[:, None, None]
+    seen = torch.zeros(N * S * S, dtype=torch.bool, device=dev)
+    y0 = torch.floor(b * gx + a * gy + ty)
+    for y in (y0, y0 + 1):
+        x0 = torch.floor(u * gx - r * y + txr)
+        for x in (x0, x0 + 1):
+            ok = (y >= 0) & (y < S) & (x >= 0) & (x < S)
+            yi, xi = y.clamp(0, S - 1).long(), x.clamp(0, S - 1).long()
+            row = torch.where(swap > 0, xi, yi)
+            col = torch.where(swap > 0, S - 1 - yi, xi)
+            seen[((n * S + row) * S + col)[ok]] = True
+    return int(seen.sum())
+
+
+def check_warp_two_pass(torch, k4, mods, dev, seed):
+    """K4 at the training shapes: TRAIN_B seeded uint8 canvases of
+    640x640, crops drawn by the port's AugmentationParams with the COCO
+    recipe, four of them forced to +-60 and +-89 degrees so the
+    conditioning turn runs; the same canvases as f32 through the f32
+    instantiation. Tolerance 1e-4 on the 0-255 scale (0 expected: kernel
+    and plain version round alike)."""
+    images, recs = synthetic_records(mods, seed)
+    aug = mods["AugmentationParams"](
+        scale_factor=0.35, rotation_factor=45, flip=True,
+        prob_half_body=0.3, seed=seed)
+    draws = [aug.sample(r.center, r.scale, r.joints, r.joints_vis)
+             for r in recs]
+    rots = np.float32([d[2] for d in draws])
+    rots[:4] = (60.0, -60.0, 89.0, -89.0)
+    canv = torch.from_numpy(images).to(dev)
+    centers = torch.from_numpy(np.stack([d[0] for d in draws])).to(dev)
+    scales = torch.from_numpy(np.stack([d[1] for d in draws])).to(dev)
+    rot = torch.from_numpy(rots).to(dev)
+    params = mods["two_pass_params"](centers, scales, rot, CANVAS,
+                                     (192, 256))
+    got = k4.warp_two_pass(canv, params, (192, 256))
+    ref = k4.warp_two_pass_plain(canv, params, (192, 256))
+    err = float((got - ref).abs().max())
+    # the f32 instantiation on the same canvases (uint8 -> f32 is exact)
+    err_f32 = float((k4.warp_two_pass(canv.float(), params, (192, 256)) -
+                     ref).abs().max())
+    n_swap = int(params[:, 6].sum())
+    if not (err <= 1e-4 and err_f32 <= 1e-4):
+        fail(f"K4 two-pass warp differs from its plain version by {err} "
+             f"(uint8 canvases), {err_f32} (f32 canvases)")
+    if n_swap < 4:
+        fail(f"K4 check: only {n_swap} crops took the conditioning turn")
+    # K2 (direct bilinear) on the same crops: a different function
+    k2_diff = float((mods["affine_warp"](canv.float(), centers, scales, rot,
+                                         (192, 256)) - ref).abs().max())
+    touched = two_pass_footprint(torch, params, CANVAS, (256, 192))
+    n_bytes = got.numel() * 4 + touched * 3 + params.numel() * 4
+    b, by = bound_ms(n_bytes, flops=got.numel() * 15)
+    fns = (lambda: k4.warp_two_pass(canv, params, (192, 256)),
+           lambda: k4.warp_two_pass_plain(canv, params, (192, 256)), None)
+    return dict(name="warp_two_pass", route="cuda",
+                source="stlpose_tpu_torch/kernels/csrc/warp_two_pass.cu",
+                replaces="stlpose_tpu/ops/pallas_warp.py:153",
+                max_abs_err=err, tolerance=1e-4, bound_ms=b, bound_by=by,
+                f32_canvas_max_abs_err=err_f32, crops_turned=n_swap,
+                canvas_bytes_read=touched * 3,
+                k2_direct_bilinear_max_abs_diff=k2_diff,
+                shape=[TRAIN_B, CANVAS, CANVAS, 3, 256, 192],
+                **event_times(torch, fns)), fns
+
+
 # ---------------------------------------------------------------- main path
 def seeded_weights(torch, module, seed):
     """Random weights from ``seed``: fan-in scaled normal convolution and
@@ -284,21 +404,43 @@ def seeded_weights(torch, module, seed):
 
 
 @contextlib.contextmanager
-def plain_versions(k1, k2, k3):
-    """Route the three kernel entry points to their plain versions (the
-    comparison run only)."""
-    saved = (k1.heatmap_peaks, k2.affine_crop, k3.roi_align)
+def plain_versions(k1, k2, k3, k4):
+    """Route the four kernel entry points to their plain versions (the
+    comparison runs only)."""
+    saved = (k1.heatmap_peaks, k2.affine_crop, k3.roi_align,
+             k4.warp_two_pass)
     k1.heatmap_peaks = k1.heatmap_peaks_plain
     k2.affine_crop = k2.affine_crop_plain
     k3.roi_align = k3.roi_align_plain
+    k4.warp_two_pass = k4.warp_two_pass_plain
     try:
         yield
     finally:
-        k1.heatmap_peaks, k2.affine_crop, k3.roi_align = saved
+        (k1.heatmap_peaks, k2.affine_crop, k3.roi_align,
+         k4.warp_two_pass) = saved
+
+
+@contextlib.contextmanager
+def recording(k1, log):
+    """Append (heatmaps, (coords, maxvals, shift)) of every call of K1's
+    entry point (kernel or plain version, whichever is in place) to
+    ``log``."""
+    fn = k1.heatmap_peaks
+
+    def logged(hm):
+        out = fn(hm)
+        log.append((hm, out))
+        return out
+
+    k1.heatmap_peaks = logged
+    try:
+        yield
+    finally:
+        k1.heatmap_peaks = fn
 
 
 def main_path(torch, mods, dev, args):
-    k1, k2, k3 = mods["k1"], mods["k2"], mods["k3"]
+    k1, k2, k3, k4 = mods["k1"], mods["k2"], mods["k3"], mods["k4"]
     t0 = time.time()
     det = seeded_weights(torch, mods["FasterRCNN"](mods["FasterRCNNConfig"](),
                                                    device=dev), args.seed)
@@ -316,7 +458,7 @@ def main_path(torch, mods, dev, args):
 
     fused(images)                                   # warm-up (cuDNN plans)
     torch.cuda.synchronize()
-    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = 0
+    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
     out = fused(images)
     torch.cuda.synchronize()
     launches = {"heatmap_peaks": k1.LAUNCHES, "affine_crop": k2.LAUNCHES,
@@ -345,7 +487,7 @@ def main_path(torch, mods, dev, args):
           f"heatmap peaks {float(out['crop_kpts'][pv][..., 2].min()):.3f}.."
           f"{float(out['crop_kpts'][pv][..., 2].max()):.3f}")
 
-    with plain_versions(k1, k2, k3):
+    with plain_versions(k1, k2, k3, k4):
         ref = fused(images)
     torch.cuda.synchronize()
     for k in ("sel_valid", "picked_valid", "img_idx"):
@@ -382,6 +524,184 @@ def throughput(torch, fused, images, n_valid, iters):
     dt = time.perf_counter() - t0
     return {"images_per_s": B * iters / dt, "crops_per_s": n_valid * iters / dt,
             "ms_per_call": dt / iters * 1e3, "iters": iters}
+
+
+def train_path(torch, mods, dev, args):
+    """Pose training at full width: seeded HRNet-W32, Adam, batches from
+    the device-warp collate (host samples made first, as the decode
+    threads would), 2 warm-up iterations, then TRAIN_STEPS timed ones,
+    one eval step and one scheduler step with every launch counter set to
+    0 first; K1 against its plain version on the last timed step's own
+    heatmaps; then one step on the kernels against the same step on the
+    plain versions."""
+    import copy
+    k1, k2, k3, k4 = mods["k1"], mods["k2"], mods["k3"], mods["k4"]
+    t0 = time.time()
+    images, recs = synthetic_records(mods, args.seed + 4)
+    pipe = mods["PoseDataPipeline"](recs, TRAIN_B, is_train=True,
+                                    exp_data=AUG, seed=args.seed,
+                                    canvas_size=CANVAS, device=dev)
+    raw = [[pipe._letterbox(img, r) for img, r in zip(images, recs)]
+           for _ in range(4)]
+    eval_pipe = mods["PoseDataPipeline"](recs, TRAIN_B, is_train=False,
+                                         canvas_size=CANVAS, device=dev)
+    eval_raw = [eval_pipe._letterbox(img, r) for img, r in zip(images, recs)]
+    model = seeded_weights(torch, mods["PoseHighResolutionNet"](
+        mods["get_hrnet_config"]("w32_256x192"), device=dev), args.seed + 3)
+    state = mods["create_train_state"](model, EXP)
+    train_step = mods["make_train_step"](perceptual_cfg=EXP)
+    eval_step = mods["make_eval_step"]()
+    print(f"training set-up in {time.time() - t0:.1f} s", flush=True)
+
+    def iteration(samples):
+        batch = pipe._collate_device_warp(samples, recs)
+        return batch, train_step(state, batch)
+
+    for i in range(2):                              # warm-up (cuDNN plans)
+        iteration(raw[i])
+    torch.cuda.synchronize()
+    watch = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if k in ("stem1.conv.weight", "final_layer.weight",
+                      "stem1.bn.running_mean", "stem1.bn.running_var",
+                      "stage4_m2.branch3_block3.cb2.bn.running_var")}
+    acc = mods["MetricAccumulator"](finite_only=("loss",))
+    for k in (k1, k2, k3, k4):
+        k.LAUNCHES = 0
+    fin_ms = step_ms = 0.0
+    seen = []                       # K1's calls in the last timed step
+    for i in range(TRAIN_STEPS):
+        t_a = time.perf_counter()
+        batch = pipe._collate_device_warp(raw[i % len(raw)], recs)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        with (recording(k1, seen) if i == TRAIN_STEPS - 1
+              else contextlib.nullcontext()):
+            acc.update(train_step(state, batch))
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        fin_ms += (t_b - t_a) * 1e3
+        step_ms += (t_c - t_b) * 1e3
+    train_m = acc.fetch()
+    eval_acc = mods["MetricAccumulator"]()
+    pred, em = eval_step(state, eval_pipe._collate_device_warp(eval_raw,
+                                                               recs))
+    eval_acc.update(em)
+    eval_m = eval_acc.fetch()
+    sched = mods["build_scheduler"](EXP)
+    lr = sched.step(eval_m["loss_mean"], mods["get_current_lr"](
+        state.optimizer))
+    mods["set_current_lr"](state.optimizer, lr)
+    torch.cuda.synchronize()
+    launches = {"warp_two_pass": k4.LAUNCHES, "heatmap_peaks": k1.LAUNCHES,
+                "affine_crop": k2.LAUNCHES, "roi_align": k3.LAUNCHES}
+    print("training-path launches:", json.dumps(launches))
+    if launches["warp_two_pass"] < 1 or launches["heatmap_peaks"] < 1:
+        fail(f"a kernel of the training path was not launched: {launches}")
+    if train_m["loss_n"] != TRAIN_STEPS or \
+            not np.isfinite(train_m["loss_mean"]):
+        fail(f"non-finite training loss: {train_m}")
+    if tuple(pred.shape) != (TRAIN_B, 17, 64, 48) or \
+            not bool(torch.isfinite(pred).all()):
+        fail("eval step: bad heatmaps")
+    now = model.state_dict()
+    unmoved = [k for k, v in watch.items() if torch.equal(v, now[k])]
+    if unmoved:
+        fail(f"training left these unchanged: {unmoved}")
+
+    # K1 on the last timed step's own heatmaps (train-mode predictions,
+    # then Gaussian targets: all-zero maps for invisible joints, exact
+    # ties): exact agreement with its plain version
+    if [tuple(hm.shape) for hm, _ in seen] != [(TRAIN_B, 17, 64, 48)] * 2:
+        fail(f"K1 calls of a train step: {[hm.shape for hm, _ in seen]}")
+    k1_train = {}
+    for label, (hm, out) in zip(("pred", "target"), seen):
+        ref = k1.heatmap_peaks_plain(hm)
+        if not all(torch.equal(g, r) for g, r in zip(out, ref)):
+            errs = [float((g - r).abs().max()) for g, r in zip(out, ref)]
+            fail(f"K1 differs from its plain version on the step's {label} "
+                 f"heatmaps by {errs}")
+        k1_train[f"{label}_maps_all_zero"] = int(
+            (hm.amax(dim=(2, 3)) == 0).sum())
+    print("K1 on the training step's heatmaps: equal to its plain version",
+          json.dumps(k1_train))
+
+    # one step on the kernels, the same step on the plain versions
+    torch.backends.cudnn.deterministic = True
+    saved = (copy.deepcopy(model.state_dict()),
+             copy.deepcopy(state.optimizer.state_dict()))
+    try:
+        outs = []
+        for plain in (False, True):
+            # load_state_dict keeps the optimizer's tensors, which the step
+            # then updates in place: hand it a fresh copy each time
+            model.load_state_dict(saved[0])
+            state.optimizer.load_state_dict(copy.deepcopy(saved[1]))
+            peaks = []
+            with (plain_versions(k1, k2, k3, k4) if plain
+                  else contextlib.nullcontext()), recording(k1, peaks):
+                _, m = iteration(raw[0])
+            outs.append((float(m["loss"]), int(m["pck_hit"]),
+                         int(m["pck_cnt"]), [o[0] for _, o in peaks],
+                         [p.detach().clone() for p in model.parameters()]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lk, hk, ck, ak, pk), (lp, hp, cp, ap, pp) = outs
+    param_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(pk, pp))
+    # the peaks of the predictions and of the targets: equal coordinates
+    peaks_equal = len(ak) == len(ap) == 2 and all(
+        torch.equal(a, b) for a, b in zip(ak, ap))
+    vs_plain = {"loss_kernels": lk, "loss_plain": lp,
+                "loss_rel_diff": abs(lk - lp) / abs(lp),
+                "pck_hit_kernels": hk, "pck_hit_plain": hp,
+                "pck_cnt_kernels": ck, "pck_cnt_plain": cp,
+                "argmax_coords_equal": peaks_equal,
+                "param_max_rel_diff": param_err}
+    print("training step, kernels vs plain versions:", json.dumps(vs_plain))
+    if not (vs_plain["loss_rel_diff"] <= 1e-6 and hk == hp and ck == cp
+            and peaks_equal and param_err <= 1e-6):
+        fail(f"training step disagrees with its plain-version run: "
+             f"{vs_plain}")
+
+    n = TRAIN_STEPS
+    summary = {"batch": TRAIN_B, "steps": n,
+               "ms_per_step": (fin_ms + step_ms) / n,
+               "finalize_ms": fin_ms / n, "train_step_ms": step_ms / n,
+               "samples_per_s": TRAIN_B * n / (fin_ms + step_ms) * 1e3,
+               "loss_mean": train_m["loss_mean"],
+               "pck": train_m["pck_hit_sum"] / max(train_m["pck_cnt_sum"], 1),
+               "eval_loss": eval_m["loss_mean"], "lr_after_scheduler": lr,
+               "kernels_vs_plain": vs_plain}
+    print("training:", json.dumps(summary), flush=True)
+    return launches, summary, (iteration, raw[0])
+
+
+def profile_train(torch, train_state, ms_per_step, out_dir):
+    """One training iteration (collate + step) under torch.profiler:
+    kernel launches, device busy time, idle share against the unprofiled
+    ``ms_per_step``, and the kernels that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+    iteration, samples = train_state
+    iteration(samples)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        iteration(samples)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows)
+    summary = {"device_busy_ms": busy, "idle_share": 1.0 - busy / ms_per_step,
+               "kernel_launches": sum(r[1] for r in rows)}
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "a") as f:
+            f.write("training iteration " + json.dumps(summary) + "\n")
+            for t, c, k in rows[:40]:
+                f.write(f"{t:10.3f} ms {c:6d}x  {k}\n")
+    print("profile of one training iteration:", json.dumps(summary))
+    for t, c, k in rows[:8]:
+        print(f"  {t:9.3f} ms {c:6d}x  {k[:90]}")
+    return summary
 
 
 def nms_inputs(torch, dev):
@@ -491,16 +811,28 @@ def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from stlpose_tpu_torch.config import FasterRCNNConfig, get_hrnet_config
+    from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
+    from stlpose_tpu_torch.data.pose_dataset import (AugmentationParams,
+                                                     PoseRecord, _xywh_to_cs)
     from stlpose_tpu_torch.engines.vase_evaluator import build_fused_two_stage
     from stlpose_tpu_torch.kernels import _build
     from stlpose_tpu_torch.kernels import decode as k1
     from stlpose_tpu_torch.kernels import roi_align as k3
     from stlpose_tpu_torch.kernels import warp as k2
+    from stlpose_tpu_torch.kernels import warp_two_pass as k4
     from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
     from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
     from stlpose_tpu_torch.ops import affine
     from stlpose_tpu_torch.ops import roi_align as roi_ops
     from stlpose_tpu_torch.ops.nms import box_nms_topk
+    from stlpose_tpu_torch.ops.warp import affine_warp, two_pass_params
+    from stlpose_tpu_torch.parallel.steps import (MetricAccumulator,
+                                                  make_eval_step,
+                                                  make_train_step)
+    from stlpose_tpu_torch.train.optim import (build_scheduler,
+                                               get_current_lr,
+                                               set_current_lr)
+    from stlpose_tpu_torch.train.state import create_train_state
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -514,7 +846,7 @@ def main():
     dev = torch.device("cuda")
 
     t0 = time.time()
-    logs = _build.build(["decode", "warp", "roi_align"])
+    logs = _build.build(["decode", "warp", "roi_align", "warp_two_pass"])
     print(f"built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
@@ -522,29 +854,43 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    rng = torch.Generator(device=dev).manual_seed(args.seed)
-    checks = [check_decode(torch, k1, dev, rng),
-              check_warp(torch, k2, affine, dev, rng),
-              check_roi(torch, k3, roi_ops, dev, rng)]
-    for k, _ in checks:
-        print(f"{k['name']}: max_abs_err {k['max_abs_err']} (tol "
-              f"{k['tolerance']})", flush=True)
-
-    mods = dict(k1=k1, k2=k2, k3=k3, FasterRCNN=FasterRCNN,
+    mods = dict(k1=k1, k2=k2, k3=k3, k4=k4, FasterRCNN=FasterRCNN,
                 FasterRCNNConfig=FasterRCNNConfig,
                 PoseHighResolutionNet=PoseHighResolutionNet,
                 get_hrnet_config=get_hrnet_config,
                 build_fused_two_stage=build_fused_two_stage,
-                box_nms_topk=box_nms_topk)
+                box_nms_topk=box_nms_topk, PoseRecord=PoseRecord,
+                xywh_to_cs=_xywh_to_cs, AugmentationParams=AugmentationParams,
+                two_pass_params=two_pass_params, affine_warp=affine_warp,
+                PoseDataPipeline=PoseDataPipeline,
+                create_train_state=create_train_state,
+                make_train_step=make_train_step,
+                make_eval_step=make_eval_step,
+                MetricAccumulator=MetricAccumulator,
+                build_scheduler=build_scheduler,
+                get_current_lr=get_current_lr, set_current_lr=set_current_lr)
+    rng = torch.Generator(device=dev).manual_seed(args.seed)
+    checks = [check_decode(torch, k1, dev, rng),
+              check_warp(torch, k2, affine, dev, rng),
+              check_roi(torch, k3, roi_ops, dev, rng),
+              check_warp_two_pass(torch, k4, mods, dev, args.seed + 5)]
+    for k, _ in checks:
+        print(f"{k['name']}: max_abs_err {k['max_abs_err']} (tol "
+              f"{k['tolerance']})", flush=True)
+
     launches, tput, state = main_path(torch, mods, dev, args)
     stages = stage_times(torch, mods, state)
+    train_launches, train, train_state = train_path(torch, mods, dev, args)
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
     kernels = []
     for k, fns in checks:
         device_times(torch, k, fns)
-        k["launches"] = launches[k["name"]]
+        by_path = {"serving": launches.get(k["name"], 0),
+                   "training": train_launches[k["name"]]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
         kernels.append(k)
         print(f"{k['name']}: kernel {k['ms']} ms, plain {k['plain_ms']} ms, "
               f"library {k['library_ms']} ms, bound {k['bound_ms']} ms "
@@ -552,10 +898,13 @@ def main():
               f"{k['launches']}", flush=True)
     prof = profile_main_path(torch, mods, state, tput["ms_per_call"],
                              args.out)
+    train["profile"] = profile_train(torch, train_state,
+                                     train["ms_per_step"], args.out)
 
     print(card)
     print(json.dumps({"kernels": kernels, "end_to_end": tput,
-                      "stages_ms": stages, "profile": prof}))
+                      "stages_ms": stages, "profile": prof,
+                      "training": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,7 +12,9 @@ leaf names change:
 Counterpart of ``stlpose_tpu/models/convert.py`` (torch -> Flax names) and
 ``convert_detector.py`` in the other direction. The port's ``BoxHead``
 flattens pooled features in the reference's (7, 7, C) order, so ``fc6``
-needs no input permutation.
+needs no input permutation. ``train_state_from_jax`` carries a whole JAX
+train state (weights, BatchNorm statistics, optimizer moments, step)
+across, so a run continues a JAX run step for step.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import torch
 from stlpose_tpu_torch.config import FasterRCNNConfig, HRNetConfig
 from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
+from stlpose_tpu_torch.train.optim import set_current_lr
+from stlpose_tpu_torch.train.state import PoseTrainState, create_train_state
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
@@ -46,10 +50,10 @@ def jax_variables_to_state_dict(variables) -> dict:
     for key, leaf, arr in _flatten(variables["params"], _PARAM_LEAF):
         if leaf == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        out[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
     for key, _, arr in _flatten(variables.get("batch_stats", {}),
                                 _STAT_LEAF):
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        out[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
     return out
 
 
@@ -82,3 +86,59 @@ def faster_rcnn_from_jax(variables_np, config: FasterRCNNConfig,
                          device="cuda"):
     """A fresh ``FasterRCNN`` holding the JAX detector's weights."""
     return load_jax_variables(FasterRCNN(config, device), variables_np)
+
+
+def _optax_leaf_state(opt_state, field):
+    """The first state in optax's nested tuples that has ``field`` (``mu``
+    for Adam's moments, ``trace`` for SGD's momentum)."""
+    if hasattr(opt_state, field):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            found = _optax_leaf_state(sub, field)
+            if found is not None:
+                return found
+    inner = getattr(opt_state, "inner_state", None)
+    return None if inner is None else _optax_leaf_state(inner, field)
+
+
+def train_state_from_jax(state_np, config: HRNetConfig, exp_data: dict,
+                         device="cuda") -> PoseTrainState:
+    """A port train state continuing a JAX ``PoseTrainState`` given as
+    numpy (``jax.device_get(state)``): params and batch_stats into HRNet,
+    the injected learning rate, Adam's ``mu``/``nu`` and count (or SGD's
+    momentum trace) into the optimizer, and the step."""
+    model = hrnet_from_jax({"params": state_np.params,
+                            "batch_stats": state_np.batch_stats},
+                           config, device)
+    state = create_train_state(model, exp_data)
+    opt = state.optimizer
+    hyper = getattr(state_np.opt_state, "hyperparams", {})
+    if "learning_rate" in hyper:
+        set_current_lr(opt, float(np.asarray(hyper["learning_rate"])))
+    dev = next(model.parameters()).device
+    named = dict(model.named_parameters())
+
+    def as_port(tree):
+        sd = jax_variables_to_state_dict({"params": tree})
+        if set(sd) != set(named):
+            raise KeyError("optimizer state does not match the model")
+        return {k: v.to(dev) for k, v in sd.items()}
+
+    adam = _optax_leaf_state(state_np.opt_state, "mu")
+    sgd = _optax_leaf_state(state_np.opt_state, "trace")
+    if isinstance(opt, torch.optim.Adam) and adam is not None:
+        mu, nu = as_port(adam.mu), as_port(adam.nu)
+        count = float(np.asarray(adam.count))
+        for k, p in named.items():
+            opt.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+                            "exp_avg": mu[k], "exp_avg_sq": nu[k]}
+    elif isinstance(opt, torch.optim.SGD) and sgd is not None:
+        trace = as_port(sgd.trace)
+        for k, p in named.items():
+            opt.state[p] = {"momentum_buffer": trace[k]}
+    else:
+        raise ValueError(f"optimizer state {type(state_np.opt_state)} does "
+                         f"not fit {type(opt).__name__}")
+    state.step = int(np.asarray(state_np.step))
+    return state

@@ -1,7 +1,9 @@
 """HRNet pose network (W32, 256x192 -> 64x48x17 heatmaps) as nn.Modules.
 
-Port of ``stlpose_tpu/models/hrnet.py`` in its float32, un-folded,
-eval-BatchNorm form. Inside, tensors are NCHW; the public forward keeps
+Port of ``stlpose_tpu/models/hrnet.py`` in its float32, un-folded form,
+in eval mode (``model.eval()``, running statistics) and in train mode
+(``model.train()``, batch statistics, with flax's running-statistics
+update). Inside, tensors are NCHW; the public forward keeps
 the JAX package's layout: (N, 256, 192, 3) NHWC in, (N, 64, 48, J) out
 (a permuted view of the NCHW heatmaps, so decode reads them in place).
 
@@ -26,16 +28,41 @@ def _upsample_nearest(x, factor: int):
     return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's train-mode semantics (eps 1e-5, momentum
+    0.1): normalise with the batch mean and biased variance, and move the
+    running variance toward the *biased* batch variance.
+    ``nn.BatchNorm2d`` moves it toward the unbiased one, n/(n-1) larger:
+    1.14x at 8 values a channel. Eval mode is ``nn.BatchNorm2d``'s.
+
+    One statistics pass, ``F.batch_norm``'s own: its update gives
+    ``rv' = keep*rv + (1-keep)*var*n/(n-1)``; taking back the excess,
+    ``rv' - (rv' - keep*rv)/n``, leaves flax's ``keep*rv + (1-keep)*var``."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        keep = 1.0 - self.momentum                  # flax's momentum, 0.9
+        # the op keeps its running_var for backward: hand it a copy
+        upd = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, upd, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.mul_(keep / n).add_(upd, alpha=1.0 - 1.0 / n)
+        return y
+
+
 class ConvBN(nn.Module):
-    """conv (no bias, symmetric k//2 padding) + eval BatchNorm (eps 1e-5,
-    the reference's) [+ ReLU]."""
+    """conv (no bias, symmetric k//2 padding) + BatchNorm (eps 1e-5, the
+    reference's; flax's train-mode update) [+ ReLU]."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
                               bias=False)
-        self.bn = nn.BatchNorm2d(cout)
+        self.bn = FlaxBatchNorm2d(cout)
         self.relu = relu
 
     def forward(self, x):
@@ -138,7 +165,7 @@ class HighResolutionModule(nn.Module):
 
 class PoseHighResolutionNet(nn.Module):
     """HRNet keypoint-heatmap regressor: (N, 256, 192, 3) NHWC ->
-    (N, 64, 48, num_joints) heatmaps, float32, eval mode."""
+    (N, 64, 48, num_joints) heatmaps, float32; built in eval mode."""
 
     def __init__(self, config: HRNetConfig = get_hrnet_config("w32_256x192"),
                  device="cuda"):

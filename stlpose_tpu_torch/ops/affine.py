@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # Person scale is expressed in units of 200 px.
@@ -40,7 +41,10 @@ def get_affine_params(center, scale, rot_deg, output_size,
     src_cx = center[..., 0] + scale_tmp[..., 0] * shift[..., 0]
     src_cy = center[..., 1] + scale_tmp[..., 1] * shift[..., 1]
 
-    cs, sn = torch.cos(rot_rad), torch.sin(rot_rad)
+    # cos and sin in float64, rounded once to f32: torch's f32 sin is an
+    # ulp off XLA's at +-60 degrees, which moves a rotated crop's samples
+    cs = torch.cos(rot_rad.double()).float()
+    sn = torch.sin(rot_rad.double()).float()
     if not inv:
         lam = dst_w / src_w
         a = lam * cs
@@ -81,3 +85,51 @@ def coords_to_center_scale(boxes, aspect_ratio, padding: float = 1.25,
     scale = torch.stack([w, h], dim=-1) / pixel_std * padding
     center = torch.stack([cx, cy], dim=-1)
     return center, scale
+
+
+def get_affine_matrix(center, scale, rot_deg, output_size,
+                      shift=(0.0, 0.0), inv: bool = False):
+    """Batched (..., 2, 3) crop matrices ``[[a, -b, tx], [b, a, ty]]``."""
+    a, b, tx, ty = get_affine_params(center, scale, rot_deg, output_size,
+                                     shift=shift, inv=inv)
+    row0 = torch.stack([a, -b, tx], dim=-1)
+    row1 = torch.stack([b, a, ty], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
+
+
+def apply_affine(points, mat):
+    """(..., 2, 3) matrices applied to (..., P, 2) points, elementwise in
+    the reference's order (it avoids the TPU's reduced-precision f32
+    matmul; here it keeps the two packages' rounding equal)."""
+    points = torch.as_tensor(points, dtype=torch.float32)
+    x, y = points[..., 0], points[..., 1]
+    m = mat[..., None, :, :]
+    out_x = m[..., 0, 0] * x + m[..., 0, 1] * y + m[..., 0, 2]
+    out_y = m[..., 1, 0] * x + m[..., 1, 1] * y + m[..., 1, 2]
+    return torch.stack([out_x, out_y], dim=-1)
+
+
+def get_affine_matrix_np(center, scale, rot_deg, output_size,
+                         shift=(0.0, 0.0), inv: bool = False) -> np.ndarray:
+    """Host numpy (float64) crop matrix of one sample, for host paths."""
+    center = np.asarray(center, np.float64)
+    scale = np.asarray(scale, np.float64)
+    shift = np.asarray(shift, np.float64)
+    rot_rad = float(rot_deg) * np.pi / 180.0
+    dst_w, dst_h = float(output_size[0]), float(output_size[1])
+    src_w = scale[0] * PIXEL_STD
+    scale_tmp = scale * PIXEL_STD
+    src_cx = center[0] + scale_tmp[0] * shift[0]
+    src_cy = center[1] + scale_tmp[1] * shift[1]
+    cs, sn = np.cos(rot_rad), np.sin(rot_rad)
+    if not inv:
+        lam = dst_w / src_w
+        a, b = lam * cs, -lam * sn
+        tx = dst_w * 0.5 - (a * src_cx - b * src_cy)
+        ty = dst_h * 0.5 - (b * src_cx + a * src_cy)
+    else:
+        lam = src_w / dst_w
+        a, b = lam * cs, lam * sn
+        tx = src_cx - (a * dst_w * 0.5 - b * dst_h * 0.5)
+        ty = src_cy - (b * dst_w * 0.5 + a * dst_h * 0.5)
+    return np.array([[a, -b, tx], [b, a, ty]], np.float64)
