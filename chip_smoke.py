@@ -10,13 +10,22 @@ Phases, each fatal on failure:
   3. per kernel, at its main path's shapes, compare the kernel with its
      plain PyTorch version on the card; bound = the bytes the function
      must move at 3.35 TB/s (or its f32 operations at 67 TFLOP/s, if
-     that is longer);
+     that is longer); K3 in each of its instantiations (f32 -> f32,
+     int8 -> bf16, bf16 -> bf16, int8 -> f32), the int8 ones on the
+     pyramid of the path's own quantize pass, which is timed beside them;
   4. drive the fused two-stage serving path end to end at full width
      (Faster R-CNN ResNet50-FPN 400x400 + HRNet-W32 256x192, float32,
      B = 8, seeded random weights) with every launch counter set to 0
      first; check shapes, finiteness, that each kernel was launched, and
      agreement with the same program run on the plain versions; time
      images/s and crops/s, then the detector, HRNet and NMS stages alone;
+  4b. the quantized bf16 serving flavor at the same width: seeded
+     weights with seeded non-trivial BatchNorm, folded by the port's
+     fold_batchnorms; the folded f32 models against the unfolded ones;
+     then bf16 compute, folded BatchNorm and the int8 RoI pyramid through
+     the same checks as 4 (K1, K2 and K3's int8 -> bf16 instantiation
+     launched); images/s, crops/s and the drift from the f32 flavor on
+     the same weights (a record, not a gate);
   5. drive the pose training path at full width (HRNet-W32 256x192, f32,
      B = 32, Adam lr 1e-3, seeded weights): batches from the device-warp
      collate on seeded 640x640 uint8 canvases with the COCO augmentation
@@ -29,9 +38,10 @@ Phases, each fatal on failure:
      time samples/s and ms per step, split into finalize and step;
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
-     same function; one fused call's and one training iteration's kernel
-     launches, device busy time and idle share (their 40 largest kernels
-     into DIR/chip_smoke_profile.txt when --out is given).
+     same function; one fused call's (f32 and quantized bf16) and one
+     training iteration's kernel launches, device busy time and idle
+     share (their 40 largest kernels into DIR/chip_smoke_profile.txt when
+     --out is given).
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -242,15 +252,21 @@ def check_warp(torch, k2, affine, dev, rng):
                 **event_times(torch, fns)), fns
 
 
-def check_roi(torch, k3, roi_ops, dev, rng):
-    """K3: B = 8, P = 256 boxes per image, C = 256, P2..P5 of 100/50/25/13;
-    random boxes plus extreme-aspect, degenerate and far-edge level-2
-    boxes. Tolerance 1e-5."""
-    S, P, C = 400, 256, 256
-    sizes = (100, 50, 25, 13)
-    feats = [torch.randn((B, s, s, C), generator=rng, device=dev)
-             for s in sizes]
-    u = torch.rand((B, P, 4), generator=rng, device=dev)
+ROI_SIZES, ROI_P, ROI_C, ROI_STRIDES = (100, 50, 25, 13), 256, 256, (4, 8, 16, 32)
+# K3's record names by instantiation (pyramid type _ output type)
+ROI_RECORDS = {"f32_f32": "roi_align", "i8_bf16": "roi_align_i8_bf16",
+               "bf16_bf16": "roi_align_bf16_bf16", "i8_f32": "roi_align_i8_f32"}
+
+
+def roi_scene(torch, roi_ops, dev, rng):
+    """K3's inputs at the serving path's shapes: B = 8, P = 256 boxes per
+    image, C = 256 f32 maps P2..P5 of 100/50/25/13; random boxes plus
+    extreme-aspect, degenerate and far-edge level-2 boxes, 16 boxes per
+    image forced onto P5 and one onto no level."""
+    S = 400
+    feats = [torch.randn((B, s, s, ROI_C), generator=rng, device=dev)
+             for s in ROI_SIZES]
+    u = torch.rand((B, ROI_P, 4), generator=rng, device=dev)
     x1, y1 = u[..., 0] * (S - 2), u[..., 1] * (S - 2)
     boxes = torch.stack([x1, y1, torch.clamp(x1 + 1 + u[..., 2] * S, max=S),
                          torch.clamp(y1 + 1 + u[..., 3] * S, max=S)], -1)
@@ -268,26 +284,62 @@ def check_roi(torch, k3, roi_ops, dev, rng):
     # (its output must be zeros), so every branch of the kernel runs
     levels[:, -17:-1] = 3
     levels[:, -1] = -1
-    strides = (4, 8, 16, 32)
-    got = k3.roi_align(feats, boxes, levels, strides)
-    ref = k3.roi_align_plain(feats, boxes, levels, strides)
-    err = float((got - ref).abs().max())
-    if not err <= 1e-5:
-        fail(f"K3 RoIAlign differs from its plain version by {err}")
+    return feats, boxes, levels
+
+
+def check_roi_variant(torch, k3, roi_ops, scene, variant):
+    """One K3 instantiation on the scene of ``roi_scene``: the f32 maps as
+    they are (f32_f32), rounded to bf16 (bf16_bf16), or quantized by the
+    path's own ``quantize_levels`` from the f32 maps (i8_f32) or from
+    their bf16 rounding (i8_bf16, the quantized bf16 serving path). Kernel
+    and plain version run the same f32 operations in the same order and
+    round once, so 0.0 is required; f32_f32 keeps its earlier 1e-5. The
+    quantize pass (absmax, then round) is outside the kernel and timed
+    beside it."""
+    feats, boxes, levels = scene
+    src, out_name = variant.split("_")
+    out_dtype = torch.bfloat16 if out_name == "bf16" else torch.float32
+    maps = [f.to(out_dtype) for f in feats]
+    scales = quant = None
+    if src == "i8":
+        base = maps
+        maps, scales = roi_ops.quantize_levels(base)
+
+        def quant():
+            return roi_ops.quantize_levels(base)
+    args = (maps, boxes, levels, ROI_STRIDES, scales, out_dtype)
+    got = k3.roi_align(*args)
+    ref = k3.roi_align_plain(*args)
+    if got.dtype != out_dtype:
+        fail(f"K3 {variant} returned {got.dtype}")
+    err = float((got.float() - ref.float()).abs().max())
+    tol = 1e-5 if variant == "f32_f32" else 0.0
+    if not err <= tol:
+        fail(f"K3 RoIAlign {variant} differs from its plain version by {err}")
     if bool(got[:, -1].any()) or not bool(got[:, -17:-1].any()):
-        fail("K3 RoIAlign: P5 boxes pooled zeros or a level -1 box did not")
-    n_bytes = (got.numel() * 4 + sum(f.numel() for f in feats) * 4 +
-               boxes.numel() * 4 + levels.numel() * 4)
+        fail(f"K3 RoIAlign {variant}: P5 boxes pooled zeros or a level -1 "
+             f"box did not")
+    n_bytes = (got.numel() * got.element_size() +
+               sum(m.numel() * m.element_size() for m in maps) +
+               boxes.numel() * 4 + levels.numel() * 4 +
+               (0 if scales is None else scales.numel() * 4))
     # per output: 4 samples x (4 taps x 2 flops + 3 weights) + the mean
-    b, by = bound_ms(n_bytes, flops=got.numel() * 4 * 12)
-    fns = (lambda: k3.roi_align(feats, boxes, levels, strides),
-           lambda: k3.roi_align_plain(feats, boxes, levels, strides), None)
-    return dict(name="roi_align", route="cuda",
-                source="stlpose_tpu_torch/kernels/csrc/roi_align.cu",
-                replaces="stlpose_tpu/ops/pallas_roi.py:286",
-                max_abs_err=err, tolerance=1e-5, bound_ms=b, bound_by=by,
-                level_counts=[int((levels == i).sum()) for i in range(4)],
-                shape=[B, P, C, *sizes], **event_times(torch, fns, 10)), fns
+    # (+ the dequantization multiply)
+    b, by = bound_ms(n_bytes, flops=got.numel() * (4 * 12 + (src == "i8")))
+    fns = (lambda: k3.roi_align(*args), lambda: k3.roi_align_plain(*args),
+           None)
+    rec = dict(name=ROI_RECORDS[variant], route="cuda",
+               source="stlpose_tpu_torch/kernels/csrc/roi_align.cu",
+               replaces=("stlpose_tpu/ops/pallas_roi.py:286" if src != "i8"
+                         else "stlpose_tpu/ops/pallas_roi.py:417"),
+               instantiation=variant, max_abs_err=err, tolerance=tol,
+               bound_ms=b, bound_by=by, bytes=n_bytes,
+               level_counts=[int((levels == i).sum()) for i in range(4)],
+               shape=[B, ROI_P, ROI_C, *ROI_SIZES],
+               **event_times(torch, fns, 10))
+    if quant is not None:
+        rec["quantize_events_ms"] = elapsed_ms(torch, quant, 10)
+    return rec, fns, quant
 
 
 def synthetic_records(mods, seed):
@@ -403,6 +455,40 @@ def seeded_weights(torch, module, seed):
     return module
 
 
+def seeded_bn_statistics(torch, module, seed):
+    """Non-trivial BatchNorm from ``seed``: scale and running variance
+    uniform in [0.5, 1.5], shift and running mean 0.1 x normal (so that
+    folding them into the convolutions has work to do)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t in (m.weight, m.running_var):
+                    t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+                for t in (m.bias, m.running_mean):
+                    t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+    return module
+
+
+def reset_counts(mods):
+    """Every launch counter to 0, each K3 instantiation's included."""
+    for k in ("k1", "k2", "k3", "k4"):
+        mods[k].LAUNCHES = 0
+    by_type = mods["k3"].LAUNCHES_BY_TYPE
+    for v in by_type:
+        by_type[v] = 0
+
+
+def launch_counts(mods):
+    """Launches since ``reset_counts``, by kernel record name."""
+    counts = {"heatmap_peaks": mods["k1"].LAUNCHES,
+              "affine_crop": mods["k2"].LAUNCHES,
+              "warp_two_pass": mods["k4"].LAUNCHES}
+    counts.update({ROI_RECORDS[v]: n
+                   for v, n in mods["k3"].LAUNCHES_BY_TYPE.items()})
+    return counts
+
+
 @contextlib.contextmanager
 def plain_versions(k1, k2, k3, k4):
     """Route the four kernel entry points to their plain versions (the
@@ -439,8 +525,80 @@ def recording(k1, log):
         k1.heatmap_peaks = fn
 
 
-def main_path(torch, mods, dev, args):
+def drive_fused(torch, mods, fused, images, required, label, iters):
+    """Warm up, set every counter to 0, run one fused call and read the
+    counters (each kernel in ``required`` must have launched); check
+    shapes and finite keypoints; compare with the same program on the
+    plain versions (``sel_valid``, ``picked_valid``, ``img_idx`` exact,
+    keypoints and boxes to 1e-3 px, heatmap peaks to 1e-4); time it.
+    Returns (launches, throughput, outputs, valid crops)."""
+    fused(images)                                   # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    reset_counts(mods)
+    out = fused(images)
+    torch.cuda.synchronize()
+    launches = launch_counts(mods)
+    print(f"{label}: launches per fused call:", json.dumps(launches))
+    if min(launches[k] for k in required) < 1:
+        fail(f"a kernel of the {label} path was not launched: {launches}")
+
+    shapes = {"sel_boxes": (B, MAX_DETS, 4), "sel_scores": (B, MAX_DETS),
+              "sel_valid": (B, MAX_DETS), "img_idx": (BUDGET,),
+              "picked_valid": (BUDGET,), "crop_kpts": (BUDGET, 17, 3),
+              "img_kpts": (BUDGET, 17, 3)}
+    for k, s in shapes.items():
+        if tuple(out[k].shape) != s:
+            fail(f"{label}: {k} has shape {tuple(out[k].shape)}, "
+                 f"expected {s}")
+    pv = out["picked_valid"]
+    n_valid = int(pv.sum())
+    if n_valid == 0:
+        fail(f"{label}: no valid detection reached the pose stage")
+    for k in ("sel_boxes", "crop_kpts", "img_kpts"):
+        if not bool(torch.isfinite(out[k][pv if k != "sel_boxes"
+                                          else out["sel_valid"]]).all()):
+            fail(f"{label}: non-finite {k}")
+    scores = out["sel_scores"][out["sel_valid"]]
+    print(f"{label}: valid crops {n_valid}/{BUDGET}; person scores "
+          f"{float(scores.min()):.4f}..{float(scores.max()):.4f}; "
+          f"heatmap peaks {float(out['crop_kpts'][pv][..., 2].min()):.3f}.."
+          f"{float(out['crop_kpts'][pv][..., 2].max()):.3f}")
+
     k1, k2, k3, k4 = mods["k1"], mods["k2"], mods["k3"], mods["k4"]
+    with plain_versions(k1, k2, k3, k4):
+        ref = fused(images)
+    torch.cuda.synchronize()
+    for k in ("sel_valid", "picked_valid", "img_idx"):
+        if not torch.equal(out[k], ref[k]):
+            fail(f"{label}: {k} differs between the kernels and the plain "
+                 f"versions")
+    both = pv & ref["picked_valid"]
+    diffs = {k: float((out[k][both][..., :2] - ref[k][both][..., :2])
+                      .abs().max()) for k in ("crop_kpts", "img_kpts")}
+    diffs["maxvals"] = float((out["img_kpts"][both][..., 2] -
+                              ref["img_kpts"][both][..., 2]).abs().max())
+    diffs["sel_boxes"] = float((out["sel_boxes"] - ref["sel_boxes"])
+                               .abs().max())
+    print(f"{label}: kernels vs plain versions:", json.dumps(diffs))
+    # keypoints to 1e-3 px, heatmap peaks to 1e-4, boxes to 1e-3 px
+    if not (diffs["crop_kpts"] <= 1e-3 and diffs["img_kpts"] <= 1e-3 and
+            diffs["maxvals"] <= 1e-4 and diffs["sel_boxes"] <= 1e-3):
+        fail(f"{label} disagrees with its plain-version run: {diffs}")
+
+    tput = throughput(torch, fused, images, n_valid, iters)
+    tput["kernels_vs_plain"] = diffs
+    print(f"{label}: end to end:", json.dumps(tput))
+    return launches, tput, out, n_valid
+
+
+def serving_images(torch, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, 256, (B, 400, 400, 3), generator=g,
+                         dtype=torch.uint8).to(dev)
+
+
+def main_path(torch, mods, dev, args):
+    """The f32 serving path: seeded weights, BatchNorm at identity."""
     t0 = time.time()
     det = seeded_weights(torch, mods["FasterRCNN"](mods["FasterRCNNConfig"](),
                                                    device=dev), args.seed)
@@ -449,66 +607,109 @@ def main_path(torch, mods, dev, args):
     fused = mods["build_fused_two_stage"](det, pose, bbox_thr=BBOX_THR,
                                           max_dets=MAX_DETS, budget=BUDGET,
                                           device=dev)
-    g = torch.Generator(device="cpu").manual_seed(args.seed + 2)
-    images = torch.randint(0, 256, (B, 400, 400, 3), generator=g,
-                           dtype=torch.uint8).to(dev)
+    images = serving_images(torch, dev, args.seed + 2)
     print(f"models built in {time.time() - t0:.1f} s "
           f"(detector {sum(p.numel() for p in det.parameters())} params, "
           f"HRNet {sum(p.numel() for p in pose.parameters())})", flush=True)
-
-    fused(images)                                   # warm-up (cuDNN plans)
-    torch.cuda.synchronize()
-    k1.LAUNCHES = k2.LAUNCHES = k3.LAUNCHES = k4.LAUNCHES = 0
-    out = fused(images)
-    torch.cuda.synchronize()
-    launches = {"heatmap_peaks": k1.LAUNCHES, "affine_crop": k2.LAUNCHES,
-                "roi_align": k3.LAUNCHES}
-    print("main-path launches per fused call:", json.dumps(launches))
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the main path was not launched: {launches}")
-
-    shapes = {"sel_boxes": (B, MAX_DETS, 4), "sel_scores": (B, MAX_DETS),
-              "sel_valid": (B, MAX_DETS), "img_idx": (BUDGET,),
-              "picked_valid": (BUDGET,), "crop_kpts": (BUDGET, 17, 3),
-              "img_kpts": (BUDGET, 17, 3)}
-    for k, s in shapes.items():
-        if tuple(out[k].shape) != s:
-            fail(f"{k} has shape {tuple(out[k].shape)}, expected {s}")
-    pv = out["picked_valid"]
-    n_valid = int(pv.sum())
-    if n_valid == 0:
-        fail("no valid detection reached the pose stage")
-    for k in ("crop_kpts", "img_kpts"):
-        if not bool(torch.isfinite(out[k][pv]).all()):
-            fail(f"non-finite {k}")
-    scores = out["sel_scores"][out["sel_valid"]]
-    print(f"valid crops {n_valid}/{BUDGET}; person scores "
-          f"{float(scores.min()):.4f}..{float(scores.max()):.4f}; "
-          f"heatmap peaks {float(out['crop_kpts'][pv][..., 2].min()):.3f}.."
-          f"{float(out['crop_kpts'][pv][..., 2].max()):.3f}")
-
-    with plain_versions(k1, k2, k3, k4):
-        ref = fused(images)
-    torch.cuda.synchronize()
-    for k in ("sel_valid", "picked_valid", "img_idx"):
-        if not torch.equal(out[k], ref[k]):
-            fail(f"{k} differs between the kernels and the plain versions")
-    both = pv & ref["picked_valid"]
-    diffs = {k: float((out[k][both][..., :2] - ref[k][both][..., :2])
-                      .abs().max()) for k in ("crop_kpts", "img_kpts")}
-    diffs["maxvals"] = float((out["img_kpts"][both][..., 2] -
-                              ref["img_kpts"][both][..., 2]).abs().max())
-    diffs["sel_boxes"] = float((out["sel_boxes"] - ref["sel_boxes"])
-                               .abs().max())
-    print("kernels vs plain versions on the main path:", json.dumps(diffs))
-    # keypoints to 1e-3 px, heatmap peaks to 1e-4, boxes to 1e-3 px
-    if not (diffs["crop_kpts"] <= 1e-3 and diffs["img_kpts"] <= 1e-3 and
-            diffs["maxvals"] <= 1e-4 and diffs["sel_boxes"] <= 1e-3):
-        fail(f"main path disagrees with its plain-version run: {diffs}")
-
-    tput = throughput(torch, fused, images, n_valid, args.iters)
-    print("end to end:", json.dumps(tput))
+    launches, tput, _, n_valid = drive_fused(
+        torch, mods, fused, images,
+        ("heatmap_peaks", "affine_crop", "roi_align"), "f32 serving",
+        args.iters)
     return launches, tput, (det, pose, fused, images, n_valid)
+
+
+def rel_err(torch, got, ref):
+    """max |got - ref| over max |ref|, in f32."""
+    return float((got.float() - ref.float()).abs().max() /
+                 ref.float().abs().max())
+
+
+def quant_path(torch, mods, dev, args):
+    """The quantized bf16 serving flavor at full width: seeded weights
+    with seeded non-trivial BatchNorm, folded by the port's own
+    ``apply_trunk_flavor`` / ``fold_batchnorms``, into a bf16 detector
+    with the int8 RoI patch pyramid and a bf16 HRNet. Checks the folded
+    f32 models against the unfolded ones (FPN maps and heatmaps within
+    5e-5 of their largest magnitude: two f32 programs whose weights round
+    differently, through cuDNN's FFT and GEMM algorithms; H100 readings
+    4.4e-6 and 3.7e-6), then drives the
+    fused call (K1, K2 and K3's int8 -> bf16 instantiation launched, the
+    plain-version run agreeing), and records the drift of its outputs from
+    the f32 flavor on the same weights (not a gate)."""
+    t0 = time.time()
+    FRCNN, HRNet = mods["FasterRCNN"], mods["PoseHighResolutionNet"]
+    cfg, hcfg = mods["FasterRCNNConfig"](), mods["get_hrnet_config"](
+        "w32_256x192")
+    det = seeded_bn_statistics(torch, seeded_weights(
+        torch, FRCNN(cfg, device=dev), args.seed + 6), args.seed + 7)
+    pose = seeded_bn_statistics(torch, seeded_weights(
+        torch, HRNet(hcfg, device=dev), args.seed + 8), args.seed + 9)
+    det_sd = mods["apply_trunk_flavor"](det.state_dict(), "folded")
+    pose_sd = mods["fold_batchnorms"](pose.state_dict())
+
+    def flavor(cls, config, sd, **kw):
+        m = cls(config, device=dev, **kw)
+        m.load_state_dict(sd)
+        return m
+
+    images = serving_images(torch, dev, args.seed + 2)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    crops = torch.randn((16, 256, 192, 3), generator=g, device=dev)
+    with torch.inference_mode():
+        x = (images.float() / 255.0).permute(0, 3, 1, 2).contiguous()
+        det_f = flavor(FRCNN, cfg, det_sd, trunk_quant="folded")
+        fold = {"detector_fpn": max(rel_err(torch, a, b) for a, b in zip(
+            det_f.features(x), det.features(x)))}
+        del det_f
+        pose_f = flavor(HRNet, hcfg, pose_sd, folded=True)
+        fold["hrnet"] = rel_err(torch, pose_f(crops), pose(crops))
+        del pose_f
+    print("folded f32 vs unfolded f32 (max abs diff / max abs):",
+          json.dumps(fold), flush=True)
+    if not max(fold.values()) <= 5e-5:
+        fail(f"folded f32 models disagree with the unfolded ones: {fold}")
+
+    det_q = flavor(FRCNN, cfg, det_sd, dtype=torch.bfloat16,
+                   roi_patch_quant=True, trunk_quant="folded")
+    pose_q = flavor(HRNet, hcfg, pose_sd, dtype=torch.bfloat16, folded=True)
+    fused = mods["build_fused_two_stage"](det_q, pose_q, bbox_thr=BBOX_THR,
+                                          max_dets=MAX_DETS, budget=BUDGET,
+                                          device=dev)
+    print(f"quantized bf16 models built in {time.time() - t0:.1f} s",
+          flush=True)
+    launches, tput, out, n_valid = drive_fused(
+        torch, mods, fused, images,
+        ("heatmap_peaks", "affine_crop", "roi_align_i8_bf16"),
+        "quantized bf16 serving", args.iters)
+
+    # the f32 flavor on the same weights: a record, not a gate
+    ref = mods["build_fused_two_stage"](det, pose, bbox_thr=BBOX_THR,
+                                        max_dets=MAX_DETS, budget=BUDGET,
+                                        device=dev)(images)
+    sv = out["sel_valid"] & ref["sel_valid"]
+    same = out["picked_valid"] & ref["picked_valid"] & \
+        (out["img_idx"] == ref["img_idx"])
+    kd = (out["img_kpts"][same][..., :2] - ref["img_kpts"][same][..., :2]) \
+        .abs()
+
+    def largest(t):
+        return float(t.max()) if t.numel() else None
+    drift = {"sel_valid_equal": bool(torch.equal(out["sel_valid"],
+                                                 ref["sel_valid"])),
+             "img_idx_equal": bool(torch.equal(out["img_idx"],
+                                               ref["img_idx"])),
+             "sel_boxes_max_abs_px": largest((out["sel_boxes"][sv] -
+                                              ref["sel_boxes"][sv]).abs()),
+             "sel_scores_max_abs": largest((out["sel_scores"][sv].float() -
+                                            ref["sel_scores"][sv]).abs()),
+             "img_kpts_max_abs_px": largest(kd),
+             "img_kpts_median_abs_px": float(kd.median()) if kd.numel()
+             else None}
+    print("quantized bf16 vs f32 flavor, same weights (record):",
+          json.dumps(drift), flush=True)
+    tput["drift_from_f32"] = drift
+    tput["fold_rel_err"] = fold
+    return launches, tput, (fused, images, n_valid)
 
 
 def throughput(torch, fused, images, n_valid, iters):
@@ -565,8 +766,7 @@ def train_path(torch, mods, dev, args):
                       "stem1.bn.running_mean", "stem1.bn.running_var",
                       "stage4_m2.branch3_block3.cb2.bn.running_var")}
     acc = mods["MetricAccumulator"](finite_only=("loss",))
-    for k in (k1, k2, k3, k4):
-        k.LAUNCHES = 0
+    reset_counts(mods)
     fin_ms = step_ms = 0.0
     seen = []                       # K1's calls in the last timed step
     for i in range(TRAIN_STEPS):
@@ -592,8 +792,7 @@ def train_path(torch, mods, dev, args):
         state.optimizer))
     mods["set_current_lr"](state.optimizer, lr)
     torch.cuda.synchronize()
-    launches = {"warp_two_pass": k4.LAUNCHES, "heatmap_peaks": k1.LAUNCHES,
-                "affine_crop": k2.LAUNCHES, "roi_align": k3.LAUNCHES}
+    launches = launch_counts(mods)
     print("training-path launches:", json.dumps(launches))
     if launches["warp_two_pass"] < 1 or launches["heatmap_peaks"] < 1:
         fail(f"a kernel of the training path was not launched: {launches}")
@@ -676,29 +875,29 @@ def train_path(torch, mods, dev, args):
     return launches, summary, (iteration, raw[0])
 
 
-def profile_train(torch, train_state, ms_per_step, out_dir):
-    """One training iteration (collate + step) under torch.profiler:
+def profile_program(torch, fn, ms_per_call, out_dir, label):
+    """One call of ``fn`` (after one outside it) under torch.profiler:
     kernel launches, device busy time, idle share against the unprofiled
-    ``ms_per_step``, and the kernels that take the time."""
+    ``ms_per_call``, and the kernels that take the time (appended to
+    DIR/chip_smoke_profile.txt)."""
     from torch.profiler import ProfilerActivity, profile
-    iteration, samples = train_state
-    iteration(samples)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        iteration(samples)
+        fn()
         torch.cuda.synchronize()
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
-    summary = {"device_busy_ms": busy, "idle_share": 1.0 - busy / ms_per_step,
+    summary = {"device_busy_ms": busy, "idle_share": 1.0 - busy / ms_per_call,
                "kernel_launches": sum(r[1] for r in rows)}
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "a") as f:
-            f.write("training iteration " + json.dumps(summary) + "\n")
+            f.write(f"{label} " + json.dumps(summary) + "\n")
             for t, c, k in rows[:40]:
                 f.write(f"{t:10.3f} ms {c:6d}x  {k}\n")
-    print("profile of one training iteration:", json.dumps(summary))
+    print(f"profile of {label}:", json.dumps(summary))
     for t, c, k in rows[:8]:
         print(f"  {t:9.3f} ms {c:6d}x  {k[:90]}")
     return summary
@@ -822,6 +1021,8 @@ def main():
     from stlpose_tpu_torch.kernels import warp_two_pass as k4
     from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
     from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
+    from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
+                                                   fold_batchnorms)
     from stlpose_tpu_torch.ops import affine
     from stlpose_tpu_torch.ops import roi_align as roi_ops
     from stlpose_tpu_torch.ops.nms import box_nms_topk
@@ -868,18 +1069,28 @@ def main():
                 make_eval_step=make_eval_step,
                 MetricAccumulator=MetricAccumulator,
                 build_scheduler=build_scheduler,
-                get_current_lr=get_current_lr, set_current_lr=set_current_lr)
+                get_current_lr=get_current_lr, set_current_lr=set_current_lr,
+                apply_trunk_flavor=apply_trunk_flavor,
+                fold_batchnorms=fold_batchnorms)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
     checks = [check_decode(torch, k1, dev, rng),
-              check_warp(torch, k2, affine, dev, rng),
-              check_roi(torch, k3, roi_ops, dev, rng),
-              check_warp_two_pass(torch, k4, mods, dev, args.seed + 5)]
+              check_warp(torch, k2, affine, dev, rng)]
+    scene = roi_scene(torch, roi_ops, dev, rng)
+    quantize = {}               # K3 record -> its quantize pass, if any
+    for variant in ROI_RECORDS:
+        rec, fns, quant = check_roi_variant(torch, k3, roi_ops, scene,
+                                            variant)
+        checks.append((rec, fns))
+        if quant is not None:
+            quantize[rec["name"]] = quant
+    checks.append(check_warp_two_pass(torch, k4, mods, dev, args.seed + 5))
     for k, _ in checks:
         print(f"{k['name']}: max_abs_err {k['max_abs_err']} (tol "
               f"{k['tolerance']})", flush=True)
 
     launches, tput, state = main_path(torch, mods, dev, args)
     stages = stage_times(torch, mods, state)
+    q_launches, quant, q_state = quant_path(torch, mods, dev, args)
     train_launches, train, train_state = train_path(torch, mods, dev, args)
 
     # torch.profiler from here on: every host-clock and CUDA-event time
@@ -887,7 +1098,11 @@ def main():
     kernels = []
     for k, fns in checks:
         device_times(torch, k, fns)
-        by_path = {"serving": launches.get(k["name"], 0),
+        if k["name"] in quantize:
+            k["quantize_ms"] = device_profile(
+                torch, quantize[k["name"]])[1] or k["quantize_events_ms"]
+        by_path = {"serving": launches[k["name"]],
+                   "serving_bf16_roi8": q_launches[k["name"]],
                    "training": train_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
@@ -898,13 +1113,19 @@ def main():
               f"{k['launches']}", flush=True)
     prof = profile_main_path(torch, mods, state, tput["ms_per_call"],
                              args.out)
-    train["profile"] = profile_train(torch, train_state,
-                                     train["ms_per_step"], args.out)
+    q_fused, q_images, _ = q_state
+    quant["profile"] = profile_program(
+        torch, lambda: q_fused(q_images), quant["ms_per_call"], args.out,
+        "one quantized bf16 fused call")
+    iteration, samples = train_state
+    train["profile"] = profile_program(
+        torch, lambda: iteration(samples), train["ms_per_step"], args.out,
+        "one training iteration")
 
     print(card)
     print(json.dumps({"kernels": kernels, "end_to_end": tput,
                       "stages_ms": stages, "profile": prof,
-                      "training": train}))
+                      "serving_bf16_roi8": quant, "training": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

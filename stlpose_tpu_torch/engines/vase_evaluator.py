@@ -6,6 +6,12 @@ Port of ``stlpose_tpu/engines/vase_evaluator.py`` (``_fused_pack_spec``,
 top-``max_dets`` filter -> cross-batch crop compaction -> affine crops
 (K2) -> HRNet -> per-crop and full-image decode (K1). The detector's
 RoIAlign is K3.
+
+The program takes its flavor from its models: a bf16 detector returns
+bf16 scores, and the score filter and the compaction key then run in bf16
+as in the JAX package's bf16 program (the key rounds to bf16, so its ties
+are broken by the stable top-k); crops and their normalisation stay f32,
+HRNet casts its input to its own dtype and returns f32 heatmaps for K1.
 """
 
 from __future__ import annotations
@@ -69,11 +75,12 @@ def build_fused_two_stage(detector, pose_model, *, bbox_thr: float,
     """The whole two-stage pass as one function ``fused(images) -> dict``.
 
     ``detector`` is a ``models.faster_rcnn.FasterRCNN`` and ``pose_model``
-    a ``models.hrnet.PoseHighResolutionNet``, both on ``device``.
-    ``images`` is (B, S, S, 3), uint8 0-255 or float in [0, 1]; it is moved
-    to ``device``. Outputs: sel_boxes (B, m, 4), sel_scores (B, m),
-    sel_valid (B, m), img_idx (budget,), picked_valid (budget,),
-    crop_kpts / img_kpts (budget, J, 3) as (x, y, score)."""
+    a ``models.hrnet.PoseHighResolutionNet``, both on ``device``, in any
+    of their flavors. ``images`` is (B, S, S, 3), uint8 0-255 or float in
+    [0, 1]; it is moved to ``device``. Outputs: sel_boxes (B, m, 4),
+    sel_scores (B, m) in the detector's dtype, sel_valid (B, m), img_idx
+    (budget,), picked_valid (budget,), crop_kpts / img_kpts (budget, J, 3)
+    as (x, y, score)."""
     device = resolve_device(device)
     for name, mod in (("detector", detector), ("pose_model", pose_model)):
         dev = next(mod.parameters()).device
@@ -100,8 +107,9 @@ def build_fused_two_stage(detector, pose_model, *, bbox_thr: float,
                                  top_i[..., None].expand(-1, -1, 4))
         sel_valid = top_s > -torch.inf
         # cross-batch compaction: key = valid-first, then score (scores
-        # lie in (0, 1), so within one image the order is its score order)
-        key_flat = (sel_valid.reshape(-1) * 10.0 +
+        # lie in (0, 1), so within one image the order is its score order);
+        # summed in the scores' dtype
+        key_flat = ((sel_valid.reshape(-1) * 10.0).to(top_s.dtype) +
                     torch.where(sel_valid, top_s, 0.0).reshape(-1))
         _, idx = top_k(key_flat, budget)
         img_idx = (idx // m).to(torch.int32)

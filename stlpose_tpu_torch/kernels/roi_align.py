@@ -2,13 +2,21 @@
 
 Replaces ``stlpose_tpu/ops/pallas_roi.py::_roi_chunk_call`` (Pallas
 kernels ``_roi_kernel_pp`` and ``_roi_kernel``) behind
-``multilevel_roi_align_pallas_batched``. Bound on the H100: the pooled
-output written plus the feature maps read once. Design: one block per
-box, the box's 14+14 sample positions in shared memory, threads over
-(bin, channel) with the channel fastest so NHWC taps coalesce.
+``multilevel_roi_align_pallas_batched``, with and without ``patch_quant``.
+Bound on the H100: the pooled output written plus the feature maps read
+once. Design: one block per box, the box's 14+14 sample positions in
+shared memory, threads over (bin, channel) with the channel fastest so
+NHWC taps coalesce.
 
-``roi_align`` launches the kernel for CUDA tensors and runs
-``roi_align_plain`` for CPU tensors. ``LAUNCHES`` counts kernel launches.
+The kernel is instantiated per (pyramid type, output type): float32 ->
+float32, bfloat16 -> bfloat16, int8 -> float32 and int8 -> bfloat16. Taps
+are widened to f32, all arithmetic runs in f32, an int8 pyramid's result
+is multiplied by its level's (L, C) f32 scales, and the result is rounded
+once to the output type.
+
+``roi_align`` launches the instantiation that matches the tensors for CUDA
+tensors and runs ``roi_align_plain`` for CPU tensors. ``LAUNCHES`` counts
+kernel launches, ``LAUNCHES_BY_TYPE`` the launches of each instantiation.
 The level of each box is an input: the caller computes it once
 (``ops/roi_align.py::_assign_levels``) and hands the same vector to either
 version, since a level flip is a large error, not a rounding one.
@@ -26,11 +34,32 @@ OUTPUT_SIZE = 7
 SAMPLING_RATIO = 2
 MAX_LEVELS = 4
 
+# (pyramid dtype, output dtype) -> instantiation
+VARIANTS = {(torch.float32, torch.float32): "f32_f32",
+            (torch.bfloat16, torch.bfloat16): "bf16_bf16",
+            (torch.int8, torch.float32): "i8_f32",
+            (torch.int8, torch.bfloat16): "i8_bf16"}
+LAUNCHES_BY_TYPE = dict.fromkeys(VARIANTS.values(), 0)
+
+
+def _variant(level_dtype, out_dtype, scales):
+    """The instantiation for these types; raises for any other combination
+    (nothing is converted to f32 behind the caller's back). An int8
+    pyramid needs its scales, a float one takes none."""
+    name = VARIANTS.get((level_dtype, out_dtype))
+    if name is None or (scales is None) != (level_dtype != torch.int8):
+        raise ValueError(
+            f"roi_align: no kernel for {level_dtype} levels -> {out_dtype} "
+            f"{'with' if scales is not None else 'without'} scales; "
+            f"supported: {sorted(VARIANTS.values())} (scales with int8 only)")
+    return name
+
 
 def roi_align_single_level(features, boxes, img, spatial_scale: float):
     """RoIAlign of (N, 4) xyxy image-space boxes, box n against image
     ``img[n]`` of the (B, H, W, C) map; torchvision aligned=False border
-    rules, 7x7 bins of 2x2 samples. Returns (N, 7, 7, C)."""
+    rules, 7x7 bins of 2x2 samples. Taps are widened to f32. Returns
+    (N, 7, 7, C) f32."""
     B, H, W, C = features.shape
     n, sr = OUTPUT_SIZE, SAMPLING_RATIO
     dev = features.device
@@ -56,7 +85,8 @@ def roi_align_single_level(features, boxes, img, spatial_scale: float):
     base = img.to(torch.int64)[:, None, None] * (H * W)
 
     def tap(yi, xi):                                 # (N, ns_y, ns_x, C)
-        return flat[base + yi[:, :, None] * W + xi[:, None, :]]
+        return flat[base + yi[:, :, None] * W + xi[:, None, :]] \
+            .to(torch.float32)
 
     fx, fy = fx[:, None, :, None], fy[:, :, None, None]
     v = (tap(y0, x0) * ((1.0 - fx) * (1.0 - fy)) +
@@ -69,12 +99,18 @@ def roi_align_single_level(features, boxes, img, spatial_scale: float):
             v[:, :, 1, :, 1]) * 0.25
 
 
-def roi_align_plain(feature_levels, boxes, levels, strides):
+def roi_align_plain(feature_levels, boxes, levels, strides, scales=None,
+                    out_dtype=torch.float32):
     """Plain PyTorch version of the kernel.
 
-    feature_levels: L <= 4 maps (B, h_l, w_l, C) f32; boxes (B, P, 4)
-    xyxy image pixels; levels (B, P) int32 in [0, L) (a box with another
-    level pools zeros); strides: per level. Returns (B, P, 7, 7, C)."""
+    feature_levels: L <= 4 maps (B, h_l, w_l, C), all float32, all
+    bfloat16 or all int8; boxes (B, P, 4) f32 xyxy image pixels; levels
+    (B, P) int32 in [0, L) (a box with another level pools zeros);
+    strides: per level; scales: (L, C) f32 for an int8 pyramid (each
+    box's pooled f32 result is multiplied by its level's row), else None;
+    out_dtype: float32 or bfloat16, one rounding at the end. Returns
+    (B, P, 7, 7, C) of ``out_dtype``."""
+    _variant(feature_levels[0].dtype, out_dtype, scales)
     B, P = boxes.shape[:2]
     C = feature_levels[0].shape[-1]
     flat = boxes.reshape(B * P, 4)
@@ -85,49 +121,64 @@ def roi_align_plain(feature_levels, boxes, levels, strides):
     for li, (feat, stride) in enumerate(zip(feature_levels, strides)):
         sel = torch.nonzero(lv == li)[:, 0]
         if sel.numel():
-            out[sel] = roi_align_single_level(feat, flat[sel], img[sel],
-                                              1.0 / stride)
-    return out.reshape(B, P, OUTPUT_SIZE, OUTPUT_SIZE, C)
+            pooled = roi_align_single_level(feat, flat[sel], img[sel],
+                                            1.0 / stride)
+            if scales is not None:
+                pooled = pooled * scales[li]
+            out[sel] = pooled
+    return out.to(out_dtype).reshape(B, P, OUTPUT_SIZE, OUTPUT_SIZE, C)
 
 
-def roi_align(feature_levels, boxes, levels, strides):
+def roi_align(feature_levels, boxes, levels, strides, scales=None,
+              out_dtype=torch.float32):
     """Multilevel RoIAlign; see ``roi_align_plain`` for the contract."""
     if boxes.device.type == "cpu":
-        return roi_align_plain(feature_levels, boxes, levels, strides)
+        return roi_align_plain(feature_levels, boxes, levels, strides,
+                               scales, out_dtype)
     global LAUNCHES
     B, NB = boxes.shape[:2]
     L = len(feature_levels)
     C = feature_levels[0].shape[-1]
     dev = boxes.device
-    if not 1 <= L <= MAX_LEVELS or len(strides) < L:
-        raise ValueError(f"roi_align: 1..{MAX_LEVELS} levels with strides "
-                         f"expected, got {L} levels, {len(strides)} strides")
-    for f in feature_levels:
-        if (f.device != dev or f.dtype != torch.float32 or f.dim() != 4
-                or f.shape[0] != B or f.shape[-1] != C):
-            raise ValueError("roi_align: every level must be a float32 "
-                             f"(B={B}, h, w, C={C}) map on {dev}")
+    dtype = feature_levels[0].dtype
     if (dev.type != "cuda" or boxes.dtype != torch.float32
             or boxes.shape != (B, NB, 4) or levels.shape != (B, NB)
             or levels.device != dev):
         raise ValueError("roi_align: expected float32 CUDA boxes (B, P, 4) "
                          "and levels (B, P) on the same device")
+    if not 1 <= L <= MAX_LEVELS or len(strides) < L:
+        raise ValueError(f"roi_align: 1..{MAX_LEVELS} levels with strides "
+                         f"expected, got {L} levels, {len(strides)} strides")
+    for f in feature_levels:
+        if (f.device != dev or f.dtype != dtype or f.dim() != 4
+                or f.shape[0] != B or f.shape[-1] != C):
+            raise ValueError(f"roi_align: every level must be a {dtype} "
+                             f"(B={B}, h, w, C={C}) map on {dev}")
+    variant = _variant(dtype, out_dtype, scales)
+    if scales is not None:
+        if (scales.device != dev or scales.dtype != torch.float32
+                or tuple(scales.shape) != (L, C)):
+            raise ValueError(f"roi_align: scales must be float32 ({L}, {C}) "
+                             f"on {dev}")
+        scales = scales.contiguous()
     feats = [f.contiguous() for f in feature_levels]
     boxes = boxes.contiguous()
     lv32 = levels.to(torch.int32).contiguous()
-    out = torch.empty((B, NB, OUTPUT_SIZE, OUTPUT_SIZE, C),
-                      dtype=torch.float32, device=dev)
+    out = torch.empty((B, NB, OUTPUT_SIZE, OUTPUT_SIZE, C), dtype=out_dtype,
+                      device=dev)
     ptrs = [f.data_ptr() for f in feats] + [None] * (MAX_LEVELS - L)
     hw = []
     for i in range(MAX_LEVELS):
         hw += ([feats[i].shape[1], feats[i].shape[2]] if i < L else [0, 0])
-    scales = [1.0 / s for s in strides[:L]] + [0.0] * (MAX_LEVELS - L)
+    inv = [1.0 / s for s in strides[:L]] + [0.0] * (MAX_LEVELS - L)
     launch = _build.launcher(
-        "roi_align", "roi_align_launch",
+        "roi_align", f"roi_align_{variant}",
         [P] * MAX_LEVELS + [I32] * (2 * MAX_LEVELS) + [F32] * MAX_LEVELS +
-        [I32] * 2 + [P] * 2 + [I32] * 2 + [P] * 2)
+        [I32] * 2 + [P] * 2 + [I32] * 2 + [P] * 3)
     with torch.cuda.device(dev):
-        launch(*ptrs, *hw, *scales, L, C, boxes.data_ptr(), lv32.data_ptr(),
-               B, NB, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        launch(*ptrs, *hw, *inv, L, C, boxes.data_ptr(), lv32.data_ptr(),
+               B, NB, None if scales is None else scales.data_ptr(),
+               out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
+    LAUNCHES_BY_TYPE[variant] += 1
     return out

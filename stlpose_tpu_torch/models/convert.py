@@ -14,7 +14,10 @@ Counterpart of ``stlpose_tpu/models/convert.py`` (torch -> Flax names) and
 flattens pooled features in the reference's (7, 7, C) order, so ``fc6``
 needs no input permutation. ``train_state_from_jax`` carries a whole JAX
 train state (weights, BatchNorm statistics, optimizer moments, step)
-across, so a run continues a JAX run step for step.
+across, so a run continues a JAX run step for step. ``hrnet_from_jax``
+and ``faster_rcnn_from_jax`` also build the serving flavors: they take
+live-BatchNorm variables (folded here by ``models/quantize.py``) or
+variables the JAX package already folded (no ``batch_stats``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 from stlpose_tpu_torch.config import FasterRCNNConfig, HRNetConfig
 from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
+from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
+                                               fold_batchnorms)
 from stlpose_tpu_torch.train.optim import set_current_lr
 from stlpose_tpu_torch.train.state import PoseTrainState, create_train_state
 
@@ -57,10 +62,10 @@ def jax_variables_to_state_dict(variables) -> dict:
     return out
 
 
-def load_jax_variables(module: torch.nn.Module, variables):
-    """Load converted JAX variables into ``module``; every parameter and
-    statistic must be matched one to one, with equal shapes."""
-    sd = jax_variables_to_state_dict(variables)
+def load_strict(module: torch.nn.Module, sd):
+    """Load the state dict ``sd`` into ``module``, every parameter and
+    statistic matched one to one with equal shapes (values are rounded to
+    the module's dtype on the way in)."""
     own = module.state_dict()
     expected = {k for k in own if not k.endswith("num_batches_tracked")}
     if set(sd) != expected:
@@ -76,16 +81,32 @@ def load_jax_variables(module: torch.nn.Module, variables):
     return module
 
 
-def hrnet_from_jax(variables_np, config: HRNetConfig, device="cuda"):
-    """A fresh ``PoseHighResolutionNet`` holding the JAX HRNet's weights."""
-    return load_jax_variables(PoseHighResolutionNet(config, device),
-                              variables_np)
+def _live_bn(variables_np):
+    return bool(variables_np.get("batch_stats"))
+
+
+def hrnet_from_jax(variables_np, config: HRNetConfig, device="cuda",
+                   dtype=torch.float32, folded: bool = False):
+    """A fresh ``PoseHighResolutionNet`` holding the JAX HRNet's weights;
+    with ``folded``, live-BatchNorm variables are folded first."""
+    sd = jax_variables_to_state_dict(variables_np)
+    if folded and _live_bn(variables_np):
+        sd = fold_batchnorms(sd)
+    return load_strict(PoseHighResolutionNet(config, device, dtype, folded),
+                       sd)
 
 
 def faster_rcnn_from_jax(variables_np, config: FasterRCNNConfig,
-                         device="cuda"):
-    """A fresh ``FasterRCNN`` holding the JAX detector's weights."""
-    return load_jax_variables(FasterRCNN(config, device), variables_np)
+                         device="cuda", dtype=torch.float32,
+                         roi_patch_quant: bool = False,
+                         trunk_quant: str = "none"):
+    """A fresh ``FasterRCNN`` holding the JAX detector's weights; with
+    ``trunk_quant="folded"``, live-BatchNorm variables are folded first."""
+    sd = jax_variables_to_state_dict(variables_np)
+    if _live_bn(variables_np):
+        sd = apply_trunk_flavor(sd, trunk_quant)
+    return load_strict(FasterRCNN(config, device, dtype, roi_patch_quant,
+                                  trunk_quant), sd)
 
 
 def _optax_leaf_state(opt_state, field):

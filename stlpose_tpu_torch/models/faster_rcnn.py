@@ -7,6 +7,15 @@ the facade's ``predict``. Every stage keeps the reference's static shapes:
 per-level top-k, pick-argmax NMS with ``max_keep`` picks, fixed-size
 top-k, all batched over images. RoIAlign runs in the K3 kernel.
 
+Serving flavors, as constructor arguments (no environment switch):
+``dtype=torch.bfloat16`` runs the convolutions and dense layers in bf16
+and follows the JAX package's bf16 ``predict`` op by op (RPN logits and
+box-head outputs stay bf16 into top-k, softmax and the score tests; box
+decoding promotes to f32 at its first f32 operand); ``roi_patch_quant``
+pools from the int8 patch pyramid; ``trunk_quant="folded"`` takes a trunk
+with BatchNorm folded into its convolutions
+(``models/quantize.py::fold_frcnn_trunk``).
+
 Submodule names repeat the Flax module tree (``backbone``, ``fpn``,
 ``rpn_head``, ``box_head``). ``BoxHead`` flattens the pooled features in
 (7, 7, C) order, as the reference does, so ``fc6`` carries across with a
@@ -22,6 +31,8 @@ import torch.nn.functional as F
 
 from stlpose_tpu_torch import resolve_device
 from stlpose_tpu_torch.config import FasterRCNNConfig
+from stlpose_tpu_torch.models.hrnet import compute_in
+from stlpose_tpu_torch.models.quantize import check_trunk_flavor
 from stlpose_tpu_torch.models.resnet import ResNet
 from stlpose_tpu_torch.ops.boxes import clip_boxes, decode_boxes
 from stlpose_tpu_torch.ops.nms import box_nms_topk, top_k
@@ -104,6 +115,13 @@ def generate_anchors(cfg: FasterRCNNConfig, level_shapes):
     return all_anchors
 
 
+def softmax(x):
+    """``jax.nn.softmax`` over the last axis, op by op in the input's
+    dtype: exp(x - max), summed in f32 and rounded back, then divided."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.float().sum(dim=-1, keepdim=True).to(e.dtype)
+
+
 def select_proposals(cfg, anchors_per_level, logits, deltas):
     """Static-shape proposals for a batch (test-time budgets).
 
@@ -139,20 +157,29 @@ def select_proposals(cfg, anchors_per_level, logits, deltas):
 
 class FasterRCNN(nn.Module):
     """Backbone + FPN + RPN head + box head, and the inference program
-    ``predict``. float32, eval mode, on ``device``."""
+    ``predict``. Eval mode, on ``device``; ``dtype`` (float32 or
+    bfloat16) is the compute dtype; ``roi_patch_quant`` pools RoIs from
+    the int8 patch pyramid; ``trunk_quant`` is "none" (live BatchNorm) or
+    "folded"."""
 
     def __init__(self, config: FasterRCNNConfig = FasterRCNNConfig(),
-                 device="cuda"):
+                 device="cuda", dtype=torch.float32,
+                 roi_patch_quant: bool = False, trunk_quant: str = "none"):
         super().__init__()
+        check_trunk_flavor(trunk_quant)
         device = resolve_device(device)
         self.config = cfg = config
-        self.backbone = ResNet(cfg.stage_sizes, cfg.width)
+        self.dtype = dtype
+        self.roi_patch_quant = roi_patch_quant
+        self.trunk_quant = trunk_quant
+        self.backbone = ResNet(cfg.stage_sizes, cfg.width,
+                               folded=trunk_quant == "folded")
         c2 = cfg.width * 4
         self.fpn = FPN([c2, c2 * 2, c2 * 4, c2 * 8], cfg.fpn_channels)
         self.rpn_head = RPNHead(cfg.fpn_channels, len(cfg.anchor_ratios))
         self.box_head = BoxHead(7 * 7 * cfg.fpn_channels, cfg.num_classes)
         self._anchors = {}
-        self.to(device)
+        compute_in(self.to(device), dtype)
         self.eval()
 
     def features(self, images_nchw):
@@ -165,7 +192,8 @@ class FasterRCNN(nn.Module):
         B, P = boxes.shape[:2]
         feats_nhwc = [f.permute(0, 2, 3, 1).contiguous() for f in feats]
         pooled = multilevel_roi_align(feats_nhwc, boxes,
-                                      self.config.strides[:len(feats)])
+                                      self.config.strides[:len(feats)],
+                                      self.roi_patch_quant)
         cls, reg = self.box_head(pooled.reshape(B * P, *pooled.shape[2:]))
         return cls.reshape(B, P, -1), reg.reshape(B, P, -1)
 
@@ -178,9 +206,9 @@ class FasterRCNN(nn.Module):
 
     @torch.inference_mode()
     def predict(self, images):
-        """images (B, S, S, 3) float in [0, 1] -> {boxes (B, D, 4),
-        scores (B, D), labels (B, D), valid (B, D)}, padded to
-        ``detections_per_img``."""
+        """images (B, S, S, 3) float in [0, 1] -> {boxes (B, D, 4) f32,
+        scores (B, D) in the compute dtype, labels (B, D), valid (B, D)},
+        padded to ``detections_per_img``."""
         cfg = self.config
         feats = self.features(images.permute(0, 3, 1, 2).contiguous())
         logits, deltas = self.rpn_head(feats)
@@ -192,7 +220,7 @@ class FasterRCNN(nn.Module):
         props, _ = select_proposals(cfg, anchors, logits, deltas)
         cls_b, deltas_b = self.roi_batched(feats[:4], props)
 
-        scores = torch.softmax(cls_b, dim=-1)
+        scores = softmax(cls_b)
         nc = cfg.num_classes
         out_boxes, out_scores, out_labels = [], [], []
         for c in range(1, nc):

@@ -1,9 +1,14 @@
 """HRNet pose network (W32, 256x192 -> 64x48x17 heatmaps) as nn.Modules.
 
-Port of ``stlpose_tpu/models/hrnet.py`` in its float32, un-folded form,
-in eval mode (``model.eval()``, running statistics) and in train mode
-(``model.train()``, batch statistics, with flax's running-statistics
-update). Inside, tensors are NCHW; the public forward keeps
+Port of ``stlpose_tpu/models/hrnet.py`` in eval mode (``model.eval()``,
+running statistics) and in train mode (``model.train()``, batch
+statistics, with flax's running-statistics update), and in its serving
+flavors: ``folded=True`` (BatchNorm folded into the convolutions by
+``models/quantize.py::fold_batchnorms``: each ConvBN is a biased conv with
+no ``bn`` submodule) and ``dtype=torch.bfloat16`` (compute in bf16 as
+flax's ``dtype=bfloat16`` does: conv weights rounded to bf16, ReLU and
+residual adds in bf16, live BatchNorm in f32, heatmaps cast to f32 at the
+end). Inside, tensors are NCHW; the public forward keeps
 the JAX package's layout: (N, 256, 192, 3) NHWC in, (N, 64, 48, J) out
 (a permuted view of the NCHW heatmaps, so decode reads them in place).
 
@@ -53,20 +58,34 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+def compute_in(module: nn.Module, dtype):
+    """Move the convolutions and dense layers of ``module`` to ``dtype``
+    (weights rounded once, to nearest even, as flax casts its f32 params at
+    each call); BatchNorm layers stay f32."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            m.to(dtype)
+    return module
+
+
 class ConvBN(nn.Module):
     """conv (no bias, symmetric k//2 padding) + BatchNorm (eps 1e-5, the
-    reference's; flax's train-mode update) [+ ReLU]."""
+    reference's; flax's train-mode update) [+ ReLU]. ``folded``: a biased
+    conv and no BatchNorm. The BatchNorm runs in f32 on the conv's output
+    and its result returns to the conv's dtype."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
-                 stride: int = 1, relu: bool = True):
+                 stride: int = 1, relu: bool = True, folded: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
-                              bias=False)
-        self.bn = FlaxBatchNorm2d(cout)
+                              bias=folded)
+        self.bn = None if folded else FlaxBatchNorm2d(cout)
         self.relu = relu
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x.float()).to(x.dtype)
         return F.relu(x) if self.relu else x
 
 
@@ -74,12 +93,13 @@ class BasicBlock(nn.Module):
     """Two 3x3 ConvBNs with a residual."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, folded: bool = False):
         super().__init__()
-        self.cb1 = ConvBN(cin, features, 3, stride)
-        self.cb2 = ConvBN(features, features, 3, 1, relu=False)
-        self.down = (ConvBN(cin, features, 1, stride, relu=False)
-                     if downsample else None)
+        self.cb1 = ConvBN(cin, features, 3, stride, folded=folded)
+        self.cb2 = ConvBN(features, features, 3, 1, relu=False,
+                          folded=folded)
+        self.down = (ConvBN(cin, features, 1, stride, relu=False,
+                            folded=folded) if downsample else None)
 
     def forward(self, x):
         y = self.cb2(self.cb1(x))
@@ -92,14 +112,15 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, folded: bool = False):
         super().__init__()
-        self.cb1 = ConvBN(cin, features, 1, 1)
-        self.cb2 = ConvBN(features, features, 3, stride)
+        self.cb1 = ConvBN(cin, features, 1, 1, folded=folded)
+        self.cb2 = ConvBN(features, features, 3, stride, folded=folded)
         self.cb3 = ConvBN(features, features * self.expansion, 1, 1,
-                          relu=False)
+                          relu=False, folded=folded)
         self.down = (ConvBN(cin, features * self.expansion, 1, stride,
-                            relu=False) if downsample else None)
+                            relu=False, folded=folded)
+                     if downsample else None)
 
     def forward(self, x):
         y = self.cb3(self.cb2(self.cb1(x)))
@@ -111,14 +132,15 @@ class HighResolutionModule(nn.Module):
     """Parallel BasicBlock branches + all-to-all cross-resolution fusion."""
 
     def __init__(self, stage: HRNetStageConfig,
-                 multi_scale_output: bool = True):
+                 multi_scale_output: bool = True, folded: bool = False):
         super().__init__()
         self.stage = stage
         chans = stage.num_channels
         for b in range(stage.num_branches):
             for k in range(stage.num_blocks[b]):
                 self.add_module(f"branch{b}_block{k}",
-                                BasicBlock(chans[b], chans[b]))
+                                BasicBlock(chans[b], chans[b],
+                                           folded=folded))
         self.n_out = (stage.num_branches if multi_scale_output else 1) \
             if stage.num_branches > 1 else 0
         for i in range(self.n_out):
@@ -126,14 +148,14 @@ class HighResolutionModule(nn.Module):
                 if j > i:
                     self.add_module(f"fuse{i}_{j}",
                                     ConvBN(chans[j], chans[i], 1, 1,
-                                           relu=False))
+                                           relu=False, folded=folded))
                 elif j < i:
                     for k in range(i - j):
                         last = k == i - j - 1
                         self.add_module(
                             f"fuse{i}_{j}_{k}",
                             ConvBN(chans[j], chans[i] if last else chans[j],
-                                   3, 2, relu=not last))
+                                   3, 2, relu=not last, folded=folded))
 
     def forward(self, xs):
         st = self.stage
@@ -165,20 +187,25 @@ class HighResolutionModule(nn.Module):
 
 class PoseHighResolutionNet(nn.Module):
     """HRNet keypoint-heatmap regressor: (N, 256, 192, 3) NHWC ->
-    (N, 64, 48, num_joints) heatmaps, float32; built in eval mode."""
+    (N, 64, 48, num_joints) heatmaps, float32; built in eval mode.
+    ``dtype`` (float32 or bfloat16) is the compute dtype; ``folded``
+    takes BatchNorm-folded weights (serving only)."""
 
     def __init__(self, config: HRNetConfig = get_hrnet_config("w32_256x192"),
-                 device="cuda"):
+                 device="cuda", dtype=torch.float32, folded: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.config = cfg = config
-        self.stem1 = ConvBN(3, cfg.stem_channels, 3, 2)
-        self.stem2 = ConvBN(cfg.stem_channels, cfg.stem_channels, 3, 2)
+        self.dtype = dtype
+        self.folded = folded
+        fo = dict(folded=folded)
+        self.stem1 = ConvBN(3, cfg.stem_channels, 3, 2, **fo)
+        self.stem2 = ConvBN(cfg.stem_channels, cfg.stem_channels, 3, 2, **fo)
         cin = cfg.stem_channels
         for k in range(cfg.stage1_num_blocks):
             self.add_module(f"layer1_{k}",
                             Bottleneck(cin, cfg.stem_channels,
-                                       downsample=(k == 0)))
+                                       downsample=(k == 0), **fo))
             cin = cfg.stem_channels * Bottleneck.expansion
 
         prev = [cin]
@@ -189,31 +216,32 @@ class PoseHighResolutionNet(nn.Module):
                     if prev[i] != stage.num_channels[i]:
                         self.add_module(
                             f"transition{s - 1}_{i}",
-                            ConvBN(prev[i], stage.num_channels[i], 3, 1))
+                            ConvBN(prev[i], stage.num_channels[i], 3, 1,
+                                   **fo))
                 else:
                     c = prev[-1]
                     for j in range(i + 1 - len(prev)):
                         out_ch = (stage.num_channels[i]
                                   if j == i - len(prev) else prev[-1])
                         self.add_module(f"transition{s - 1}_{i}_{j}",
-                                        ConvBN(c, out_ch, 3, 2))
+                                        ConvBN(c, out_ch, 3, 2, **fo))
                         c = out_ch
             for m in range(stage.num_modules):
                 mso = not (s == 4 and m == stage.num_modules - 1)
                 self.add_module(f"stage{s}_m{m}",
-                                HighResolutionModule(stage, mso))
+                                HighResolutionModule(stage, mso, **fo))
             prev = list(stage.num_channels)
 
         k = cfg.final_conv_kernel
         self.final_layer = nn.Conv2d(cfg.stage4.num_channels[0],
                                      cfg.num_joints, k, 1,
                                      1 if k == 3 else 0)
-        self.to(device)
+        compute_in(self.to(device), dtype)
         self.eval()
 
     def forward(self, x):
         cfg = self.config
-        x = x.permute(0, 3, 1, 2).contiguous()
+        x = x.permute(0, 3, 1, 2).contiguous().to(self.dtype)
         x = self.stem2(self.stem1(x))
         for k in range(cfg.stage1_num_blocks):
             x = getattr(self, f"layer1_{k}")(x)
@@ -235,4 +263,4 @@ class PoseHighResolutionNet(nn.Module):
             for m in range(stage.num_modules):
                 xs = getattr(self, f"stage{s}_m{m}")(xs)
             n_prev = stage.num_branches
-        return self.final_layer(xs[0]).permute(0, 2, 3, 1)
+        return self.final_layer(xs[0]).float().permute(0, 2, 3, 1)

@@ -1,9 +1,10 @@
 """Batched affine image warping.
 
-``affine_warp`` and ``crop_from_center_scale_batched`` port
-``stlpose_tpu/ops/warp.py``: each destination pixel is a bilinear sample
-of the source at the inverse crop similarity, zero outside the image
-(cv2 BORDER_CONSTANT), on the K2 kernel (``kernels/warp.py``).
+``affine_warp``, ``crop_from_center_scale`` and
+``crop_from_center_scale_batched`` port ``stlpose_tpu/ops/warp.py``: each
+destination pixel is a bilinear sample of the source at the inverse crop
+similarity, zero outside the image (cv2 BORDER_CONSTANT), on the K2
+kernel (``kernels/warp.py``).
 ``affine_warp_two_pass`` ports ``stlpose_tpu/ops/pallas_warp.py::
 affine_warp_pallas``, the two-pass filter of the rotated training crops,
 on the K4 kernel (``kernels/warp_two_pass.py``): the same geometry, but
@@ -46,6 +47,17 @@ def crop_from_center_scale_batched(images, centers, scales, img_idx,
                                          device=centers.device),
                              output_size)
     return _k2.affine_crop(images, params, img_idx, output_size)
+
+
+def crop_from_center_scale(image, centers, scales, output_size):
+    """K unrotated crops from ONE (H, W, C) image: K2 with every crop
+    reading image 0. Port of ``stlpose_tpu/ops/warp.py::
+    crop_from_center_scale`` and ``ops/pallas_warp.py::
+    crop_from_center_scale_pallas``. Returns (K, dst_h, dst_w, C)."""
+    img_idx = torch.zeros(centers.shape[0], dtype=torch.int32,
+                          device=centers.device)
+    return crop_from_center_scale_batched(image[None], centers, scales,
+                                          img_idx, output_size)
 
 
 def two_pass_params(center, scale, rot_deg, canvas_size, output_size,
