@@ -13,11 +13,15 @@ Phases, each fatal on failure:
      that is longer); K3 in each of its instantiations (f32 -> f32,
      int8 -> bf16, bf16 -> bf16, int8 -> f32), the int8 ones on the
      pyramid of the path's own quantize pass, which is timed beside them;
+     K1 and K2 on planted scenes (``decode_scene``, ``warp_scene``,
+     ``warp_edge_cases``) that reach every branch of their designs (K1's
+     bulk and strided kernels each on the layouts that must take them);
   4. drive the fused two-stage serving path end to end at full width
      (Faster R-CNN ResNet50-FPN 400x400 + HRNet-W32 256x192, float32,
      B = 8, seeded random weights) with every launch counter set to 0
-     first; check shapes, finiteness, that each kernel was launched, and
-     agreement with the same program run on the plain versions; time
+     first; check shapes, finiteness, that each kernel was launched (K1
+     through its bulk kernel), and agreement with the same program run on
+     the plain versions; time
      images/s and crops/s, then the detector, HRNet and NMS stages alone;
   4b. the quantized bf16 serving flavor at the same width: seeded
      weights with seeded non-trivial BatchNorm, folded by the port's
@@ -38,7 +42,10 @@ Phases, each fatal on failure:
      time samples/s and ms per step, split into finalize and step;
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
-     same function; one fused call's (f32 and quantized bf16) and one
+     same function, over 20 repeats with the inputs warm in L2, and for
+     K1, K2 and their library calls also cold (L2 flushed before each
+     repeat by rewriting a 256 MB scratch buffer, whose own kernels are
+     not counted); one fused call's (f32 and quantized bf16) and one
      training iteration's kernel launches, device busy time and idle
      share (their 40 largest kernels into DIR/chip_smoke_profile.txt when
      --out is given).
@@ -141,90 +148,278 @@ def bound_ms(n_bytes, flops=0.0):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-LABELS = ("", "plain_", "library_")   # kernel, plain version, library call
+FLUSH_BYTES = 256 << 20        # scratch rewritten between cold repeats
+# timed labels of a check: the kernel (""), its plain version, the library
+# call; the kernel and the library call are also timed cold
+COLD_LABELS = ("", "library_")
 
 
-def event_times(torch, fns, iters=20):
-    """``<x>events_ms``: CUDA-event time per call of the kernel, the plain
-    version and the library call (None where there is none), launch gaps
-    and host overhead included. Taken before any profiler session."""
-    return {label + "events_ms": None if fn is None else
-            elapsed_ms(torch, fn, iters) for label, fn in zip(LABELS, fns)}
+def l2_flush(torch):
+    """A function that rewrites a FLUSH_BYTES scratch buffer (over 2 x the
+    H100's 50 MB L2), evicting whatever the cache held."""
+    scratch = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    return lambda: scratch.fill_(1.0)
 
 
-def device_times(torch, rec, fns):
+def cold_elapsed_ms(torch, fn, flush, iters):
+    """Mean CUDA-event time of ``fn`` over ``iters`` calls, L2 flushed
+    before each; the events bracket ``fn`` alone, not the flush."""
+    fn()
+    pairs = []
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def event_times(torch, fns, iters=20, cold=False):
+    """``<x>events_ms``: CUDA-event time per call of each timed function
+    (``fns``: label -> function or None), launch gaps and host overhead
+    included; with ``cold``, also ``<x>cold_events_ms`` of the kernel and
+    the library call, L2 flushed before each call. Taken before any
+    profiler session."""
+    rec = {label + "events_ms": None if fn is None else
+           elapsed_ms(torch, fn, iters) for label, fn in fns.items()}
+    if cold:
+        flush = l2_flush(torch)
+        for label in COLD_LABELS:
+            if fns.get(label) is not None:
+                rec[label + "cold_events_ms"] = cold_elapsed_ms(
+                    torch, fns[label], flush, iters)
+    return rec
+
+
+def device_profile_cold(torch, fn, flush, iters=20, attempts=3):
+    """Summed device time per call of ``fn`` with L2 flushed before each
+    of ``iters`` calls, from torch.profiler's trace, leaving out the
+    flush's own kernels (PyTorch's fill kernel, which none of the timed
+    functions launches). A trace that holds no flush or no other device
+    event is taken again, up to ``attempts`` times (the profiler now and
+    then returns one without device events); None after that."""
+    from torch.profiler import ProfilerActivity, profile
+    flush()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        timed = [t for t, _, k in rows if "FillFunctor" not in k]
+        if timed and len(timed) < len(rows):
+            return sum(timed) / iters
+    return None
+
+
+def device_times(torch, rec, fns, iters=20):
     """``<x>ms``: the summed device time of the kernels one call launches
-    (torch.profiler), or the CUDA-event time where the trace holds no
-    device events."""
-    for label, fn in zip(LABELS, fns):
-        dv = None if fn is None else device_profile(torch, fn)[1]
+    (torch.profiler, warm: the inputs stay in L2 between calls), or the
+    CUDA-event time where the trace holds no device events; where
+    ``<x>cold_events_ms`` was taken, ``<x>cold_ms`` likewise with L2
+    flushed before each of ``iters`` calls."""
+    flush = None
+    for label, fn in fns.items():
+        dv = None if fn is None else device_profile(torch, fn, iters)[1]
         rec[label + "ms"] = rec[label + "events_ms"] if dv is None else dv
+        if label + "cold_events_ms" in rec:
+            flush = flush or l2_flush(torch)
+            dv = device_profile_cold(torch, fn, flush, iters)
+            rec[label + "cold_ms"] = (rec[label + "cold_events_ms"]
+                                      if dv is None else dv)
 
 
 # ------------------------------------------------------------------ kernels
-def check_decode(torch, k1, dev, rng):
-    """K1 at (64 crops, 17 joints, 64x48), NCHW memory as HRNet writes it,
-    with planted ties (also across warp lanes), all-negative maps and
-    peaks on and next to the border. Exact agreement required."""
-    N, J, H, W = BUDGET, 17, 64, 48
+def decode_scene(torch, dev, rng, N=BUDGET, J=17, H=64, W=48):
+    """(N, J, H, W) f32 maps, NCHW memory as HRNet writes it (N >= 4,
+    J >= 12), uniform in [-0.5, 1), with planted cases, and {(n, j): (x,
+    y)} the peaks that they must give. Ties sit at each merge boundary of
+    K1's bulk kernel at 64x48 (128 threads, thread t taking float4 t,
+    t + 128, ...): inside one float4, across lanes, across warps, between
+    one thread's loads, in the last float4; also an all-negative map, a crop
+    <= 0, an all-zero and a constant map (every index ties), peaks on and
+    next to the border, and flat neighbours (sign 0)."""
     hm = torch.rand((N, J, H, W), generator=rng, device=dev) * 1.5 - 0.5
+    flat = hm.view(N, J, H * W)
+    ties = {1: (175, 247),          # rows 3 and 5
+            2: (31, 32),            # lanes 7 and 8
+            3: (101, 102),          # inside one float4
+            4: (127, 128),          # warp 0 lane 31, warp 1 lane 0
+            5: (511, 512),          # warp 3 lane 31, thread 0's 2nd float4
+            6: (23, 532),           # one thread's 1st and 2nd float4
+            7: (767, 768),          # threads 63 and 64, 6th and 7th float4
+            8: (3068, 3071),        # the last float4
+            9: (500, 1000, 2000)}
+    expect = {}
+    for j, idx in ties.items():
+        for i in idx:
+            flat[0, j, i] = 2.0 + j
+        expect[(0, j)] = (float(min(idx) % W), float(min(idx) // W))
+    flat[0, 10, H * W - 1] = 3.0                      # last value alone
+    flat[0, 11, H * W - 2] = 3.0
+    expect[(0, 10)] = (W - 1.0, H - 1.0)
+    expect[(0, 11)] = (W - 2.0, H - 1.0)
     hm[0, 0] = -hm[0, 0].abs() - 0.1                  # all negative
+    expect[(0, 0)] = (0.0, 0.0)
     hm[1] = -hm[1].abs()                              # whole crop <= 0
-    hm[2, 1, 3, 31] = hm[2, 1, 5, 7] = 2.0            # tie, flat 175 < 247
-    hm[2, 2, 0, 31] = hm[2, 2, 0, 32] = 2.5           # tie across lanes
-    hm[3, 3, 0, 0] = 3.0
-    hm[3, 4, H - 1, W - 1] = 3.0
-    hm[3, 5, 1, 20] = 3.0
-    hm[3, 6, 30, W - 2] = 3.0
-    hm[4, 7, 20, 20] = 3.0                            # flat neighbours
-    hm[4, 7, 20, 19] = hm[4, 7, 20, 21] = 1.0
-    hm[4, 7, 19, 20] = hm[4, 7, 21, 20] = 1.0
-    got = k1.heatmap_peaks(hm)
+    hm[2, 0] = 0.0                                    # all zero (targets)
+    hm[2, 1] = 0.5                                    # constant: index 0
+    expect[(2, 1)] = (0.0, 0.0)
+    for j, (y, x) in {3: (0, 0), 4: (H - 1, W - 1), 5: (1, 20),
+                      6: (30, W - 2), 7: (20, 20)}.items():
+        hm[2, j, y, x] = 3.0
+        expect[(2, j)] = (float(x), float(y))
+    hm[2, 7, 20, 19] = hm[2, 7, 20, 21] = 1.0         # flat neighbours
+    hm[2, 7, 19, 20] = hm[2, 7, 21, 20] = 1.0
+    return hm, expect
+
+
+def peaks_err(got, ref):
+    return max(float((g - r).abs().max()) for g, r in zip(got, ref))
+
+
+def check_decode(torch, k1, dev, rng):
+    """K1 at (64 crops, 17 joints, 64x48) on ``decode_scene``: the bulk
+    kernel over all the maps and over 191 x 13 of them (2,483 maps: 13 of
+    each crop's 17, a strided batch of contiguous maps); the strided kernel on an NHWC-memory view and
+    on a view 4 bytes off alignment. Exact agreement with the plain
+    version required, and the planted peaks."""
+    N, J, H, W = BUDGET, 17, 64, 48
+    hm, expect = decode_scene(torch, dev, rng)
     ref = k1.heatmap_peaks_plain(hm)
-    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-    # the same maps as a strided (NHWC-memory) view
     nhwc = hm.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
-    err = max(err, max(float((g - r).abs().max()) for g, r in
-                       zip(k1.heatmap_peaks(nhwc), ref)))
+    shifted = torch.empty(hm.numel() + 1, device=dev)
+    shifted[1:] = hm.reshape(-1)
+    unaligned = shifted[1:].view(N, J, H, W)
+    part = torch.cat([hm] * 3)[:-1, :13]
+    part_ref = k1.heatmap_peaks_plain(part)
+    cases = {"bulk": (hm, "bulk", ref),
+             "bulk_2483_maps": (part, "bulk", part_ref),
+             "strided_nhwc_view": (nhwc, "strided", ref),
+             "strided_unaligned_view": (unaligned, "strided", ref)}
+    errs = {}
+    for name, (x, kernel, r) in cases.items():
+        before = k1.LAUNCHES_BY_KERNEL[kernel]
+        got = k1.heatmap_peaks(x)
+        torch.cuda.synchronize()
+        if k1.LAUNCHES_BY_KERNEL[kernel] != before + 1:
+            fail(f"K1 case {name} did not take the {kernel} kernel")
+        errs[name] = peaks_err(got, r)
+        wrong = {nj: xy for nj, xy in expect.items()
+                 if tuple(got[0][nj].tolist()) != xy}
+        if wrong:
+            fail(f"K1 case {name}: planted peaks wrong at {wrong}")
+    err = max(errs.values())
     if err != 0.0:
-        fail(f"K1 decode differs from its plain version by {err}")
-    if tuple(got[0][2, 1].tolist()) != (31.0, 3.0) or \
-            tuple(got[0][2, 2].tolist()) != (31.0, 0.0):
-        fail("K1 decode broke a tie toward the higher index")
+        fail(f"K1 decode differs from its plain version: {errs}")
     flat = hm.reshape(N, J, H * W)
     n_bytes = hm.numel() * 4 + N * J * 5 * 4
     b, by = bound_ms(n_bytes, flops=hm.numel())
-    fns = (lambda: k1.heatmap_peaks(hm), lambda: k1.heatmap_peaks_plain(hm),
-           lambda: torch.max(flat, dim=-1))
+    fns = {"": lambda: k1.heatmap_peaks(hm),
+           "plain_": lambda: k1.heatmap_peaks_plain(hm),
+           "library_": lambda: torch.max(flat, dim=-1)}
     return dict(name="heatmap_peaks", route="cuda",
                 source="stlpose_tpu_torch/kernels/csrc/decode.cu",
                 replaces="stlpose_tpu/ops/pallas_decode.py:74",
-                max_abs_err=err, tolerance=0.0, bound_ms=b, bound_by=by,
-                shape=[N, J, H, W], **event_times(torch, fns)), fns
+                max_abs_err=err, tolerance=0.0, case_errs=errs,
+                bound_ms=b, bound_by=by, shape=[N, J, H, W],
+                **event_times(torch, fns, cold=True)), fns
 
 
-def check_warp(torch, k2, affine, dev, rng):
+def warp_scene(torch, affine, dev, rng, n_img=B, S=400, K=BUDGET,
+               out_wh=(192, 256)):
+    """K2's serving inputs: K unrotated crops of ``out_wh`` from ``n_img``
+    random S x S x 3 images on the 0-255 scale, centres from S/10 outside
+    the image to inside, boxes partly outside. Returns images, centers,
+    scales, img_idx (int32) and params (K, 4): (a, b, tx, ty) of the
+    inverse map, as ``ops/warp.py`` computes them."""
+    images = torch.rand((n_img, S, S, 3), generator=rng, device=dev) * 255.0
+    u = torch.rand((K, 4), generator=rng, device=dev)
+    centers = torch.stack([u[:, 0] * 1.2 * S - 0.1 * S,
+                           u[:, 1] * 1.2 * S - 0.1 * S], -1)
+    scales = torch.stack([0.2 + 1.6 * u[:, 2], 0.3 + 2.0 * u[:, 3]],
+                         -1) * (S / 400.0)
+    img_idx = torch.randint(0, n_img, (K,), generator=rng, device=dev,
+                            dtype=torch.int32)
+    params = warp_params(torch, affine, centers, scales,
+                         torch.zeros(K, device=dev), out_wh)
+    return images, centers, scales, img_idx, params
+
+
+def warp_params(torch, affine, centers, scales, rot, out_wh):
+    return torch.stack(affine.get_affine_params(centers, scales, rot, out_wh,
+                                                inv=True), -1).contiguous()
+
+
+ROTATIONS = (30.0, -30.0, 60.0, -60.0, 90.0)
+
+
+def warp_edge_cases(torch, affine, scene, out_wh):
+    """Eight crops beside the serving scene: the scene's first five crops
+    (cycled if it has fewer) rotated by ROTATIONS, one centred far outside its image, and two whose
+    img_idx is -1 and B (both must read zeros only). Returns centers,
+    scales, rot, img_idx and params."""
+    images, centers, scales, img_idx, _ = scene
+    n_img, S = images.shape[0], images.shape[1]
+    dev = images.device
+    sel = torch.arange(len(ROTATIONS) + 3, device=dev) % centers.shape[0]
+    centers = centers[sel]
+    centers[-3:] = torch.tensor([[-3.0 * S, -3.0 * S], [S / 2, S / 2],
+                                 [S / 2, S / 2]], device=dev)
+    rot = torch.tensor(ROTATIONS + (0.0, 0.0, 0.0), device=dev)
+    idx = img_idx[sel]
+    idx[-3:] = torch.tensor([0, -1, n_img], device=dev, dtype=torch.int32)
+    scales = scales[sel]
+    return centers, scales, rot, idx, warp_params(torch, affine, centers,
+                                                  scales, rot, out_wh)
+
+
+def check_warp(torch, k2, affine, affine_warp, dev, rng):
     """K2: K = 64 crops of 256x192 from B = 8 images of 400x400, boxes
-    partly outside the image. Tolerance 1e-3 on the 0-255 scale."""
+    partly outside the image; then the edge cases of ``warp_edge_cases``
+    at 192x256 and at 190x250 (a width that is no multiple of 4, so no
+    bulk band store), the rotated ones also through ``ops/warp.py::
+    affine_warp``, and a 2-channel copy of the images (the any-C loop) at
+    both sizes. Tolerance 1e-3 on the 0-255 scale (0.0 expected)."""
     import torch.nn.functional as F
     S = 400
-    images = torch.rand((B, S, S, 3), generator=rng, device=dev) * 255.0
-    u = torch.rand((BUDGET, 4), generator=rng, device=dev)
-    centers = torch.stack([u[:, 0] * 480 - 40, u[:, 1] * 480 - 40], -1)
-    scales = torch.stack([0.2 + 1.6 * u[:, 2], 0.3 + 2.0 * u[:, 3]], -1)
-    img_idx = torch.randint(0, B, (BUDGET,), generator=rng, device=dev,
-                            dtype=torch.int32)
-    a, bb, tx, ty = affine.get_affine_params(
-        centers, scales, torch.zeros(BUDGET, device=dev), (192, 256),
-        inv=True)
-    params = torch.stack([a, bb, tx, ty], -1).contiguous()
-    got = k2.affine_crop(images, params, img_idx, (192, 256))
+    scene = warp_scene(torch, affine, dev, rng)
+    images, _, _, img_idx, params = scene
+    a, bb, tx, ty = params.unbind(-1)
     ref = k2.affine_crop_plain(images, params, img_idx, (192, 256))
-    err = float((got - ref).abs().max())
-    if not err <= 1e-3:
-        fail(f"K2 warp differs from its plain version by {err}")
+    errs = {"serving": float((k2.affine_crop(images, params, img_idx,
+                                             (192, 256)) - ref).abs().max())}
     if not 0.01 < float((ref == 0).float().mean()) < 0.99:
         fail("K2 check boxes do not straddle the image border")
+    for out_wh in ((192, 256), (190, 250)):
+        centers, scales, rot, idx, p_e = warp_edge_cases(torch, affine,
+                                                         scene, out_wh)
+        ref_e = k2.affine_crop_plain(images, p_e, idx, out_wh)
+        if bool(ref_e[-3:].any()) or not bool(ref_e[:-3].any()):
+            fail("K2 edge cases: a crop outside its image or with a bad "
+                 "index read non-zeros, or the rotated crops read zeros")
+        tag = f"{out_wh[0]}x{out_wh[1]}"
+        errs[f"edge_{tag}"] = float(
+            (k2.affine_crop(images, p_e, idx, out_wh) - ref_e).abs().max())
+        n = len(ROTATIONS)
+        rotated = affine_warp(images[idx[:n].long()], centers[:n],
+                              scales[:n], rot[:n], out_wh)
+        errs[f"affine_warp_rotated_{tag}"] = float(
+            (rotated - ref_e[:n]).abs().max())
+        two = images[..., :2].contiguous()
+        errs[f"two_channels_{tag}"] = float((
+            k2.affine_crop(two, params, img_idx, out_wh) -
+            k2.affine_crop_plain(two, params, img_idx, out_wh)).abs().max())
+    err = max(errs.values())
+    if not err <= 1e-3:
+        fail(f"K2 warp differs from its plain version: {errs}")
     # library yardstick: grid_sample on the gathered images
     gathered = images[img_idx.long()].permute(0, 3, 1, 2).contiguous()
     gy, gx = torch.meshgrid(torch.arange(256., device=dev),
@@ -237,19 +432,21 @@ def check_warp(torch, k2, affine, dev, rng):
                             padding_mode="zeros", align_corners=True)
     lib_err = float((lib_out.permute(0, 2, 3, 1) - ref).abs().max())
     n_imgs = int(torch.unique(img_idx).numel())
-    n_bytes = got.numel() * 4 + n_imgs * S * S * 3 * 4 + BUDGET * 20
-    b, by = bound_ms(n_bytes, flops=got.numel() * 7 + got.numel() / 3 * 20)
-    fns = (lambda: k2.affine_crop(images, params, img_idx, (192, 256)),
-           lambda: k2.affine_crop_plain(images, params, img_idx, (192, 256)),
-           lambda: F.grid_sample(gathered, grid, mode="bilinear",
-                                 padding_mode="zeros", align_corners=True))
+    n_bytes = ref.numel() * 4 + n_imgs * S * S * 3 * 4 + BUDGET * 20
+    b, by = bound_ms(n_bytes, flops=ref.numel() * 7 + ref.numel() / 3 * 20)
+    fns = {"": lambda: k2.affine_crop(images, params, img_idx, (192, 256)),
+           "plain_": lambda: k2.affine_crop_plain(images, params, img_idx,
+                                                  (192, 256)),
+           "library_": lambda: F.grid_sample(
+               gathered, grid, mode="bilinear", padding_mode="zeros",
+               align_corners=True)}
     return dict(name="affine_crop", route="cuda",
                 source="stlpose_tpu_torch/kernels/csrc/warp.cu",
                 replaces="stlpose_tpu/ops/pallas_warp.py:235",
-                max_abs_err=err, tolerance=1e-3, bound_ms=b, bound_by=by,
-                library_max_abs_err=lib_err,
+                max_abs_err=err, tolerance=1e-3, case_errs=errs,
+                bound_ms=b, bound_by=by, library_max_abs_err=lib_err,
                 shape=[B, S, S, 3, BUDGET, 256, 192],
-                **event_times(torch, fns)), fns
+                **event_times(torch, fns, cold=True)), fns
 
 
 ROI_SIZES, ROI_P, ROI_C, ROI_STRIDES = (100, 50, 25, 13), 256, 256, (4, 8, 16, 32)
@@ -326,8 +523,8 @@ def check_roi_variant(torch, k3, roi_ops, scene, variant):
     # per output: 4 samples x (4 taps x 2 flops + 3 weights) + the mean
     # (+ the dequantization multiply)
     b, by = bound_ms(n_bytes, flops=got.numel() * (4 * 12 + (src == "i8")))
-    fns = (lambda: k3.roi_align(*args), lambda: k3.roi_align_plain(*args),
-           None)
+    fns = {"": lambda: k3.roi_align(*args),
+           "plain_": lambda: k3.roi_align_plain(*args), "library_": None}
     rec = dict(name=ROI_RECORDS[variant], route="cuda",
                source="stlpose_tpu_torch/kernels/csrc/roi_align.cu",
                replaces=("stlpose_tpu/ops/pallas_roi.py:286" if src != "i8"
@@ -425,8 +622,10 @@ def check_warp_two_pass(torch, k4, mods, dev, seed):
     touched = two_pass_footprint(torch, params, CANVAS, (256, 192))
     n_bytes = got.numel() * 4 + touched * 3 + params.numel() * 4
     b, by = bound_ms(n_bytes, flops=got.numel() * 15)
-    fns = (lambda: k4.warp_two_pass(canv, params, (192, 256)),
-           lambda: k4.warp_two_pass_plain(canv, params, (192, 256)), None)
+    fns = {"": lambda: k4.warp_two_pass(canv, params, (192, 256)),
+           "plain_": lambda: k4.warp_two_pass_plain(canv, params,
+                                                    (192, 256)),
+           "library_": None}
     return dict(name="warp_two_pass", route="cuda",
                 source="stlpose_tpu_torch/kernels/csrc/warp_two_pass.cu",
                 replaces="stlpose_tpu/ops/pallas_warp.py:153",
@@ -474,9 +673,20 @@ def reset_counts(mods):
     """Every launch counter to 0, each K3 instantiation's included."""
     for k in ("k1", "k2", "k3", "k4"):
         mods[k].LAUNCHES = 0
-    by_type = mods["k3"].LAUNCHES_BY_TYPE
-    for v in by_type:
-        by_type[v] = 0
+    for by_type in (mods["k3"].LAUNCHES_BY_TYPE,
+                    mods["k1"].LAUNCHES_BY_KERNEL):
+        for v in by_type:
+            by_type[v] = 0
+
+
+def k1_took_bulk(mods, label):
+    """The path's heatmaps reached K1 as contiguous NCHW maps: every K1
+    launch since ``reset_counts`` took the bulk kernel."""
+    by = dict(mods["k1"].LAUNCHES_BY_KERNEL)
+    print(f"{label}: K1 launches by kernel:", json.dumps(by))
+    if by["strided"] or not by["bulk"]:
+        fail(f"{label}: K1 took the strided kernel ({by}); the path's "
+             f"heatmaps are not contiguous NCHW maps")
 
 
 def launch_counts(mods):
@@ -541,6 +751,7 @@ def drive_fused(torch, mods, fused, images, required, label, iters):
     print(f"{label}: launches per fused call:", json.dumps(launches))
     if min(launches[k] for k in required) < 1:
         fail(f"a kernel of the {label} path was not launched: {launches}")
+    k1_took_bulk(mods, label)
 
     shapes = {"sel_boxes": (B, MAX_DETS, 4), "sel_scores": (B, MAX_DETS),
               "sel_valid": (B, MAX_DETS), "img_idx": (BUDGET,),
@@ -796,6 +1007,7 @@ def train_path(torch, mods, dev, args):
     print("training-path launches:", json.dumps(launches))
     if launches["warp_two_pass"] < 1 or launches["heatmap_peaks"] < 1:
         fail(f"a kernel of the training path was not launched: {launches}")
+    k1_took_bulk(mods, "training")
     if train_m["loss_n"] != TRAIN_STEPS or \
             not np.isfinite(train_m["loss_mean"]):
         fail(f"non-finite training loss: {train_m}")
@@ -1074,7 +1286,7 @@ def main():
                 fold_batchnorms=fold_batchnorms)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
     checks = [check_decode(torch, k1, dev, rng),
-              check_warp(torch, k2, affine, dev, rng)]
+              check_warp(torch, k2, affine, affine_warp, dev, rng)]
     scene = roi_scene(torch, roi_ops, dev, rng)
     quantize = {}               # K3 record -> its quantize pass, if any
     for variant in ROI_RECORDS:
@@ -1111,6 +1323,9 @@ def main():
               f"library {k['library_ms']} ms, bound {k['bound_ms']} ms "
               f"({k['bound_by']}), launches on the main path "
               f"{k['launches']}", flush=True)
+        if "cold_ms" in k:
+            print(f"  {k['name']} cold L2: kernel {k['cold_ms']} ms, "
+                  f"library {k.get('library_cold_ms')} ms", flush=True)
     prof = profile_main_path(torch, mods, state, tput["ms_per_call"],
                              args.out)
     q_fused, q_images, _ = q_state

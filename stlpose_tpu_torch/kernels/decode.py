@@ -1,14 +1,20 @@
-"""K1: heatmap peak decode (CUDA kernel ``csrc/decode.cu``).
+"""K1: heatmap peak decode (CUDA kernels in ``csrc/decode.cu``).
 
 Replaces ``stlpose_tpu/ops/pallas_decode.py::heatmap_peaks_pallas``
 (Pallas kernel ``_decode_kernel``). Bound on the H100: the heatmap read,
-N*J*H*W*4 bytes. Design: one warp per (crop, joint) map, strided loads
-(contiguous for the NCHW memory the port's HRNet writes), a shuffle
-argmax with lowest-index ties, then four neighbour reads for the shift.
+N*J*H*W*4 bytes. Keeping enough of those bytes in flight is the design:
+for contiguous maps the bulk kernel (one block per map) copies the whole
+map into shared memory with one bulk asynchronous copy on an mbarrier,
+then reduces it with float4 reads and a (value, lowest index) merge; any
+other strides go to the strided kernel (a warp per map, rows then
+columns).
 
-``heatmap_peaks`` launches the kernel for a CUDA tensor and runs
-``heatmap_peaks_plain`` (the same function in plain PyTorch) for a CPU
-tensor. ``LAUNCHES`` counts kernel launches.
+``heatmap_peaks`` runs ``heatmap_peaks_plain`` (the same function in
+plain PyTorch) for a CPU tensor. For a CUDA tensor it launches the bulk
+kernel when the maps are contiguous (unit column stride, row stride W),
+their bytes a multiple of 16 and at most 48 KB, and every map starts on
+16 bytes; otherwise the strided kernel. ``LAUNCHES`` counts launches of
+either, ``LAUNCHES_BY_KERNEL`` each one.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from stlpose_tpu_torch.kernels import _build
 from stlpose_tpu_torch.kernels._build import I32, I64, P
 
 LAUNCHES = 0
+LAUNCHES_BY_KERNEL = {"bulk": 0, "strided": 0}
+MAX_MAP_BYTES = 48 * 1024     # one shared-memory buffer of the bulk kernel
 
 
 def heatmap_peaks_plain(heatmaps):
@@ -56,6 +64,17 @@ def heatmap_peaks_plain(heatmaps):
     return coords, maxvals, shift * ok[..., None]
 
 
+def takes_bulk_kernel(heatmaps) -> bool:
+    """Whether a CUDA ``heatmaps`` tensor goes to the bulk kernel: unit
+    column stride, row stride W, 16-byte map bases and map sizes (a
+    multiple of 16 bytes, at most ``MAX_MAP_BYTES``)."""
+    _, _, H, W = heatmaps.shape
+    sN, sJ, sH, sW = heatmaps.stride()
+    return (sW == 1 and sH == W and (H * W) % 4 == 0
+            and H * W * 4 <= MAX_MAP_BYTES and sN % 4 == 0 and sJ % 4 == 0
+            and heatmaps.data_ptr() % 16 == 0)
+
+
 def heatmap_peaks(heatmaps):
     """Peaks of (N, J, H, W) f32 heatmaps; any strides (the NHWC model
     output viewed as NJHW is read in place). See ``heatmap_peaks_plain``
@@ -77,11 +96,21 @@ def heatmap_peaks(heatmaps):
                           device=heatmaps.device)
     shift = torch.empty((N, J, 2), dtype=torch.float32,
                         device=heatmaps.device)
-    launch = _build.launcher("decode", "heatmap_peaks_launch",
-                             [P] + [I64] * 4 + [I32] * 4 + [P] * 4)
+    outs = (coords.data_ptr(), maxvals.data_ptr(), shift.data_ptr())
+    sN, sJ, sH, sW = heatmaps.stride()
     with torch.cuda.device(heatmaps.device):
-        launch(heatmaps.data_ptr(), *heatmaps.stride(), N, J, H, W,
-               coords.data_ptr(), maxvals.data_ptr(), shift.data_ptr(),
-               torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if takes_bulk_kernel(heatmaps):
+            kernel = "bulk"
+            _build.launcher("decode", "heatmap_peaks_bulk_launch",
+                            [P] + [I64] * 2 + [I32] * 4 + [P] * 4)(
+                heatmaps.data_ptr(), sN, sJ, N, J, H, W, *outs, stream)
+        else:
+            kernel = "strided"
+            _build.launcher("decode", "heatmap_peaks_strided_launch",
+                            [P] + [I64] * 4 + [I32] * 4 + [P] * 4)(
+                heatmaps.data_ptr(), sN, sJ, sH, sW, N, J, H, W, *outs,
+                stream)
     LAUNCHES += 1
+    LAUNCHES_BY_KERNEL[kernel] += 1
     return coords, maxvals, shift

@@ -1,13 +1,21 @@
 """K2: batched affine crop warp (CUDA kernel ``csrc/warp.cu``).
 
 Replaces ``stlpose_tpu/ops/pallas_warp.py::_pallas_warp_call`` (Pallas
-kernel ``_warp_kernel``) behind ``crop_from_center_scale_batched_pallas``.
-Bound on the H100: the crops written plus the source images read. Design:
-one thread per (crop, output pixel), all channels in a loop, direct
-bilinear sampling (no two-pass split or padded canvas).
+kernel ``_warp_kernel``) behind ``crop_from_center_scale_batched_pallas``
+and ``crop_from_center_scale_pallas``. Bound on the H100: the crops
+written (most of the bytes) plus the source images read. Design: a block
+per (crop, band of 8 rows) with the crop's params read once; a warp per
+32 consecutive pixels of a row, so that its tap loads stay close in the
+source; where dst_w*C is a multiple of 4, the band staged in shared
+memory and written by one bulk copy; for unrotated crops (b == 0,
+decided per crop on the device) the column taps computed once per block
+and the row taps once per row; rotated crops sample directly.
 
 ``affine_crop`` launches the kernel for CUDA tensors and runs
-``affine_crop_plain`` for CPU tensors. ``LAUNCHES`` counts kernel
+``affine_crop_plain`` for CPU tensors. Inside the launch, the kernel's
+C = 3 instantiation takes three-channel images (any other C runs a loop
+over channels), and the band goes out by one bulk copy where dst_w*C is
+a multiple of 4 and a band fits in 24 KB (value by value otherwise). ``LAUNCHES`` counts kernel
 launches.
 """
 
