@@ -5,14 +5,18 @@
 
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name, power limit); TF32 off;
-  2. build the four CUDA kernels from stlpose_tpu_torch/kernels/csrc
+  2. build the five CUDA kernel sources from stlpose_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel) and print the build time;
   3. per kernel, at its main path's shapes, compare the kernel with its
      plain PyTorch version on the card; bound = the bytes the function
      must move at 3.35 TB/s (or its f32 operations at 67 TFLOP/s, if
-     that is longer); K3 in each of its instantiations (f32 -> f32,
-     int8 -> bf16, bf16 -> bf16, int8 -> f32), the int8 ones on the
-     pyramid of the path's own quantize pass, which is timed beside them;
+     that is longer); K3q (the int8 quantize pair) exactly, on bf16 and
+     f32 pyramids with planted half-steps, an all-zero channel and the
+     +-127 ends (at C = 36 its wrapper must refuse the maps); K3 in each
+     of its instantiations (f32 ->
+     f32, int8 -> bf16, bf16 -> bf16, int8 -> f32), the int8 ones on the
+     pyramid of K3q, also on a planted C = 36 scene with elongated P2
+     boxes (``odd_roi_scene``);
      K1 and K2 on planted scenes (``decode_scene``, ``warp_scene``,
      ``warp_edge_cases``) that reach every branch of their designs (K1's
      bulk and strided kernels each on the layouts that must take them);
@@ -27,9 +31,9 @@ Phases, each fatal on failure:
      weights with seeded non-trivial BatchNorm, folded by the port's
      fold_batchnorms; the folded f32 models against the unfolded ones;
      then bf16 compute, folded BatchNorm and the int8 RoI pyramid through
-     the same checks as 4 (K1, K2 and K3's int8 -> bf16 instantiation
-     launched); images/s, crops/s and the drift from the f32 flavor on
-     the same weights (a record, not a gate);
+     the same checks as 4 (K1, K2, K3q and K3's int8 -> bf16
+     instantiation launched); images/s, crops/s and the drift from the
+     f32 flavor on the same weights (a record, not a gate);
   5. drive the pose training path at full width (HRNet-W32 256x192, f32,
      B = 32, Adam lr 1e-3, seeded weights): batches from the device-warp
      collate on seeded 640x640 uint8 canvases with the COCO augmentation
@@ -43,12 +47,14 @@ Phases, each fatal on failure:
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
      same function, over 20 repeats with the inputs warm in L2, and for
-     K1, K2 and their library calls also cold (L2 flushed before each
+     every kernel and library call also cold (L2 flushed before each
      repeat by rewriting a 256 MB scratch buffer, whose own kernels are
-     not counted); one fused call's (f32 and quantized bf16) and one
-     training iteration's kernel launches, device busy time and idle
-     share (their 40 largest kernels into DIR/chip_smoke_profile.txt when
-     --out is given).
+     not counted); one fused call's (f32 and quantized bf16, whose trace
+     must hold K3q's and K3's kernels) and one training iteration's
+     kernel launches, device busy time and idle share (the bf16 call
+     must run no abs/amax/div/round/clamp op on a pyramid level; the
+     40 largest
+     kernels into DIR/chip_smoke_profile.txt when --out is given).
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -69,6 +75,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
+L2_BYTES = 50 << 20            # H100 SXM L2 (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 B, MAX_DETS, BUDGET = 8, 8, 64
 # Random weights give person scores spread around 0.5: a threshold of 0
@@ -453,6 +460,10 @@ ROI_SIZES, ROI_P, ROI_C, ROI_STRIDES = (100, 50, 25, 13), 256, 256, (4, 8, 16, 3
 # K3's record names by instantiation (pyramid type _ output type)
 ROI_RECORDS = {"f32_f32": "roi_align", "i8_bf16": "roi_align_i8_bf16",
                "bf16_bf16": "roi_align_bf16_bf16", "i8_f32": "roi_align_i8_f32"}
+# the PyTorch ops of quantize_levels_plain: none may touch a pyramid level
+# in the bf16 call, whose quantization is K3q's
+QUANTIZE_OPS = ("aten::abs", "aten::amax", "aten::div", "aten::round",
+                "aten::clamp", "aten::clamp_min")
 
 
 def roi_scene(torch, roi_ops, dev, rng):
@@ -484,38 +495,65 @@ def roi_scene(torch, roi_ops, dev, rng):
     return feats, boxes, levels
 
 
-def check_roi_variant(torch, k3, roi_ops, scene, variant):
-    """One K3 instantiation on the scene of ``roi_scene``: the f32 maps as
-    they are (f32_f32), rounded to bf16 (bf16_bf16), or quantized by the
-    path's own ``quantize_levels`` from the f32 maps (i8_f32) or from
-    their bf16 rounding (i8_bf16, the quantized bf16 serving path). Kernel
-    and plain version run the same f32 operations in the same order and
-    round once, so 0.0 is required; f32_f32 keeps its earlier 1e-5. The
-    quantize pass (absmax, then round) is outside the kernel and timed
-    beside it."""
-    feats, boxes, levels = scene
+def odd_roi_scene(torch, roi_ops, dev, rng, C=36):
+    """A planted K3 case beside ``roi_scene``: C = 36 channels (no
+    multiple of 16: K3's bf16 and int8 lanes read one channel at a time,
+    its f32 lanes end in a part-filled slice) on two images of the
+    serving levels, with elongated P2 boxes spanning the whole level in x
+    or in y, random boxes, and one box on no level."""
+    S = 400
+    feats = [torch.randn((2, s, s, C), generator=rng, device=dev)
+             for s in ROI_SIZES]
+    u = torch.rand((2, 12, 4), generator=rng, device=dev)
+    x1, y1 = u[..., 0] * (S - 40), u[..., 1] * (S - 40)
+    boxes = torch.stack([x1, y1, x1 + 5 + u[..., 2] * 200,
+                         y1 + 5 + u[..., 3] * 200], -1)
+    boxes[:, :4] = torch.tensor([[0.0, 100.0, S, 130.0],
+                                 [100.0, 0.0, 130.0, S],
+                                 [-20.0, 380.0, 420.0, 405.0],
+                                 [3.0, 7.0, 5.0, 399.0]], device=dev)
+    levels = roi_ops._assign_levels(boxes, 4)
+    levels[:, -1] = -1
+    if not bool((levels[:, :4] == 0).all()):
+        fail("K3 odd-C scene: the elongated boxes are not on P2")
+    return feats, boxes, levels
+
+
+def check_roi_variant(torch, k3, k3q, roi_ops, scene, odd, variant):
+    """One K3 instantiation on the scene of ``roi_scene`` and on the
+    planted ``odd_roi_scene``: the f32 maps as they are (f32_f32), rounded
+    to bf16 (bf16_bf16), or quantized from the f32 maps (i8_f32) or from
+    their bf16 rounding (i8_bf16, the quantized bf16 serving path) by the
+    path's own ``quantize_levels`` (K3q, checked before; at C = 36, which
+    K3q refuses, by its plain version). Kernel and plain
+    version run the same f32 operations in the same order and round once,
+    so 0.0 is required; f32_f32 keeps its earlier 1e-5. Timed warm and
+    cold on ``roi_scene``."""
     src, out_name = variant.split("_")
     out_dtype = torch.bfloat16 if out_name == "bf16" else torch.float32
-    maps = [f.to(out_dtype) for f in feats]
-    scales = quant = None
-    if src == "i8":
-        base = maps
-        maps, scales = roi_ops.quantize_levels(base)
-
-        def quant():
-            return roi_ops.quantize_levels(base)
-    args = (maps, boxes, levels, ROI_STRIDES, scales, out_dtype)
-    got = k3.roi_align(*args)
-    ref = k3.roi_align_plain(*args)
-    if got.dtype != out_dtype:
-        fail(f"K3 {variant} returned {got.dtype}")
-    err = float((got.float() - ref.float()).abs().max())
     tol = 1e-5 if variant == "f32_f32" else 0.0
+    errs = {}
+    for case, (feats, boxes, levels) in (("odd_c_elongated", odd),
+                                         ("serving", scene)):
+        maps = [f.to(out_dtype) for f in feats]
+        scales = None
+        if src == "i8":
+            maps, scales = (roi_ops.quantize_levels if case == "serving"
+                            else k3q.quantize_levels_plain)(maps)
+        args = (maps, boxes, levels, ROI_STRIDES, scales, out_dtype)
+        got = k3.roi_align(*args)
+        ref = k3.roi_align_plain(*args)
+        if got.dtype != out_dtype:
+            fail(f"K3 {variant} returned {got.dtype}")
+        errs[case] = float((got.float() - ref.float()).abs().max())
+        if bool(got[:, -1].any()) or not bool(got[:, :-1].any()):
+            fail(f"K3 RoIAlign {variant} {case}: a level -1 box did not pool "
+                 f"zeros, or every other box did")
+    err = max(errs.values())
     if not err <= tol:
-        fail(f"K3 RoIAlign {variant} differs from its plain version by {err}")
-    if bool(got[:, -1].any()) or not bool(got[:, -17:-1].any()):
-        fail(f"K3 RoIAlign {variant}: P5 boxes pooled zeros or a level -1 "
-             f"box did not")
+        fail(f"K3 RoIAlign {variant} differs from its plain version: {errs}")
+    if not bool(got[:, -17:-1].any()):      # the serving scene's P5 boxes
+        fail(f"K3 RoIAlign {variant}: P5 boxes pooled zeros")
     n_bytes = (got.numel() * got.element_size() +
                sum(m.numel() * m.element_size() for m in maps) +
                boxes.numel() * 4 + levels.numel() * 4 +
@@ -530,13 +568,84 @@ def check_roi_variant(torch, k3, roi_ops, scene, variant):
                replaces=("stlpose_tpu/ops/pallas_roi.py:286" if src != "i8"
                          else "stlpose_tpu/ops/pallas_roi.py:417"),
                instantiation=variant, max_abs_err=err, tolerance=tol,
-               bound_ms=b, bound_by=by, bytes=n_bytes,
+               case_errs=errs, bound_ms=b, bound_by=by, bytes=n_bytes,
                level_counts=[int((levels == i).sum()) for i in range(4)],
                shape=[B, ROI_P, ROI_C, *ROI_SIZES],
-               **event_times(torch, fns, 10))
-    if quant is not None:
-        rec["quantize_events_ms"] = elapsed_ms(torch, quant, 10)
-    return rec, fns, quant
+               **event_times(torch, fns, cold=True))
+    return rec, fns
+
+
+def quantize_cases(torch, feats):
+    """Planted values on (copies of) the serving maps: on P2 channel 0 an
+    absmax of 127 (scale 1.0) beside the half-steps +-0.5, +-2.5, 1.5 and
+    126.5 and the ends +-127; on P3 an all-zero channel (the 1e-8 floor);
+    on P4 a channel of +-3e-9 (under the floor: quantized to +-38); on P5
+    a channel whose absmax sits at both signs. Returns the maps and the
+    planted (level, index, int8) values."""
+    feats = [f.clone() for f in feats]
+    feats[0][0, 0, :8, 0] = torch.tensor(
+        [127.0, 2.5, -2.5, 0.5, -0.5, 1.5, 126.5, -127.0],
+        device=feats[0].device)
+    feats[1][..., 5] = 0.0
+    feats[2][..., 6] = torch.where(feats[2][..., 6] > 0, 3e-9, -3e-9)
+    feats[3][0, 0, 0, 7], feats[3][0, 1, 0, 7] = 9.0, -9.0
+    expect = [(0, (0, 0, slice(0, 8), 0), [127, 2, -2, 0, 0, 2, 126, -127]),
+              (3, (0, 0, 0, 7), 127), (3, (0, 1, 0, 7), -127)]
+    return feats, expect
+
+
+def check_quantize(torch, k3q, scene, odd):
+    """K3q on the serving pyramid (B = 8, C = 256, P2-P5 of 100/50/25/13)
+    in bf16 (the quantized bf16 serving path's input) and in f32 (what
+    i8_f32 pools), with the planted values of ``quantize_cases``: int8
+    levels and scales equal to ``quantize_levels_plain``. The C = 36 maps
+    of ``odd_roi_scene`` (no 16-byte int8 store per pixel) must raise.
+    Timed warm and cold on the bf16 pyramid beside
+    ``torch.linalg.vector_norm`` (inf) per level, the absmax half."""
+    planted, expect = quantize_cases(torch, scene[0])
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        maps = [f.to(dtype) for f in planted]
+        q, s = k3q.quantize_levels(maps)
+        rq, rs = k3q.quantize_levels_plain(maps)
+        bad = [i for i, (a, b) in enumerate(zip(q, rq))
+               if a.dtype != torch.int8 or not torch.equal(a, b)]
+        if bad or not torch.equal(s, rs):
+            fail(f"K3q {dtype}: int8 levels {bad} or the scales differ "
+                 f"from the plain version")
+        wrong = [(lv, v) for lv, idx, v in expect if q[lv][idx].tolist() != v]
+        if wrong or float(s[0, 0]) != 1.0 or bool(q[1][..., 5].any()):
+            fail(f"K3q planted values wrong: {wrong}")
+        errs[f"serving_{str(dtype)[6:]}"] = 0.0
+        try:
+            k3q.quantize_levels([f.to(dtype) for f in odd[0]])
+        except ValueError:
+            pass
+        else:
+            fail(f"K3q took C = 36 {dtype} maps it has no kernel for")
+    maps = [f.to(torch.bfloat16) for f in scene[0]]
+    n_el = sum(m.numel() for m in maps)
+    L, C = len(maps), maps[0].shape[-1]
+    # the pyramid read once, again what the L2 cannot keep for the second
+    # pass, the int8 pyramid and the scales written, the absmax buffer
+    # written and read
+    n_bytes = (n_el * 2 + max(0, n_el * 2 - L2_BYTES) + n_el +
+               2 * L * C * 4)
+    # per element: |x|, max, the division, rint, two clamps
+    b, by = bound_ms(n_bytes, flops=n_el * 6)
+    fns = {"": lambda: k3q.quantize_levels(maps),
+           "plain_": lambda: k3q.quantize_levels_plain(maps),
+           "library_": lambda: [torch.linalg.vector_norm(
+               m, float("inf"), dim=(0, 1, 2)) for m in maps]}
+    return dict(name="quantize_levels", route="cuda",
+                source="stlpose_tpu_torch/kernels/csrc/quantize.cu",
+                replaces="stlpose_tpu/ops/pallas_roi.py:422",
+                max_abs_err=0.0, tolerance=0.0, case_errs=errs,
+                bound_ms=b, bound_by=by, bytes=n_bytes,
+                library="torch.linalg.vector_norm(inf) per level (absmax "
+                        "half only)",
+                shape=[B, ROI_C, *ROI_SIZES],
+                **event_times(torch, fns, cold=True)), fns
 
 
 def synthetic_records(mods, seed):
@@ -634,7 +743,7 @@ def check_warp_two_pass(torch, k4, mods, dev, seed):
                 canvas_bytes_read=touched * 3,
                 k2_direct_bilinear_max_abs_diff=k2_diff,
                 shape=[TRAIN_B, CANVAS, CANVAS, 3, 256, 192],
-                **event_times(torch, fns)), fns
+                **event_times(torch, fns, cold=True)), fns
 
 
 # ---------------------------------------------------------------- main path
@@ -671,7 +780,7 @@ def seeded_bn_statistics(torch, module, seed):
 
 def reset_counts(mods):
     """Every launch counter to 0, each K3 instantiation's included."""
-    for k in ("k1", "k2", "k3", "k4"):
+    for k in ("k1", "k2", "k3", "k3q", "k4"):
         mods[k].LAUNCHES = 0
     for by_type in (mods["k3"].LAUNCHES_BY_TYPE,
                     mods["k1"].LAUNCHES_BY_KERNEL):
@@ -693,6 +802,7 @@ def launch_counts(mods):
     """Launches since ``reset_counts``, by kernel record name."""
     counts = {"heatmap_peaks": mods["k1"].LAUNCHES,
               "affine_crop": mods["k2"].LAUNCHES,
+              "quantize_levels": mods["k3q"].LAUNCHES,
               "warp_two_pass": mods["k4"].LAUNCHES}
     counts.update({ROI_RECORDS[v]: n
                    for v, n in mods["k3"].LAUNCHES_BY_TYPE.items()})
@@ -700,20 +810,20 @@ def launch_counts(mods):
 
 
 @contextlib.contextmanager
-def plain_versions(k1, k2, k3, k4):
-    """Route the four kernel entry points to their plain versions (the
+def plain_versions(mods):
+    """Route the five kernel entry points to their plain versions (the
     comparison runs only)."""
-    saved = (k1.heatmap_peaks, k2.affine_crop, k3.roi_align,
-             k4.warp_two_pass)
-    k1.heatmap_peaks = k1.heatmap_peaks_plain
-    k2.affine_crop = k2.affine_crop_plain
-    k3.roi_align = k3.roi_align_plain
-    k4.warp_two_pass = k4.warp_two_pass_plain
+    entries = [(mods["k1"], "heatmap_peaks"), (mods["k2"], "affine_crop"),
+               (mods["k3"], "roi_align"), (mods["k3q"], "quantize_levels"),
+               (mods["k4"], "warp_two_pass")]
+    saved = [getattr(m, name) for m, name in entries]
+    for m, name in entries:
+        setattr(m, name, getattr(m, name + "_plain"))
     try:
         yield
     finally:
-        (k1.heatmap_peaks, k2.affine_crop, k3.roi_align,
-         k4.warp_two_pass) = saved
+        for (m, name), fn in zip(entries, saved):
+            setattr(m, name, fn)
 
 
 @contextlib.contextmanager
@@ -775,8 +885,7 @@ def drive_fused(torch, mods, fused, images, required, label, iters):
           f"heatmap peaks {float(out['crop_kpts'][pv][..., 2].min()):.3f}.."
           f"{float(out['crop_kpts'][pv][..., 2].max()):.3f}")
 
-    k1, k2, k3, k4 = mods["k1"], mods["k2"], mods["k3"], mods["k4"]
-    with plain_versions(k1, k2, k3, k4):
+    with plain_versions(mods):
         ref = fused(images)
     torch.cuda.synchronize()
     for k in ("sel_valid", "picked_valid", "img_idx"):
@@ -844,7 +953,7 @@ def quant_path(torch, mods, dev, args):
     5e-5 of their largest magnitude: two f32 programs whose weights round
     differently, through cuDNN's FFT and GEMM algorithms; H100 readings
     4.4e-6 and 3.7e-6), then drives the
-    fused call (K1, K2 and K3's int8 -> bf16 instantiation launched, the
+    fused call (K1, K2, K3q and K3's int8 -> bf16 instantiation launched, the
     plain-version run agreeing), and records the drift of its outputs from
     the f32 flavor on the same weights (not a gate)."""
     t0 = time.time()
@@ -890,8 +999,8 @@ def quant_path(torch, mods, dev, args):
           flush=True)
     launches, tput, out, n_valid = drive_fused(
         torch, mods, fused, images,
-        ("heatmap_peaks", "affine_crop", "roi_align_i8_bf16"),
-        "quantized bf16 serving", args.iters)
+        ("heatmap_peaks", "affine_crop", "quantize_levels",
+         "roi_align_i8_bf16"), "quantized bf16 serving", args.iters)
 
     # the f32 flavor on the same weights: a record, not a gate
     ref = mods["build_fused_two_stage"](det, pose, bbox_thr=BBOX_THR,
@@ -947,7 +1056,7 @@ def train_path(torch, mods, dev, args):
     heatmaps; then one step on the kernels against the same step on the
     plain versions."""
     import copy
-    k1, k2, k3, k4 = mods["k1"], mods["k2"], mods["k3"], mods["k4"]
+    k1 = mods["k1"]
     t0 = time.time()
     images, recs = synthetic_records(mods, args.seed + 4)
     pipe = mods["PoseDataPipeline"](recs, TRAIN_B, is_train=True,
@@ -1048,7 +1157,7 @@ def train_path(torch, mods, dev, args):
             model.load_state_dict(saved[0])
             state.optimizer.load_state_dict(copy.deepcopy(saved[1]))
             peaks = []
-            with (plain_versions(k1, k2, k3, k4) if plain
+            with (plain_versions(mods) if plain
                   else contextlib.nullcontext()), recording(k1, peaks):
                 _, m = iteration(raw[0])
             outs.append((float(m["loss"]), int(m["pck_hit"]),
@@ -1087,22 +1196,43 @@ def train_path(torch, mods, dev, args):
     return launches, summary, (iteration, raw[0])
 
 
-def profile_program(torch, fn, ms_per_call, out_dir, label):
+def forbidden_ops(prof, ops, shapes):
+    """[(op, input shapes)] of the profiled ops named in ``ops`` that took
+    an input of one of ``shapes`` (the profile must record shapes)."""
+    return [(e.key, e.input_shapes)
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key in ops and any(list(sh) in shapes
+                                    for sh in e.input_shapes)]
+
+
+def profile_program(torch, fn, ms_per_call, out_dir, label, expect=(),
+                    forbid=None):
     """One call of ``fn`` (after one outside it) under torch.profiler:
     kernel launches, device busy time, idle share against the unprofiled
-    ``ms_per_call``, and the kernels that take the time (appended to
-    DIR/chip_smoke_profile.txt)."""
+    ``ms_per_call``, the device ms of the kernels whose names hold one of
+    ``expect`` (each must appear in a trace that has device rows), and the
+    kernels that take the time (appended to DIR/chip_smoke_profile.txt).
+    ``forbid``: (op names, input shapes) that must not meet in the call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=forbid is not None) as prof:
         fn()
         torch.cuda.synchronize()
+    if forbid is not None:
+        hits = forbidden_ops(prof, *forbid)
+        if hits:
+            fail(f"{label}: ops that must not run in it ran: {hits}")
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     summary = {"device_busy_ms": busy, "idle_share": 1.0 - busy / ms_per_call,
                "kernel_launches": sum(r[1] for r in rows)}
+    if expect and rows:
+        named = {e: sum(t for t, _, k in rows if e in k) for e in expect}
+        if not all(named.values()):
+            fail(f"{label}: no device row of {named} in its profile")
+        summary["named_kernels_ms"] = named
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "a") as f:
@@ -1228,6 +1358,7 @@ def main():
     from stlpose_tpu_torch.engines.vase_evaluator import build_fused_two_stage
     from stlpose_tpu_torch.kernels import _build
     from stlpose_tpu_torch.kernels import decode as k1
+    from stlpose_tpu_torch.kernels import quantize as k3q
     from stlpose_tpu_torch.kernels import roi_align as k3
     from stlpose_tpu_torch.kernels import warp as k2
     from stlpose_tpu_torch.kernels import warp_two_pass as k4
@@ -1259,7 +1390,8 @@ def main():
     dev = torch.device("cuda")
 
     t0 = time.time()
-    logs = _build.build(["decode", "warp", "roi_align", "warp_two_pass"])
+    logs = _build.build(["decode", "warp", "roi_align", "quantize",
+                         "warp_two_pass"])
     print(f"built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
@@ -1267,7 +1399,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    mods = dict(k1=k1, k2=k2, k3=k3, k4=k4, FasterRCNN=FasterRCNN,
+    mods = dict(k1=k1, k2=k2, k3=k3, k3q=k3q, k4=k4, FasterRCNN=FasterRCNN,
                 FasterRCNNConfig=FasterRCNNConfig,
                 PoseHighResolutionNet=PoseHighResolutionNet,
                 get_hrnet_config=get_hrnet_config,
@@ -1288,13 +1420,11 @@ def main():
     checks = [check_decode(torch, k1, dev, rng),
               check_warp(torch, k2, affine, affine_warp, dev, rng)]
     scene = roi_scene(torch, roi_ops, dev, rng)
-    quantize = {}               # K3 record -> its quantize pass, if any
-    for variant in ROI_RECORDS:
-        rec, fns, quant = check_roi_variant(torch, k3, roi_ops, scene,
-                                            variant)
-        checks.append((rec, fns))
-        if quant is not None:
-            quantize[rec["name"]] = quant
+    odd = odd_roi_scene(torch, roi_ops, dev, rng)
+    checks.append(check_quantize(torch, k3q, scene, odd))
+    checks += [check_roi_variant(torch, k3, k3q, roi_ops, scene, odd,
+                                 variant)
+               for variant in ROI_RECORDS]
     checks.append(check_warp_two_pass(torch, k4, mods, dev, args.seed + 5))
     for k, _ in checks:
         print(f"{k['name']}: max_abs_err {k['max_abs_err']} (tol "
@@ -1310,9 +1440,6 @@ def main():
     kernels = []
     for k, fns in checks:
         device_times(torch, k, fns)
-        if k["name"] in quantize:
-            k["quantize_ms"] = device_profile(
-                torch, quantize[k["name"]])[1] or k["quantize_events_ms"]
         by_path = {"serving": launches[k["name"]],
                    "serving_bf16_roi8": q_launches[k["name"]],
                    "training": train_launches[k["name"]]}
@@ -1331,7 +1458,9 @@ def main():
     q_fused, q_images, _ = q_state
     quant["profile"] = profile_program(
         torch, lambda: q_fused(q_images), quant["ms_per_call"], args.out,
-        "one quantized bf16 fused call")
+        "one quantized bf16 fused call",
+        expect=("absmax_kernel", "quantize_kernel", "roi_align_kernel"),
+        forbid=(QUANTIZE_OPS, [[B, s, s, ROI_C] for s in ROI_SIZES]))
     iteration, samples = train_state
     train["profile"] = profile_program(
         torch, lambda: iteration(samples), train["ms_per_step"], args.out,

@@ -4,9 +4,12 @@ Replaces ``stlpose_tpu/ops/pallas_roi.py::_roi_chunk_call`` (Pallas
 kernels ``_roi_kernel_pp`` and ``_roi_kernel``) behind
 ``multilevel_roi_align_pallas_batched``, with and without ``patch_quant``.
 Bound on the H100: the pooled output written plus the feature maps read
-once. Design: one block per box, the box's 14+14 sample positions in
-shared memory, threads over (bin, channel) with the channel fastest so
-NHWC taps coalesce.
+once; what the kernel serves is 16 taps per output from L1/L2. Design:
+one block per box, the box's sample weights and tap offsets in shared
+memory, the block walking the box's channel slices; a lane takes 16 bytes
+of adjacent channels of one bin (8 for int8) and issues the bin's 16 tap
+loads before it uses any. A C that is not a multiple of a lane's channels
+takes a one-channel-at-a-time path inside the kernel.
 
 The kernel is instantiated per (pyramid type, output type): float32 ->
 float32, bfloat16 -> bfloat16, int8 -> float32 and int8 -> bfloat16. Taps

@@ -4,13 +4,15 @@ Port of ``stlpose_tpu/ops/roi_align.py`` (``_assign_levels``,
 ``roi_align_single_level`` and the multilevel entry) and of the
 ``patch_quant`` option of ``stlpose_tpu/ops/pallas_roi.py::
 multilevel_roi_align_pallas_batched``: each box reads only its canonically
-assigned level. Sampling runs in the K3 kernel (``kernels/roi_align.py``).
+assigned level. Sampling runs in the K3 kernel (``kernels/roi_align.py``),
+the int8 quantization in the K3q kernels (``kernels/quantize.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from stlpose_tpu_torch.kernels import quantize as _k3q
 from stlpose_tpu_torch.kernels import roi_align as _k3
 
 
@@ -27,25 +29,10 @@ def _assign_levels(boxes, n_levels, canonical_scale=224.0,
 
 def quantize_levels(feature_levels):
     """Symmetric int8 quantization of each (B, h, w, C) level with one
-    scale per (level, channel), taken over the whole batch (the absmax
-    runs over B, h and w, so one image's pooled features depend on the
-    other images of the batch, as in the JAX package). In f32:
-    ``s = max(absmax, 1e-8) / 127``, ``q = clip(round(x / s), -127, 127)``
-    with round half to even. Returns (int8 levels, (L, C) f32 scales).
-
-    Own copy of ``stlpose_tpu/ops/pallas_roi.py:418-429``. The JAX
-    wrapper skips quantization when C % 128 != 0 outside interpret mode
-    (Mosaic's lane-tile limit); this function quantizes at every C."""
-    q, scales = [], []
-    for f in feature_levels:
-        x = f.to(torch.float32)
-        # device tensors, not Python numbers: CUDA divides by a host
-        # scalar as a multiply by its reciprocal, one rounding off
-        s = torch.clamp(x.abs().amax(dim=(0, 1, 2)), min=1e-8) / \
-            torch.tensor(127.0, device=x.device)
-        q.append(torch.clamp(torch.round(x / s), -127, 127).to(torch.int8))
-        scales.append(s)
-    return q, torch.stack(scales)
+    scale per (level, channel) over the whole batch, in the K3q kernels
+    (``kernels/quantize.py``, whose ``quantize_levels_plain`` states the
+    function). Returns (int8 levels, (L, C) f32 scales)."""
+    return _k3q.quantize_levels(feature_levels)
 
 
 def multilevel_roi_align(feature_levels, boxes, strides,
