@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name, power limit); TF32 off;
-  2. build the five CUDA kernel sources from stlpose_tpu_torch/kernels/csrc
+  2. build the six CUDA kernel sources from stlpose_tpu_torch/kernels/csrc
      (one nvcc per source, in parallel) and print the build time;
   3. per kernel, at its main path's shapes, compare the kernel with its
      plain PyTorch version on the card; bound = the bytes the function
@@ -20,13 +20,21 @@ Phases, each fatal on failure:
      K1 and K2 on planted scenes (``decode_scene``, ``warp_scene``,
      ``warp_edge_cases``) that reach every branch of their designs (K1's
      bulk and strided kernels each on the layouts that must take them);
+     K4 on three sets of training crops (augmented, all turned by the
+     90-degree conditioning, none rotated; ``warp_two_pass_scenes``), on
+     uint8 and f32 canvases; K5 (greedy NMS) exactly, at the proposal,
+     detection and training-budget shapes (``NMS_SHAPES``, ``nms_scene``:
+     level-offset boxes, ties, zero-area boxes on top, dead images) with
+     f32 and bf16 scores, with and without a valid mask; its latency
+     floor from an empty block-wide argmax round;
   4. drive the fused two-stage serving path end to end at full width
      (Faster R-CNN ResNet50-FPN 400x400 + HRNet-W32 256x192, float32,
      B = 8, seeded random weights) with every launch counter set to 0
      first; check shapes, finiteness, that each kernel was launched (K1
-     through its bulk kernel), and agreement with the same program run on
-     the plain versions; time
-     images/s and crops/s, then the detector, HRNet and NMS stages alone;
+     through its bulk kernel, K5 exactly twice: proposals, detections),
+     and agreement with the same program run on the plain versions; time
+     images/s and crops/s, then the detector (also with K5's plain loop
+     in place, and with NMS stubbed out), HRNet and NMS stages alone;
   4b. the quantized bf16 serving flavor at the same width: seeded
      weights with seeded non-trivial BatchNorm, folded by the port's
      fold_batchnorms; the folded f32 models against the unfolded ones;
@@ -49,8 +57,9 @@ Phases, each fatal on failure:
      same function, over 20 repeats with the inputs warm in L2, and for
      every kernel and library call also cold (L2 flushed before each
      repeat by rewriting a 256 MB scratch buffer, whose own kernels are
-     not counted); one fused call's (f32 and quantized bf16, whose trace
-     must hold K3q's and K3's kernels) and one training iteration's
+     not counted); one fused call's (f32, which must launch fewer than
+     MAX_FUSED_LAUNCHES kernels, and quantized bf16, whose trace must
+     hold K3q's and K3's kernels) and one training iteration's
      kernel launches, device busy time and idle share (the bf16 call
      must run no abs/amax/div/round/clamp op on a pyramid level; the
      40 largest
@@ -156,9 +165,6 @@ def bound_ms(n_bytes, flops=0.0):
 
 
 FLUSH_BYTES = 256 << 20        # scratch rewritten between cold repeats
-# timed labels of a check: the kernel (""), its plain version, the library
-# call; the kernel and the library call are also timed cold
-COLD_LABELS = ("", "library_")
 
 
 def l2_flush(torch):
@@ -187,18 +193,19 @@ def cold_elapsed_ms(torch, fn, flush, iters):
 
 def event_times(torch, fns, iters=20, cold=False):
     """``<x>events_ms``: CUDA-event time per call of each timed function
-    (``fns``: label -> function or None), launch gaps and host overhead
-    included; with ``cold``, also ``<x>cold_events_ms`` of the kernel and
-    the library call, L2 flushed before each call. Taken before any
-    profiler session."""
+    (``fns``: label -> function or None; "" the kernel, "plain_" its plain
+    version, "library_" the library call, others the kernel at other
+    inputs), launch gaps and host overhead included; with ``cold``, also
+    ``<x>cold_events_ms`` of all but the plain version, L2 flushed before
+    each call. Taken before any profiler session."""
     rec = {label + "events_ms": None if fn is None else
            elapsed_ms(torch, fn, iters) for label, fn in fns.items()}
     if cold:
         flush = l2_flush(torch)
-        for label in COLD_LABELS:
-            if fns.get(label) is not None:
+        for label, fn in fns.items():
+            if fn is not None and label != "plain_":
                 rec[label + "cold_events_ms"] = cold_elapsed_ms(
-                    torch, fns[label], flush, iters)
+                    torch, fn, flush, iters)
     return rec
 
 
@@ -456,6 +463,9 @@ def check_warp(torch, k2, affine, affine_warp, dev, rng):
                 **event_times(torch, fns, cold=True)), fns
 
 
+# one f32 fused call launched 10,716 kernels with NMS as a per-pick chain
+# of PyTorch ops (PR 5); with K5 about 2,000
+MAX_FUSED_LAUNCHES = 3000
 ROI_SIZES, ROI_P, ROI_C, ROI_STRIDES = (100, 50, 25, 13), 256, 256, (4, 8, 16, 32)
 # K3's record names by instantiation (pyramid type _ output type)
 ROI_RECORDS = {"f32_f32": "roi_align", "i8_bf16": "roi_align_i8_bf16",
@@ -692,13 +702,14 @@ def two_pass_footprint(torch, params, S, out_hw):
     return int(seen.sum())
 
 
-def check_warp_two_pass(torch, k4, mods, dev, seed):
-    """K4 at the training shapes: TRAIN_B seeded uint8 canvases of
-    640x640, crops drawn by the port's AugmentationParams with the COCO
-    recipe, four of them forced to +-60 and +-89 degrees so the
-    conditioning turn runs; the same canvases as f32 through the f32
-    instantiation. Tolerance 1e-4 on the 0-255 scale (0 expected: kernel
-    and plain version round alike)."""
+def warp_two_pass_scenes(torch, mods, dev, seed):
+    """K4's training inputs: TRAIN_B seeded uint8 canvases of 640x640 and
+    three sets of crops on them: ``augmented`` (the port's
+    AugmentationParams with the COCO recipe, four forced to +-60 and +-89
+    degrees so the conditioning turn runs), ``all_turned`` (the same
+    crops at 50-130 degrees either way: every crop turned) and
+    ``unrotated`` (the same crops at 0 degrees). Returns the canvases,
+    {scene: (centers, scales, rot, params)}."""
     images, recs = synthetic_records(mods, seed)
     aug = mods["AugmentationParams"](
         scale_factor=0.35, rotation_factor=45, flip=True,
@@ -707,42 +718,196 @@ def check_warp_two_pass(torch, k4, mods, dev, seed):
              for r in recs]
     rots = np.float32([d[2] for d in draws])
     rots[:4] = (60.0, -60.0, 89.0, -89.0)
+    rng = np.random.RandomState(seed)
+    turned = (rng.uniform(50.0, 130.0, TRAIN_B) *
+              np.where(np.arange(TRAIN_B) % 2, 1.0, -1.0)).astype(np.float32)
     canv = torch.from_numpy(images).to(dev)
     centers = torch.from_numpy(np.stack([d[0] for d in draws])).to(dev)
     scales = torch.from_numpy(np.stack([d[1] for d in draws])).to(dev)
-    rot = torch.from_numpy(rots).to(dev)
-    params = mods["two_pass_params"](centers, scales, rot, CANVAS,
-                                     (192, 256))
-    got = k4.warp_two_pass(canv, params, (192, 256))
-    ref = k4.warp_two_pass_plain(canv, params, (192, 256))
-    err = float((got - ref).abs().max())
-    # the f32 instantiation on the same canvases (uint8 -> f32 is exact)
-    err_f32 = float((k4.warp_two_pass(canv.float(), params, (192, 256)) -
-                     ref).abs().max())
-    n_swap = int(params[:, 6].sum())
-    if not (err <= 1e-4 and err_f32 <= 1e-4):
-        fail(f"K4 two-pass warp differs from its plain version by {err} "
-             f"(uint8 canvases), {err_f32} (f32 canvases)")
-    if n_swap < 4:
-        fail(f"K4 check: only {n_swap} crops took the conditioning turn")
+    scenes = {}
+    for name, r in (("augmented", rots), ("all_turned", turned),
+                    ("unrotated", np.zeros_like(rots))):
+        rot = torch.from_numpy(r).to(dev)
+        scenes[name] = (centers, scales, rot, mods["two_pass_params"](
+            centers, scales, rot, CANVAS, (192, 256)))
+    return canv, scenes
+
+
+def check_warp_two_pass(torch, k4, mods, dev, seed):
+    """K4 at the training shapes on the scenes of ``warp_two_pass_scenes``,
+    each on the uint8 canvases and on the same canvases as f32 (uint8 ->
+    f32 is exact). Tolerance 1e-4 on the 0-255 scale (0 expected: kernel
+    and plain version round alike). Timed warm and cold on every scene
+    (``all_turned_ms``, ...), the record's ``ms`` on ``augmented``."""
+    canv, scenes = warp_two_pass_scenes(torch, mods, dev, seed)
+    errs = {}
+    for name, (_, _, _, params) in scenes.items():
+        ref = k4.warp_two_pass_plain(canv, params, (192, 256))
+        for cv, tag in ((canv, "u8"), (canv.float(), "f32")):
+            errs[f"{name}_{tag}"] = float(
+                (k4.warp_two_pass(cv, params, (192, 256)) - ref).abs().max())
+    err = max(errs.values())
+    if not err <= 1e-4:
+        fail(f"K4 two-pass warp differs from its plain version: {errs}")
+    swaps = {n: int(sc[3][:, 6].sum()) for n, sc in scenes.items()}
+    if (swaps["augmented"] < 4 or swaps["all_turned"] != TRAIN_B
+            or swaps["unrotated"] or bool(scenes["unrotated"][3][:, 3].any())):
+        fail(f"K4 scenes: crops turned {swaps}, or an unrotated crop has "
+             f"b != 0")
+    centers, scales, rot, params = scenes["augmented"]
     # K2 (direct bilinear) on the same crops: a different function
+    ref = k4.warp_two_pass_plain(canv, params, (192, 256))
     k2_diff = float((mods["affine_warp"](canv.float(), centers, scales, rot,
                                          (192, 256)) - ref).abs().max())
     touched = two_pass_footprint(torch, params, CANVAS, (256, 192))
-    n_bytes = got.numel() * 4 + touched * 3 + params.numel() * 4
-    b, by = bound_ms(n_bytes, flops=got.numel() * 15)
+    n_bytes = ref.numel() * 4 + touched * 3 + params.numel() * 4
+    b, by = bound_ms(n_bytes, flops=ref.numel() * 15)
     fns = {"": lambda: k4.warp_two_pass(canv, params, (192, 256)),
            "plain_": lambda: k4.warp_two_pass_plain(canv, params,
                                                     (192, 256)),
            "library_": None}
+    for n, sc in scenes.items():
+        if n != "augmented":
+            fns[n + "_"] = lambda p=sc[3]: k4.warp_two_pass(canv, p,
+                                                             (192, 256))
     return dict(name="warp_two_pass", route="cuda",
                 source="stlpose_tpu_torch/kernels/csrc/warp_two_pass.cu",
-                replaces="stlpose_tpu/ops/pallas_warp.py:153",
-                max_abs_err=err, tolerance=1e-4, bound_ms=b, bound_by=by,
-                f32_canvas_max_abs_err=err_f32, crops_turned=n_swap,
+                replaces="stlpose_tpu/ops/pallas_warp.py:156",
+                max_abs_err=err, tolerance=1e-4, case_errs=errs,
+                bound_ms=b, bound_by=by, crops_turned=swaps,
                 canvas_bytes_read=touched * 3,
                 k2_direct_bilinear_max_abs_diff=k2_diff,
                 shape=[TRAIN_B, CANVAS, CANVAS, 3, 256, 192],
+                **event_times(torch, fns, cold=True)), fns
+
+
+# (label, candidates per FPN level, picks, IoU threshold): the proposal NMS
+# of the serving path (pre_nms_top_n_test 500 on P2-P5, all 147 anchors of
+# P6 at 400x400), its detection NMS (post_nms 256 proposals,
+# detections_per_img 64), and the training budget of the reference
+# (stlpose_tpu/models/faster_rcnn.py:58-60, pre_nms_top_n_train 1000)
+NMS_SHAPES = (("proposal", (500, 500, 500, 500, 147), 256, 0.7),
+              ("detection", (256,), 64, 0.5),
+              ("train", (1000, 1000, 1000, 1000, 147), 512, 0.7))
+
+
+def nms_scene(torch, dev, g, levels, image=400.0):
+    """B = 8 images of candidates as the detector makes them: per level
+    random boxes on a 400x400 canvas shifted apart by level * 800
+    (``select_proposals``' offset), random logits as scores, ``valid`` the
+    boxes of positive size. Planted: image 0 duplicated boxes with tied
+    scores, zero-area boxes on top, -0.0 beside +0.0, an IoU of exactly
+    0.5; image 1 every score -inf; image 2 nothing valid; image 3 ten
+    alive candidates. Returns boxes (8, M, 4), f32 scores, valid."""
+    M = sum(levels)
+    lvl = torch.cat([torch.full((n,), float(i)) for i, n in
+                     enumerate(levels)])
+    xy = torch.rand((B, M, 2), generator=g) * image
+    wh = torch.rand((B, M, 2), generator=g) * 80.0
+    boxes = torch.cat([xy, torch.clamp(xy + wh, max=image)], -1)
+    boxes[:, ::97, 2] = boxes[:, ::97, 0]               # zero width
+    scores = torch.randn((B, M), generator=g)
+    boxes[0, 10:14] = boxes[0, 10]                      # duplicates, tied
+    scores[0, 10:14] = 5.0
+    boxes[0, 20:24, 2:] = boxes[0, 20:24, :2]           # zero area, on top
+    scores[0, 20:24] = torch.tensor([9.0, 8.5, 8.5, 8.0])
+    scores[0, 30], scores[0, 31] = -0.0, 0.0
+    boxes[0, 40] = torch.tensor([0.0, 0.0, 2.0, 2.0])   # IoU exactly 0.5
+    boxes[0, 41] = torch.tensor([0.0, 0.0, 2.0, 1.0])
+    scores[0, 40:42] = torch.tensor([7.0, 6.5])
+    boxes = boxes + lvl[None, :, None] * (image * 2.0)
+    valid = ((boxes[..., 2] - boxes[..., 0]) >= 1e-3) & \
+        ((boxes[..., 3] - boxes[..., 1]) >= 1e-3)
+    valid[0, 20:24] = True
+    scores = torch.where(valid, scores, -torch.inf)
+    scores[1] = -torch.inf
+    valid[2] = False
+    valid[3] = False
+    valid[3, torch.randperm(M, generator=g)[:10]] = True
+    return boxes.to(dev), scores.to(dev), valid.to(dev)
+
+
+def argmax_round_ms(torch, dev, threads, blocks=B):
+    """Device ms of one empty block-wide argmax round of K5 (the loop's
+    barrier and reductions, no candidates): ``blocks`` blocks of
+    ``threads``, 1100 rounds against 100 rounds, CUDA events."""
+    from stlpose_tpu_torch.kernels import _build
+    from stlpose_tpu_torch.kernels._build import I32, P
+    launch = _build.launcher("nms", "nms_argmax_rounds_launch",
+                             [I32] * 3 + [P, P])
+    out = torch.empty(blocks, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    t = {r: elapsed_ms(torch, lambda: launch(threads, blocks, r,
+                                             out.data_ptr(), stream), 20)
+         for r in (100, 1100)}
+    return (t[1100] - t[100]) / 1000
+
+
+def check_nms(torch, k5, dev, seed):
+    """K5 at the three NMS shapes (``NMS_SHAPES``) on ``nms_scene``, with
+    f32 and bf16 scores, with ``valid`` and with None: keep masks equal to
+    ``box_nms_topk_plain``'s, and the planted cases as greedy NMS must
+    give them. Timed warm and cold at each shape (f32 scores:
+    ``detection_ms``, ...), the record's ``ms`` at the proposal shape;
+    bound from bytes, and beside it the latency floor: the picks of the
+    longest image times one empty block-wide argmax round on the card."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    scenes, errs, extra = {}, {}, {}
+    for label, levels, keep, thr in NMS_SHAPES:
+        boxes, scores, valid = nms_scene(torch, dev, g, levels)
+        scenes[label] = (boxes, scores, valid, keep, thr)
+        for dtype in (torch.float32, torch.bfloat16):
+            sc = scores.to(dtype)
+            for v in (valid, None):
+                got = k5.box_nms_topk(boxes, sc, thr, v, keep)
+                ref = k5.box_nms_topk_plain(boxes, sc, thr, v, keep)
+                case = (f"{label}_{str(dtype)[6:]}_"
+                        f"{'valid' if v is not None else 'no_valid'}")
+                errs[case] = float((got != ref).sum())
+                if got.dtype != torch.bool or errs[case]:
+                    fail(f"K5 {case}: keep mask differs from the plain "
+                         f"version at {int(errs[case])} candidates")
+                if v is None:
+                    continue
+                picks = got.sum(1)
+                if not (bool(got[0, 10]) and not bool(got[0, 11:14].any())
+                        and bool(got[0, 20:24].all())
+                        and bool(got[0, 40:42].all())
+                        and int(picks[1]) == 0 and int(picks[2]) == 0
+                        and 0 < int(picks[3]) <= 10
+                        and int(picks[4:].min()) > 0):
+                    fail(f"K5 {case}: planted cases wrong (picks per image "
+                         f"{picks.tolist()})")
+        extra[label] = {"candidates": int(boxes.shape[1]), "picks": keep,
+                        "picks_longest_image": int(
+                            k5.box_nms_topk(boxes, scores, thr, valid,
+                                            keep).sum(1).max())}
+    rounds = {t: argmax_round_ms(torch, dev, t) for t in (256, 1024)}
+    for e in extra.values():
+        e["latency_floor_ms"] = e["picks_longest_image"] * rounds[
+            256 if e["candidates"] <= 256 else 1024]
+    boxes, scores, valid, keep, thr = scenes["proposal"]
+    M = boxes.shape[1]
+    # boxes, scores and valid read once, the keep mask written
+    n_bytes = B * M * (16 + 4 + 1 + 1)
+    b, by = bound_ms(n_bytes)
+    fns = {"": lambda: k5.box_nms_topk(boxes, scores, thr, valid, keep),
+           "plain_": lambda: k5.box_nms_topk_plain(boxes, scores, thr, valid,
+                                                   keep),
+           "library_": None}
+    for label in ("detection", "train"):
+        fns[label + "_"] = (lambda b, s, v, k, t: lambda: k5.box_nms_topk(
+            b, s, t, v, k))(*scenes[label])
+    return dict(name="box_nms_topk", route="cuda",
+                source="stlpose_tpu_torch/kernels/csrc/nms.cu",
+                replaces="stlpose_tpu/ops/nms.py:194 (no Pallas original: "
+                         "the fori_loop of _box_nms_topk)",
+                max_abs_err=max(errs.values()), tolerance=0.0,
+                case_errs=errs, bound_ms=b, bound_by=by, bytes=n_bytes,
+                latency_floor_ms=extra["proposal"]["latency_floor_ms"],
+                argmax_round_ms=rounds, shapes=extra,
+                library="none (torchvision is not installed)",
+                shape=[B, M, 4, keep],
                 **event_times(torch, fns, cold=True)), fns
 
 
@@ -780,7 +945,7 @@ def seeded_bn_statistics(torch, module, seed):
 
 def reset_counts(mods):
     """Every launch counter to 0, each K3 instantiation's included."""
-    for k in ("k1", "k2", "k3", "k3q", "k4"):
+    for k in ("k1", "k2", "k3", "k3q", "k4", "k5"):
         mods[k].LAUNCHES = 0
     for by_type in (mods["k3"].LAUNCHES_BY_TYPE,
                     mods["k1"].LAUNCHES_BY_KERNEL):
@@ -803,7 +968,8 @@ def launch_counts(mods):
     counts = {"heatmap_peaks": mods["k1"].LAUNCHES,
               "affine_crop": mods["k2"].LAUNCHES,
               "quantize_levels": mods["k3q"].LAUNCHES,
-              "warp_two_pass": mods["k4"].LAUNCHES}
+              "warp_two_pass": mods["k4"].LAUNCHES,
+              "box_nms_topk": mods["k5"].LAUNCHES}
     counts.update({ROI_RECORDS[v]: n
                    for v, n in mods["k3"].LAUNCHES_BY_TYPE.items()})
     return counts
@@ -811,11 +977,11 @@ def launch_counts(mods):
 
 @contextlib.contextmanager
 def plain_versions(mods):
-    """Route the five kernel entry points to their plain versions (the
+    """Route the six kernel entry points to their plain versions (the
     comparison runs only)."""
     entries = [(mods["k1"], "heatmap_peaks"), (mods["k2"], "affine_crop"),
                (mods["k3"], "roi_align"), (mods["k3q"], "quantize_levels"),
-               (mods["k4"], "warp_two_pass")]
+               (mods["k4"], "warp_two_pass"), (mods["k5"], "box_nms_topk")]
     saved = [getattr(m, name) for m, name in entries]
     for m, name in entries:
         setattr(m, name, getattr(m, name + "_plain"))
@@ -861,6 +1027,9 @@ def drive_fused(torch, mods, fused, images, required, label, iters):
     print(f"{label}: launches per fused call:", json.dumps(launches))
     if min(launches[k] for k in required) < 1:
         fail(f"a kernel of the {label} path was not launched: {launches}")
+    if launches["box_nms_topk"] != 2:
+        fail(f"{label}: K5 launched {launches['box_nms_topk']} times in one "
+             f"detector_predict, not 2 (proposals, detections)")
     k1_took_bulk(mods, label)
 
     shapes = {"sel_boxes": (B, MAX_DETS, 4), "sel_scores": (B, MAX_DETS),
@@ -1259,9 +1428,10 @@ def nms_inputs(torch, dev):
 def stage_times(torch, mods, state):
     """CUDA-event ms per call of the path's stages alone, at its shapes:
     the detector, its backbone + FPN, HRNet-W32 on the crop budget, the
-    two NMS loops; the fused call and the detector with NMS stubbed out
-    (every valid candidate kept: what the loops cost in place); HRNet
-    with cuDNN's autotuner on. Taken before any profiler session."""
+    two NMS calls (K5); the detector with K5's plain loop in place of the
+    kernel; the fused call and the detector with NMS stubbed out (every
+    valid candidate kept: what NMS costs in place); HRNet with cuDNN's
+    autotuner on. Taken before any profiler session."""
     det, pose, fused, images, _ = state
     nms = mods["box_nms_topk"]
     images01 = images.to(torch.float32) / 255.0
@@ -1277,6 +1447,14 @@ def stage_times(torch, mods, state):
         for label, bx, sc, keep in nms_inputs(torch, images.device):
             stages[label] = elapsed_ms(
                 torch, lambda: nms(bx, sc, 0.5, None, keep), 3)
+        k5 = mods["k5"]
+        kernel = k5.box_nms_topk
+        k5.box_nms_topk = k5.box_nms_topk_plain
+        try:
+            stages["detector_predict_nms_plain"] = elapsed_ms(
+                torch, lambda: det.predict(images01), 3)
+        finally:
+            k5.box_nms_topk = kernel
         frcnn = sys.modules[type(det).__module__]
         frcnn.box_nms_topk = lambda b, s, t, valid, k: valid & (s > -1e30)
         try:
@@ -1297,10 +1475,11 @@ def stage_times(torch, mods, state):
 
 
 def profile_main_path(torch, mods, state, ms_per_call, out_dir):
-    """One fused call under torch.profiler: kernel launches, device busy
-    time and idle share (against the unprofiled ``ms_per_call``), the
-    kernels that take the time; the NMS loops' launch counts; and the
-    throughput once more, now that the profiler has run."""
+    """One fused call under torch.profiler: kernel launches (fewer than
+    MAX_FUSED_LAUNCHES), device busy time and idle share (against the
+    unprofiled ``ms_per_call``), the kernels that take the time; the NMS
+    calls' launch counts; and the throughput once more, now that the
+    profiler has run."""
     from torch.profiler import ProfilerActivity, profile
     _, _, fused, images, n_valid = state
     fused(images)
@@ -1325,6 +1504,9 @@ def profile_main_path(torch, mods, state, ms_per_call, out_dir):
                "idle_share": 1.0 - busy / ms_per_call,
                "kernel_launches": n_kernels, "nms": nms_counts,
                "ms_per_call_after_profiling": after["ms_per_call"]}
+    if rows and n_kernels >= MAX_FUSED_LAUNCHES:
+        fail(f"one f32 fused call launched {n_kernels} kernels (limit "
+             f"{MAX_FUSED_LAUNCHES}): has the per-pick NMS chain returned?")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
@@ -1358,6 +1540,7 @@ def main():
     from stlpose_tpu_torch.engines.vase_evaluator import build_fused_two_stage
     from stlpose_tpu_torch.kernels import _build
     from stlpose_tpu_torch.kernels import decode as k1
+    from stlpose_tpu_torch.kernels import nms as k5
     from stlpose_tpu_torch.kernels import quantize as k3q
     from stlpose_tpu_torch.kernels import roi_align as k3
     from stlpose_tpu_torch.kernels import warp as k2
@@ -1391,7 +1574,7 @@ def main():
 
     t0 = time.time()
     logs = _build.build(["decode", "warp", "roi_align", "quantize",
-                         "warp_two_pass"])
+                         "warp_two_pass", "nms"])
     print(f"built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
@@ -1399,7 +1582,8 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    mods = dict(k1=k1, k2=k2, k3=k3, k3q=k3q, k4=k4, FasterRCNN=FasterRCNN,
+    mods = dict(k1=k1, k2=k2, k3=k3, k3q=k3q, k4=k4, k5=k5,
+                FasterRCNN=FasterRCNN,
                 FasterRCNNConfig=FasterRCNNConfig,
                 PoseHighResolutionNet=PoseHighResolutionNet,
                 get_hrnet_config=get_hrnet_config,
@@ -1426,6 +1610,7 @@ def main():
                                  variant)
                for variant in ROI_RECORDS]
     checks.append(check_warp_two_pass(torch, k4, mods, dev, args.seed + 5))
+    checks.append(check_nms(torch, k5, dev, args.seed + 11))
     for k, _ in checks:
         print(f"{k['name']}: max_abs_err {k['max_abs_err']} (tol "
               f"{k['tolerance']})", flush=True)

@@ -5,10 +5,13 @@ kernel ``_warp_kernel``): the Catmull-Smith two-pass filter that makes the
 rotated training crops of the device-warp pipeline. For a rotated crop it
 is a different function from K2's direct bilinear sample (pass 1 samples
 each source row at its own sheared x). Bound on the H100: the crops
-written plus the canvas pixels under them read. Design: one thread per
-(crop, output pixel), both passes for that pixel's two source rows only,
-the 90-degree conditioning turn folded into the indexing, uint8 or f32
-canvases read directly.
+written plus the canvas pixels under them read. Design: a block per
+(crop, 32 x 32 output tile), lines of 32 pixels along the output row, or
+along the output column in a crop with the 90-degree conditioning turn
+(folded into the indexing), so that neighbouring lanes read neighbouring
+canvas bytes; all taps of a pixel loaded before the first use; a turned
+crop's tile staged in shared memory and written by rows with bulk
+copies; uint8 or f32 canvases read directly.
 
 ``warp_two_pass`` launches the kernel for CUDA tensors and runs
 ``warp_two_pass_plain`` for CPU tensors. ``LAUNCHES`` counts kernel
@@ -84,6 +87,9 @@ def warp_two_pass(images, params, output_size):
         raise ValueError("warp_two_pass: expected uint8 or float32 CUDA "
                          "canvases (N, S, S, C) and float32 params (N, 8) "
                          "on the same device")
+    if S * S * C >= 2 ** 31:
+        raise ValueError(f"warp_two_pass: a {S}x{S}x{C} canvas is over the "
+                         f"kernel's 32-bit offsets")
     images = images.contiguous()
     params = params.contiguous()
     out = torch.empty((N, dst_h, dst_w, C), dtype=torch.float32, device=dev)

@@ -1,13 +1,16 @@
 """Static-shape greedy IoU NMS and the top-k used around it.
 
 Port of ``stlpose_tpu/ops/nms.py::_box_nms_topk`` (``box_nms_jax`` with
-``max_keep``). It has no Pallas original and stays plain PyTorch, batched
-over images: ``max_keep`` sequential picks over a (B, M) candidate set.
+``max_keep``): ``max_keep`` sequential picks over a (B, M) candidate set,
+batched over images. It has no Pallas original; the loop is the port's
+own kernel K5 (``kernels/nms.py``), one launch per call.
 """
 
 from __future__ import annotations
 
 import torch
+
+from stlpose_tpu_torch.kernels import nms as _k5
 
 
 def top_k(x, k: int):
@@ -21,39 +24,10 @@ def top_k(x, k: int):
 
 def box_nms_topk(boxes, scores, iou_threshold: float, valid_mask,
                  max_keep: int):
-    """Pick-argmax greedy NMS, batched.
-
-    boxes (B, M, 4) xyxy; scores (B, M); valid_mask (B, M) bool or None.
-    Each of ``max_keep`` iterations picks the best alive candidate per
-    image (lowest index on ties, as torch.argmax returns the first max),
-    keeps it, and removes it and every alive box with IoU above the
-    threshold. Returns the (B, M) keep mask: the first ``max_keep`` greedy
-    survivors."""
-    B, M = scores.shape
-    max_keep = min(max_keep, M)
-    if valid_mask is None:
-        valid_mask = torch.ones_like(scores, dtype=torch.bool)
-    x1, y1, x2, y2 = boxes.unbind(-1)
-    areas = torch.clamp(x2 - x1, min=0.0) * torch.clamp(y2 - y1, min=0.0)
-    alive = valid_mask & (scores > -torch.inf)
-    keep = torch.zeros_like(alive)
-    idx = torch.arange(M, device=scores.device)
-    neg_inf = torch.tensor(-torch.inf, device=scores.device)
-    for _ in range(max_keep):
-        i = torch.argmax(torch.where(alive, scores, neg_inf), dim=1,
-                         keepdim=True)                              # (B, 1)
-        ok = torch.gather(alive, 1, i)                              # (B, 1)
-        bx = torch.gather(boxes, 1, i[..., None].expand(B, 1, 4))[:, 0]
-        inter = (torch.clamp(torch.minimum(x2, bx[:, 2:3]) -
-                             torch.maximum(x1, bx[:, 0:1]), min=0.0) *
-                 torch.clamp(torch.minimum(y2, bx[:, 3:4]) -
-                             torch.maximum(y1, bx[:, 1:2]), min=0.0))
-        area_i = torch.gather(areas, 1, i)
-        iou = inter / torch.clamp(areas + area_i - inter, min=1e-9)
-        picked = idx[None, :] == i
-        keep = keep | (picked & ok)
-        # the pick is removed explicitly: a zero-area box has self-IoU 0
-        # and would otherwise be picked again on every iteration
-        alive = torch.where(ok, alive & ~(iou > iou_threshold) & ~picked,
-                            alive)
-    return keep
+    """Pick-argmax greedy NMS, batched: boxes (B, M, 4) xyxy, scores
+    (B, M), valid_mask (B, M) bool or None. Returns the (B, M) keep mask
+    of the first ``max_keep`` greedy survivors (lowest index on tied
+    scores). K5 on the card, its plain version on the CPU
+    (``kernels/nms.py``)."""
+    return _k5.box_nms_topk(boxes, scores, iou_threshold, valid_mask,
+                            max_keep)

@@ -22,6 +22,7 @@ from stlpose_tpu_torch.engines.vase_evaluator import (
     _fused_pack_spec, _pack_fused_outputs, _unpack_fused_outputs,
     build_fused_two_stage)
 from stlpose_tpu_torch.kernels import decode as _k1
+from stlpose_tpu_torch.kernels import nms as _k5
 from stlpose_tpu_torch.kernels import roi_align as _k3
 from stlpose_tpu_torch.kernels import warp as _k2
 from stlpose_tpu_torch.models.convert import (faster_rcnn_from_jax,
@@ -154,7 +155,12 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
                       torch.empty((1, 5, 4), device=meta),
                       torch.empty((1, 5), dtype=torch.int32, device=meta),
                       (4,))
-    assert _k1.LAUNCHES == _k2.LAUNCHES == _k3.LAUNCHES == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        _k5.box_nms_topk(torch.empty((2, 7, 4), device=meta),
+                         torch.empty((2, 7), device=meta), 0.5,
+                         torch.empty((2, 7), dtype=torch.bool, device=meta),
+                         3)
+    assert _k1.LAUNCHES == _k2.LAUNCHES == _k3.LAUNCHES == _k5.LAUNCHES == 0
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
