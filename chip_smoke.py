@@ -52,6 +52,23 @@ Phases, each fatal on failure:
      on the kernels against the same step on the plain versions (cuDNN
      deterministic: loss, PCK hits and count, every peak, parameters);
      time samples/s and ms per step, split into finalize and step;
+  5b. flip-TTA COCO evaluation through the port's PoseEvaluator at full
+     width (HRNet-W32 256x192, f32, B = 64, so 128 crops a forward):
+     256 seeded 640x640 images with two people each written as a
+     COCO-layout annotation file, the seeded weights saved as the
+     experiment's "final" checkpoint, the valid pipeline reading the
+     decoded canvases from memory (no cv2 on the card's machine); counters
+     set to 0 first, one evaluate_model (K4 and K1 launched, K1 through
+     its bulk kernel; 10 finite stats in the JSON keyed by checkpoint),
+     a second timed (ms per batch, crops/s, host seconds of the
+     submission and of COCO scoring); one batch split into collate,
+     fused eval-decode step (CUDA events) and host consume; the step
+     without flip, and with the flip combine in the (N, J, H, W) layout;
+     the step on the
+     kernels against the same step on the plain versions (keypoints 1e-3
+     px, maxima 1e-4, loss and PCK exact, K1 on its own heatmaps exact);
+     the oracle AP/AR (target heatmaps decoded and scored, >= 0.95); the
+     bf16 flavor's ms per batch and its drift from f32 (a record);
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
      same function, over 20 repeats with the inputs warm in L2, and for
@@ -63,7 +80,9 @@ Phases, each fatal on failure:
      kernel launches, device busy time and idle share (the bf16 call
      must run no abs/amax/div/round/clamp op on a pyramid level; the
      40 largest
-     kernels into DIR/chip_smoke_profile.txt when --out is given).
+     kernels into DIR/chip_smoke_profile.txt when --out is given); one
+     eval-decode step's launches and idle share likewise, in each
+     layout of the flip combine.
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -79,6 +98,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1365,6 +1385,309 @@ def train_path(torch, mods, dev, args):
     return launches, summary, (iteration, raw[0])
 
 
+# ---------------------------------------------------------------- eval path
+# Flip-TTA evaluation: the batch of the JAX README's flip-TTA row, 256
+# COCO-layout images of CANVAS x CANVAS (the letterbox size: no cv2) with
+# two people each, so 8 full batches of 64 crops (128 through HRNet)
+EVAL_B, EVAL_IMAGES, EVAL_PEOPLE = 64, 256, 2
+EVAL_CONFIG = "w32_256x192"
+ORACLE_MIN = 0.95               # AP and AR, as tests/test_oracle_ap.py
+
+
+def eval_dataset(root, seed):
+    """``root``/annotations/person_keypoints_val.json in COCO layout, from
+    ``seed``: EVAL_IMAGES images of CANVAS x CANVAS, EVAL_PEOPLE people on
+    each (boxes of 80-240 x 160-400 px, 17 keypoints inside, 80% labelled
+    visible). Returns {image_id: uint8 canvas}, the decoded images."""
+    rng = np.random.RandomState(seed)
+    canvases = rng.randint(0, 256, (EVAL_IMAGES, CANVAS, CANVAS, 3),
+                           np.uint8)
+    images, anns = [], []
+    for i in range(EVAL_IMAGES):
+        img_id = 1000 + i
+        images.append({"id": img_id, "height": CANVAS, "width": CANVAS,
+                       "file_name": "%012d.jpg" % img_id})
+        for _ in range(EVAL_PEOPLE):
+            w, h = rng.uniform(80, 240), rng.uniform(160, 400)
+            x, y = rng.uniform(0, CANVAS - w), rng.uniform(0, CANVAS - h)
+            vis = np.where(rng.rand(17) > 0.2, 2.0, 0.0)
+            kp = np.stack([x + rng.rand(17) * w, y + rng.rand(17) * h, vis],
+                          -1)
+            anns.append({"id": len(anns) + 1, "image_id": img_id,
+                         "category_id": 1, "bbox": [x, y, w, h],
+                         "area": w * h, "iscrowd": 0,
+                         "keypoints": kp.reshape(-1).tolist(),
+                         "num_keypoints": int((vis > 0).sum())})
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    with open(os.path.join(root, "annotations",
+                           "person_keypoints_val.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return {1000 + i: canvases[i] for i in range(EVAL_IMAGES)}
+
+
+def eval_evaluator(torch, mods, exp_path, data, canvases, dev, dtype):
+    """The port's PoseEvaluator on the experiment's "final" checkpoint,
+    HRNet-W32 in ``dtype``, its valid pipeline reading the decoded
+    canvases from memory in place of JPEG files."""
+    ev = mods["PoseEvaluator"](exp_path, checkpoint="final", data_path=data,
+                               flip=True, dtype=dtype, device=dev)
+    ev.setup_model_dataset(config_name=EVAL_CONFIG, pretrained=None)
+    pipe = ev.valid_pipe
+    pipe._load_one_raw = lambda rec: pipe._letterbox(canvases[rec.image_id],
+                                                     rec)
+    return ev
+
+
+def timed_evaluation(torch, ev, evaluator_mod):
+    """One evaluate_model on the host clock, with the host seconds of its
+    submission writes and of its COCO scoring."""
+    host = {"generate_submission_s": 0.0, "compute_precision_s": 0.0}
+    saved = {k: getattr(evaluator_mod, k) for k in
+             ("generate_submission", "compute_precision")}
+
+    def timer(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[name + "_s"] += time.perf_counter() - t
+        return call
+
+    for k, fn in saved.items():
+        setattr(evaluator_mod, k, timer(k, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = ev.evaluate_model()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(evaluator_mod, k, fn)
+    n = len(ev.valid_pipe.records)
+    return stats, {"ms_per_batch": dt * 1e3 / len(ev.valid_pipe),
+                   "crops_per_s": n / dt, "evaluation_s": dt, **host}
+
+
+def eval_stats_ok(stats, exp_path, ev, label):
+    """10 finite stats, written to the stats JSON under the checkpoint."""
+    if stats.shape != (10,) or not np.isfinite(stats).all():
+        fail(f"{label}: stats {stats}")
+    files = [f for f in os.listdir(exp_path)
+             if f.startswith("evaluation_stats")]
+    with open(os.path.join(exp_path, files[0])) as f:
+        if str(ev.checkpoint) not in json.load(f):
+            fail(f"{label}: the stats JSON is not keyed by checkpoint")
+
+
+def eval_decode_njhw(torch, mods, model):
+    """The fused eval step with the flip-TTA combine in the (N, J, H, W)
+    layout (``average_flip_tta`` on the permuted halves) and one contiguous
+    copy of its result feeding the loss, PCK and decode;
+    make_eval_decode_step combines in the model's (N, H, W, J) view, as
+    the reference does."""
+    steps = mods["steps"]
+
+    def step(batch):
+        with torch.no_grad():
+            images = batch["image"]
+            n = images.shape[0]
+            out = model(torch.cat([images, torch.flip(images, dims=[2])]))
+            out = out.permute(0, 3, 1, 2)
+            pred = mods["average_flip_tta"](out[:n], out[n:]).contiguous()
+            metrics = steps._eval_metrics(pred, batch)
+            preds, maxvals, _ = mods["decode_heatmaps"](
+                pred, batch["center"], batch["scale"])
+            return torch.cat([preds, maxvals[..., None]], -1), metrics
+
+    return step
+
+
+def eval_path(torch, mods, dev, args, tmp):
+    """Flip-TTA COCO evaluation through the port's PoseEvaluator at full
+    width: HRNet-W32 256x192 in f32 (seeded weights saved as the
+    experiment's "final" checkpoint), B = 64, 512 crops. Every counter
+    set to 0, one evaluate_model (K4 and K1 must launch; stats checked),
+    a second one timed; one batch split into collate (K4), the fused step
+    (CUDA events) and the host consume; the step without flip; the step
+    with the flip combine in the (N, J, H, W) layout (K1's kernel and time
+    of each form);
+    the step on the kernels against the same step on the plain versions;
+    the oracle AP (the batches' own target heatmaps decoded and scored);
+    the bf16 flavor's ms per batch and drift. Returns (launches, summary,
+    (step, device batch, step ms))."""
+    k1 = mods["k1"]
+    t0 = time.time()
+    data = os.path.join(tmp, "data")
+    canvases = eval_dataset(data, args.seed + 20)
+    exp_path = mods["create_experiment"](
+        "chip_smoke_eval", {"batch_size": EVAL_B, "dataset_name": "coco",
+                            "device_warp": True},
+        root=os.path.join(tmp, "experiments"))
+    model = seeded_weights(torch, mods["PoseHighResolutionNet"](
+        mods["get_hrnet_config"](EVAL_CONFIG), device=dev), args.seed + 6)
+    exp = mods["load_experiment_parameters"](exp_path)
+    mods["save_checkpoint"](mods["create_train_state"](model, exp),
+                            exp_path, "final")
+    del model
+    ev = eval_evaluator(torch, mods, exp_path, data, canvases, dev,
+                        torch.float32)
+    evaluator_mod = sys.modules[type(ev).__module__]
+    pipe = ev.valid_pipe
+    n_crops = len(pipe.records)
+    if n_crops != EVAL_IMAGES * EVAL_PEOPLE or len(pipe) * EVAL_B != n_crops:
+        fail(f"eval: {n_crops} records in {len(pipe)} batches")
+    print(f"eval set-up in {time.time() - t0:.1f} s", flush=True)
+
+    reset_counts(mods)
+    stats = ev.evaluate_model()
+    torch.cuda.synchronize()
+    launches = launch_counts(mods)
+    print("eval-path launches:", json.dumps(launches))
+    if launches["warp_two_pass"] < 1 or launches["heatmap_peaks"] < 1:
+        fail(f"a kernel of the eval path was not launched: {launches}")
+    k1_took_bulk(mods, "eval")
+    eval_stats_ok(stats, exp_path, ev, "eval")
+    stats2, timing = timed_evaluation(torch, ev, evaluator_mod)
+    print("eval, whole evaluation:", json.dumps(timing), flush=True)
+
+    # one batch, split
+    recs = pipe.records[:EVAL_B]
+    samples = [pipe._load_one_raw(r) for r in recs]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    batch = pipe._collate_device_warp(samples, recs)
+    devb = mods["device_batch"](batch, dev)
+    torch.cuda.synchronize()
+    collate_ms = (time.perf_counter() - t) * 1e3
+    step = ev.eval_decode
+    step_ms = elapsed_ms(torch, lambda: step(devb), 3)
+    preds, _ = step(devb)
+    torch.cuda.synchronize()
+    ev._pending_host, ev._write_every = ([], [], []), 1 << 30
+    t = time.perf_counter()
+    ev.consume(preds, batch)
+    consume_ms = (time.perf_counter() - t) * 1e3
+    no_flip = mods["make_eval_decode_step"](ev.model, flip_tta=False)
+    no_flip_ms = elapsed_ms(torch, lambda: no_flip(devb), 3)
+
+    # K1's kernel and the step's time in each layout of the combine, timed
+    # in turns (a, b, b, a, ...) so that drift falls on both alike
+    fns = {"nhwc_view": step,
+           "njhw_contiguous": eval_decode_njhw(torch, mods, ev.model)}
+    forms, outs = {}, {}
+    for form, fn in fns.items():
+        reset_counts(mods)
+        outs[form] = fn(devb)
+        torch.cuda.synchronize()
+        forms[form] = {"k1_kernels": dict(k1.LAUNCHES_BY_KERNEL),
+                       "step_ms": []}
+    for order in (list(fns), list(fns)[::-1]) * 2:
+        for form in order:
+            forms[form]["step_ms"].append(
+                elapsed_ms(torch, lambda f=fns[form]: f(devb), 3))
+    a, b = outs["nhwc_view"], outs["njhw_contiguous"]
+    forms["max_abs_diff_between_forms"] = float((a[0] - b[0]).abs().max())
+    split = {"batch": EVAL_B, "crops_through_hrnet": 2 * EVAL_B,
+             "collate_upload_k4_ms": collate_ms, "eval_decode_step_ms": step_ms,
+             "consume_ms": consume_ms, "eval_decode_step_no_flip_ms":
+             no_flip_ms, "flip_cost_ms": step_ms - no_flip_ms,
+             "k1_forms": forms}
+    print("eval, one batch:", json.dumps(split), flush=True)
+
+    # the step (with its collate) on the kernels and on the plain versions
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for plain in (False, True):
+            peaks = []
+            with (plain_versions(mods) if plain
+                  else contextlib.nullcontext()), recording(k1, peaks):
+                bt = pipe._collate_device_warp(samples, recs)
+                kp, m = step(mods["device_batch"](bt, dev))
+            torch.cuda.synchronize()
+            runs.append((bt["image"], kp, {k: float(v) for k, v in m.items()},
+                         peaks))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (xk, kk, mk, pk), (xp, kp_, mp, _) = runs
+    k1_exact = [all(torch.equal(g, r) for g, r in
+                    zip(out, k1.heatmap_peaks_plain(hm))) for hm, out in pk]
+    vs_plain = {"crops_max_abs_diff": float((xk - xp).abs().max()),
+                "kpts_max_abs_diff_px": float((kk[..., :2] - kp_[..., :2])
+                                              .abs().max()),
+                "maxvals_max_abs_diff": float((kk[..., 2] - kp_[..., 2])
+                                              .abs().max()),
+                "metrics_kernels": mk, "metrics_plain": mp,
+                "k1_calls_equal_to_plain": k1_exact}
+    print("eval step, kernels vs plain versions:", json.dumps(vs_plain))
+    # K4 0 expected (1e-4 on the 0-255 scale), keypoints 1e-3 px, maxima
+    # 1e-4, loss and PCK exact, K1 on the step's own heatmaps exact
+    if not (vs_plain["crops_max_abs_diff"] <= 1e-4 / 255 / float(mods["IMAGENET_STD"].min())
+            and vs_plain["kpts_max_abs_diff_px"] <= 1e-3
+            and vs_plain["maxvals_max_abs_diff"] <= 1e-4 and mk == mp
+            and len(k1_exact) == 3 and all(k1_exact)):
+        fail(f"eval step disagrees with its plain-version run: {vs_plain}")
+
+    # oracle: the batches' own target heatmaps in place of the network's
+    all_preds, all_boxes, image_ids = [], [], []
+    for bt in pipe:
+        n = bt["n_valid"]
+        p, mv, _ = mods["decode_heatmaps"](
+            bt["target"][:n], torch.from_numpy(bt["center"][:n]).to(dev),
+            torch.from_numpy(bt["scale"][:n]).to(dev))
+        all_preds.append(torch.cat([p, mv[..., None]], -1).cpu().numpy())
+        area = np.prod(bt["scale"][:n] * 200.0, axis=1)
+        all_boxes.append(np.concatenate(
+            [bt["center"][:n], bt["scale"][:n], area[:, None],
+             bt["score"][:n, None]], axis=1))
+        image_ids.extend(bt["image_id"][:n].tolist())
+    oracle_file = os.path.join(tmp, "oracle_submission.json")
+    mods["generate_submission"](np.concatenate(all_preds),
+                                np.concatenate(all_boxes), image_ids,
+                                oracle_file)
+    oracle = mods["compute_precision"](oracle_file, os.path.join(
+        data, "annotations", "person_keypoints_val.json"))
+    print("eval oracle AP / AR:", float(oracle[0]), float(oracle[5]))
+    if not (oracle[0] >= ORACLE_MIN and oracle[5] >= ORACLE_MIN):
+        fail(f"oracle AP {oracle[0]}, AR {oracle[5]}: below {ORACLE_MIN}")
+
+    # the bf16 flavor on the same checkpoint
+    f32_preds = json.load(open(ev.preds_file))
+    ev16 = eval_evaluator(torch, mods, exp_path, data, canvases, dev,
+                          torch.bfloat16)
+    stats16 = ev16.evaluate_model()
+    eval_stats_ok(stats16, exp_path, ev16, "eval bf16")
+    _, timing16 = timed_evaluation(torch, ev16, evaluator_mod)
+    bf16_preds = json.load(open(ev16.preds_file))
+
+    def by_person(preds):
+        return {(p["image_id"], *p["center"]): np.reshape(
+            p["keypoints"], (17, 3))[:, :2] for p in preds}
+
+    f32_by, bf16_by = by_person(f32_preds), by_person(bf16_preds)
+    both = sorted(set(f32_by) & set(bf16_by))
+    drift = {"kpts_mean_abs_diff_px": float(np.mean(
+        [np.abs(f32_by[k] - bf16_by[k]).mean() for k in both])),
+             "persons_f32": len(f32_preds), "persons_bf16": len(bf16_preds),
+             "persons_in_both": len(both),
+             "stats_f32": stats2.tolist(), "stats_bf16": stats16.tolist()}
+    print("eval bf16:", json.dumps({**timing16, "drift_from_f32": drift}),
+          flush=True)
+
+    summary = {"batch": EVAL_B, "crops": n_crops, "batches": len(pipe),
+               **timing, "one_batch": split, "kernels_vs_plain": vs_plain,
+               "oracle_ap": float(oracle[0]), "oracle_ar": float(oracle[5]),
+               "stats": stats2.tolist(),
+               "bf16": {**timing16, "drift_from_f32": drift}}
+    print("eval:", json.dumps({k: v for k, v in summary.items()
+                               if k not in ("one_batch", "bf16",
+                                            "kernels_vs_plain")}), flush=True)
+    return launches, summary, (fns, devb, forms)
+
+
 def forbidden_ops(prof, ops, shapes):
     """[(op, input shapes)] of the profiled ops named in ``ops`` that took
     an input of one of ``shapes`` (the profile must record shapes)."""
@@ -1535,9 +1858,14 @@ def main():
     sys.path.insert(0, here)
     from stlpose_tpu_torch.config import FasterRCNNConfig, get_hrnet_config
     from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
+    from stlpose_tpu_torch.config import IMAGENET_STD
     from stlpose_tpu_torch.data.pose_dataset import (AugmentationParams,
                                                      PoseRecord, _xywh_to_cs)
+    from stlpose_tpu_torch.engines.evaluator import (PoseEvaluator,
+                                                     device_batch)
     from stlpose_tpu_torch.engines.vase_evaluator import build_fused_two_stage
+    from stlpose_tpu_torch.eval.submission import (compute_precision,
+                                                   generate_submission)
     from stlpose_tpu_torch.kernels import _build
     from stlpose_tpu_torch.kernels import decode as k1
     from stlpose_tpu_torch.kernels import nms as k5
@@ -1551,15 +1879,22 @@ def main():
                                                    fold_batchnorms)
     from stlpose_tpu_torch.ops import affine
     from stlpose_tpu_torch.ops import roi_align as roi_ops
+    from stlpose_tpu_torch.ops.decode import decode_heatmaps
+    from stlpose_tpu_torch.ops.flip import average_flip_tta
     from stlpose_tpu_torch.ops.nms import box_nms_topk
     from stlpose_tpu_torch.ops.warp import affine_warp, two_pass_params
+    from stlpose_tpu_torch.parallel import steps
     from stlpose_tpu_torch.parallel.steps import (MetricAccumulator,
+                                                  make_eval_decode_step,
                                                   make_eval_step,
                                                   make_train_step)
     from stlpose_tpu_torch.train.optim import (build_scheduler,
                                                get_current_lr,
                                                set_current_lr)
     from stlpose_tpu_torch.train.state import create_train_state
+    from stlpose_tpu_torch.utils.checkpoint import save_checkpoint
+    from stlpose_tpu_torch.utils.experiment import (
+        create_experiment, load_experiment_parameters)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1599,7 +1934,17 @@ def main():
                 build_scheduler=build_scheduler,
                 get_current_lr=get_current_lr, set_current_lr=set_current_lr,
                 apply_trunk_flavor=apply_trunk_flavor,
-                fold_batchnorms=fold_batchnorms)
+                fold_batchnorms=fold_batchnorms,
+                PoseEvaluator=PoseEvaluator, device_batch=device_batch,
+                create_experiment=create_experiment,
+                load_experiment_parameters=load_experiment_parameters,
+                save_checkpoint=save_checkpoint,
+                make_eval_decode_step=make_eval_decode_step, steps=steps,
+                average_flip_tta=average_flip_tta,
+                decode_heatmaps=decode_heatmaps,
+                generate_submission=generate_submission,
+                compute_precision=compute_precision,
+                IMAGENET_STD=IMAGENET_STD)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
     checks = [check_decode(torch, k1, dev, rng),
               check_warp(torch, k2, affine, affine_warp, dev, rng)]
@@ -1619,6 +1964,9 @@ def main():
     stages = stage_times(torch, mods, state)
     q_launches, quant, q_state = quant_path(torch, mods, dev, args)
     train_launches, train, train_state = train_path(torch, mods, dev, args)
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_launches, evaluation, eval_state = eval_path(torch, mods, dev,
+                                                          args, tmp)
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
@@ -1627,7 +1975,8 @@ def main():
         device_times(torch, k, fns)
         by_path = {"serving": launches[k["name"]],
                    "serving_bf16_roi8": q_launches[k["name"]],
-                   "training": train_launches[k["name"]]}
+                   "training": train_launches[k["name"]],
+                   "eval": eval_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         kernels.append(k)
@@ -1651,10 +2000,18 @@ def main():
         torch, lambda: iteration(samples), train["ms_per_step"], args.out,
         "one training iteration")
 
+    fns, devb, forms = eval_state
+    for form, fn in fns.items():
+        evaluation["profile" if form == "nhwc_view" else
+                   f"profile_{form}"] = profile_program(
+            torch, lambda: fn(devb), float(np.median(forms[form]["step_ms"])),
+            args.out, f"one eval-decode step (B = 64, flip-TTA, {form})")
+
     print(card)
     print(json.dumps({"kernels": kernels, "end_to_end": tput,
                       "stages_ms": stages, "profile": prof,
-                      "serving_bf16_roi8": quant, "training": train}))
+                      "serving_bf16_roi8": quant, "training": train,
+                      "eval": evaluation}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

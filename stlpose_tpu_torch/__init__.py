@@ -1,12 +1,15 @@
 """PyTorch/CUDA port of stlpose_tpu for NVIDIA Hopper (H100, sm_90a).
 
 The JAX package ``stlpose_tpu`` is the reference; this package mirrors its
-module names so each counterpart is easy to find. The slice ported so far
-is the fused two-stage serving path
-(``engines.vase_evaluator.build_fused_two_stage``): Faster R-CNN
-ResNet50-FPN -> score filter -> cross-batch crop compaction -> affine
-crops -> HRNet-W32 -> heatmap decode. Its three TPU kernels are CUDA C++
-kernels under ``kernels/csrc`` (built with nvcc at first use).
+module names so each counterpart is easy to find. Ported so far: the
+fused two-stage serving path (``engines.vase_evaluator.
+build_fused_two_stage``: Faster R-CNN ResNet50-FPN -> score filter ->
+cross-batch crop compaction -> affine crops -> HRNet-W32 -> heatmap
+decode) in f32 and in the quantized bf16 flavor, pose training on
+device-warp batches (``parallel.steps.make_train_step``), and flip-TTA
+COCO evaluation (``engines.evaluator.PoseEvaluator``). The TPU kernels of
+these paths are CUDA C++ kernels under ``kernels/csrc`` (built with nvcc
+at first use).
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; with "cuda" and no GPU it raises. On CPU tensors

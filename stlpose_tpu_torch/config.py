@@ -1,19 +1,103 @@
-"""Model configurations of the ported slice (own copies; the port imports
-nothing from the JAX package).
+"""Configuration of the port (own copies; the port imports nothing from
+the JAX package).
 
-Counterparts: ``stlpose_tpu/config.py`` (HRNet) and
-``stlpose_tpu/models/faster_rcnn.py`` (FasterRCNNConfig), plus the
+Counterparts in ``stlpose_tpu/config.py``: the path table ``CONFIG`` (the
+same ``STLPOSE_*`` environment names, which give paths, not switches),
+the experiment defaults ``DEFAULT_ARGS`` and the HRNet configs; plus
+``FasterRCNNConfig`` of ``stlpose_tpu/models/faster_rcnn.py`` and the
 ImageNet normalisation of ``stlpose_tpu/engines/vase_evaluator.py``. Only
-the fields that inference reads are copied; training fields come with the
-training slice.
+the model fields that the port reads are copied.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
 from typing import Tuple
 
 import numpy as np
+
+# Filesystem layout, as in the JAX package.
+CONFIG = {
+    "paths": {
+        "data_path": os.environ.get("STLPOSE_DATA_PATH", "../../data"),
+        "database_path": os.environ.get("STLPOSE_DATABASE_PATH",
+                                        "../databases"),
+        "experiments_path": os.environ.get("STLPOSE_EXPERIMENTS_PATH",
+                                           "../experiments"),
+        "comparisons_path": "../experiments/model_comparison",
+        "knn_path": os.environ.get("STLPOSE_KNN_PATH", "../knn"),
+        "pretrained_path": os.environ.get("STLPOSE_PRETRAINED_PATH",
+                                          "../resources"),
+        "dict_path": "../../data/mapping_dicts",
+        "submission": "submission_dict.json",
+    },
+    "num_workers": int(os.environ.get("STLPOSE_NUM_WORKERS", "8")),
+    "random_seed": 13,
+}
+
+# Per-experiment defaults, as in the JAX package, plus ``device_warp``
+# (the JAX pipeline reads it with a default of False; the port's pipeline
+# is device-warp only, so an experiment it runs sets it true).
+DEFAULT_ARGS = {
+    "dataset": {
+        "dataset_name": "coco",
+        "image_size": 400,
+        "alpha": "0.5",
+        "styles": "redblack",
+        "flip": False,
+        "num_joints_half_body": 8,
+        "prob_half_body": 0,
+        "rot_factor": 0,
+        "scale_factor": 0.0,
+        "test_set": "val2017",
+        "train_set": "train2017",
+        "shuffle_train": False,
+        "shuffle_test": False,
+        "inline_style": None,
+        "device_warp": False,
+    },
+    "model": {
+        "model_name": "HRNet",
+        "detector_name": "faster_rcnn",
+        "detector_type": "",
+    },
+    "training": {
+        "num_epochs": 100,
+        "learning_rate": 0.001,
+        "learning_rate_factor": 0.333,
+        "patience": 10,
+        "scheduler": "plateau",
+        "batch_size": 32,
+        "save_frequency": 5,
+        "log_frequency": 100,
+        "optimizer": "adam",
+        "momentum": 0.9,
+        "nesterov": False,
+        "gamma1": 0.9,
+        "gamma2": 0.99,
+        "lambda_D": None,
+        "lambda_P": None,
+        "perceptual_loss": False,
+        "perceptual_weight": "add",
+    },
+    "evaluation": {
+        "bbox_thr": 0.5,
+        "det_nms_thr": 0.5,
+        "img_thr": 0.0,
+        "in_vis_thr": 0.2,
+        "nms_thr": 1.0,
+        "oks_thr": 0.9,
+        "use_gt_bbox": True,
+    },
+}
+
+
+def default_experiment_args() -> dict:
+    """Deep copy of the experiment defaults (callers mutate their copy)."""
+    return copy.deepcopy(DEFAULT_ARGS)
+
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)

@@ -1,6 +1,6 @@
-"""COCO-17 keypoint tables the training slice needs (own copy of the
-parts of ``stlpose_tpu/constants.py`` that the pose pipeline and loss
-read)."""
+"""COCO-17 keypoint tables (own copy of the parts of
+``stlpose_tpu/constants.py`` that the pose pipeline, the loss, flip-TTA
+and the OKS scoring read)."""
 
 from __future__ import annotations
 
@@ -13,11 +13,20 @@ COCO_KPT_NAMES = (
     "left_knee", "right_knee", "left_ankle", "right_ankle",
 )
 
+NUM_COCO_KPTS = len(COCO_KPT_NAMES)
+
 # Left/right index pairs swapped under horizontal mirroring.
 FLIP_PAIRS = ((1, 2), (3, 4), (5, 6), (7, 8), (9, 10), (11, 12), (13, 14),
               (15, 16))
 
 UPPER_BODY_IDS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+
+# COCO OKS per-keypoint standard deviations.
+OKS_SIGMAS = np.array(
+    [.26, .25, .25, .35, .35, .79, .79, .72, .72,
+     .62, .62, 1.07, 1.07, .87, .87, .89, .89],
+    dtype=np.float64,
+) / 10.0
 
 # Per-joint loss weights: 1.2 elbows/knees, 1.5 wrists/ankles.
 JOINT_LOSS_WEIGHTS = np.array(

@@ -2,9 +2,10 @@
 pipeline.
 
 Port of the parts of ``stlpose_tpu/data/pose_dataset.py`` that the
-device-warp training path runs: GT-box records from a COCO keypoint file
-(with the styled-COCO name mapping and the precomputed perceptual-loss
-field), the train-time augmentation sampler (a numpy ``RandomState``
+device-warp training and evaluation paths run: GT-box records from a COCO
+keypoint file (with the styled-COCO name mapping and the precomputed
+perceptual-loss field), detector-box records from a person-detection
+results file, the train-time augmentation sampler (a numpy ``RandomState``
 copied as it is, so a seed gives the same draws as the JAX package) and
 the RGB image read. ``cv2`` is imported only inside ``read_image``.
 """
@@ -12,6 +13,7 @@ the RGB image read. ``cv2`` is imported only inside ``read_image``.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import List, Optional
 
@@ -108,6 +110,38 @@ def load_coco_pose_records(labels_file, img_root, *, is_train: bool,
                 image=image_path, original_image=original, image_id=img_id,
                 center=center, scale=scale, joints=joints, joints_vis=vis,
                 alpha=rec_alpha, perceptual_loss=ploss))
+    return records
+
+
+def load_detection_result_records(bbox_file, img_root, *,
+                                  image_thre: float = 0.0,
+                                  styled_mapping: dict | None = None,
+                                  styled_img_root: str | None = None
+                                  ) -> List[PoseRecord]:
+    """Pose records from a person-detector results JSON (a list of
+    {image_id, category_id, bbox xywh, score}): person boxes scoring at
+    least ``image_thre``, all 17 joints marked visible at (0, 0)."""
+    with open(bbox_file) as f:
+        all_boxes = json.load(f)
+    records = []
+    for det in all_boxes:
+        if det.get("category_id") != 1 or det["score"] < image_thre:
+            continue
+        img_id = det["image_id"]
+        center, scale = _xywh_to_cs(*det["bbox"][:4])
+        original = os.path.join(img_root, "%012d.jpg" % img_id)
+        image_path = original
+        if styled_mapping is not None:
+            name = styled_mapping.get("%012d" % img_id)
+            if name is None:
+                continue
+            image_path = os.path.join(styled_img_root or img_root, name)
+        records.append(PoseRecord(
+            image=image_path, original_image=original, image_id=img_id,
+            center=center, scale=scale,
+            joints=np.zeros((17, 2), np.float32),
+            joints_vis=np.ones((17,), np.float32),
+            score=float(det["score"])))
     return records
 
 

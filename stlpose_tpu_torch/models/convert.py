@@ -10,7 +10,11 @@ leaf names change:
     (batch_stats) -> ``weight``/``bias``/``running_mean``/``running_var``.
 
 Counterpart of ``stlpose_tpu/models/convert.py`` (torch -> Flax names) and
-``convert_detector.py`` in the other direction. The port's ``BoxHead``
+``convert_detector.py`` in the other direction. ``load_torch_statedict``
+and ``torch_statedict_to_port`` read an HRNet ``.pth`` in the reference
+repository's names (``conv1``, ``layer1.0.downsample.1``,
+``stage2.0.fuse_layers.1.0.0``, ...) through an own copy of the JAX
+package's name map, ``_torch_key_to_path``. The port's ``BoxHead``
 flattens pooled features in the reference's (7, 7, C) order, so ``fc6``
 needs no input permutation. ``train_state_from_jax`` carries a whole JAX
 train state (weights, BatchNorm statistics, optimizer moments, step)
@@ -21,6 +25,9 @@ variables the JAX package already folded (no ``batch_stats``).
 """
 
 from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +86,112 @@ def load_strict(module: torch.nn.Module, sd):
         own[k] = v
     module.load_state_dict(own)
     return module
+
+
+_BN_PARAM = {"weight": "scale", "bias": "bias"}
+_BN_STAT = {"running_mean": "mean", "running_var": "var"}
+
+
+def _torch_key_to_path(key: str):
+    """One reference-format torch key -> (collection, Flax path), None for
+    ``num_batches_tracked``; collection is "params" or "batch_stats"."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if leaf == "num_batches_tracked":
+        return None
+
+    def convbn(prefix: Tuple[str, ...], kind: str):
+        if kind == "conv":
+            return ("params", prefix + ("conv", "kernel"))
+        if leaf in _BN_PARAM:
+            return ("params", prefix + ("bn", _BN_PARAM[leaf]))
+        return ("batch_stats", prefix + ("bn", _BN_STAT[leaf]))
+
+    # stem: conv1/bn1/conv2/bn2
+    m = re.fullmatch(r"(conv|bn)([12])\.(\w+)", key)
+    if m:
+        return convbn((f"stem{m.group(2)}",), m.group(1))
+    # layer1.{k}.{conv|bn}{q}.* and layer1.{k}.downsample.{0|1}.*
+    m = re.fullmatch(r"layer1\.(\d+)\.(conv|bn)(\d)\.(\w+)", key)
+    if m:
+        return convbn((f"layer1_{m.group(1)}", f"cb{m.group(3)}"), m.group(2))
+    m = re.fullmatch(r"layer1\.(\d+)\.downsample\.([01])\.(\w+)", key)
+    if m:
+        return convbn((f"layer1_{m.group(1)}", "down"),
+                      "conv" if m.group(2) == "0" else "bn")
+    # transition{t}.{i}.{0|1}.*   (aligned-branch conv+bn)
+    m = re.fullmatch(r"transition(\d)\.(\d+)\.([01])\.(\w+)", key)
+    if m:
+        return convbn((f"transition{m.group(1)}_{m.group(2)}",),
+                      "conv" if m.group(3) == "0" else "bn")
+    # transition{t}.{i}.{j}.{0|1}.*  (new-branch downsample chain)
+    m = re.fullmatch(r"transition(\d)\.(\d+)\.(\d+)\.([01])\.(\w+)", key)
+    if m:
+        return convbn(
+            (f"transition{m.group(1)}_{m.group(2)}_{m.group(3)}",),
+            "conv" if m.group(4) == "0" else "bn")
+    # stage{s}.{m}.branches.{b}.{k}.{conv|bn}{q}.*
+    m = re.fullmatch(r"stage(\d)\.(\d+)\.branches\.(\d+)\.(\d+)\."
+                     r"(conv|bn)(\d)\.(\w+)", key)
+    if m:
+        s, mod, b, k, kind, q, _ = m.groups()
+        return convbn((f"stage{s}_m{mod}", f"branch{b}_block{k}", f"cb{q}"),
+                      kind)
+    m = re.fullmatch(r"stage(\d)\.(\d+)\.branches\.(\d+)\.(\d+)\."
+                     r"downsample\.([01])\.(\w+)", key)
+    if m:
+        s, mod, b, k, idx, _ = m.groups()
+        return convbn((f"stage{s}_m{mod}", f"branch{b}_block{k}", "down"),
+                      "conv" if idx == "0" else "bn")
+    # stage{s}.{m}.fuse_layers.{i}.{j}.{0|1}.*  (up-fusion conv+bn)
+    m = re.fullmatch(r"stage(\d)\.(\d+)\.fuse_layers\.(\d+)\.(\d+)\."
+                     r"([01])\.(\w+)", key)
+    if m:
+        s, mod, i, j, idx, _ = m.groups()
+        return convbn((f"stage{s}_m{mod}", f"fuse{i}_{j}"),
+                      "conv" if idx == "0" else "bn")
+    # stage{s}.{m}.fuse_layers.{i}.{j}.{k}.{0|1}.*  (down-fusion chain)
+    m = re.fullmatch(r"stage(\d)\.(\d+)\.fuse_layers\.(\d+)\.(\d+)\.(\d+)\."
+                     r"([01])\.(\w+)", key)
+    if m:
+        s, mod, i, j, k, idx, _ = m.groups()
+        return convbn((f"stage{s}_m{mod}", f"fuse{i}_{j}_{k}"),
+                      "conv" if idx == "0" else "bn")
+    # head
+    if key == "final_layer.weight":
+        return ("params", ("final_layer", "kernel"))
+    if key == "final_layer.bias":
+        return ("params", ("final_layer", "bias"))
+    raise KeyError(f"Unrecognized torch state_dict key: {key}")
+
+
+def load_torch_statedict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` file's HRNet weights on the CPU: a bare state dict or
+    the reference's checkpoint bundle ``{"model_state_dict": ...}``, with
+    any ``module.`` prefix of a DataParallel save removed. Tensors only
+    (``weights_only``)."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(blob, dict) and "model_state_dict" in blob:
+        blob = blob["model_state_dict"]
+    return {(k[len("module."):] if k.startswith("module.") else k):
+            v.detach() for k, v in blob.items()}
+
+
+def torch_statedict_to_port(state) -> dict:
+    """A reference-format HRNet state dict -> the port's names. Both sides
+    are torch modules, so layouts stay; only names change (through the
+    Flax path: ``stage2.0.branches.1.0.bn2.running_var`` ->
+    ``stage2_m0.branch1_block0.cb2.bn.running_var``)."""
+    leaf_names = {**_PARAM_LEAF, **_STAT_LEAF}
+    out = {}
+    for key, val in state.items():
+        mapped = _torch_key_to_path(key)
+        if mapped is None:
+            continue
+        _, path = mapped
+        out[".".join(path[:-1] + (leaf_names[path[-1]],))] = \
+            torch.as_tensor(val, dtype=torch.float32)
+    return out
 
 
 def _live_bn(variables_np):

@@ -1,13 +1,26 @@
-"""Pose train and eval steps on one device, and the device-side metric
-accumulator.
+"""Pose train, eval and inference steps on one device, and the device-side
+metric accumulator.
 
 Port of ``stlpose_tpu/parallel/steps.py`` (``make_train_step``,
-``make_eval_step`` without flip-TTA, ``_pck_from_heatmaps``,
-``MetricAccumulator``) for a single device: no mesh. One train step is
-HRNet's train-mode forward, the masked MSE (optionally weighted by the
-perceptual loss), autograd's backward, the optimizer update and the PCK
-metric, whose two peak searches run on K1. Nothing is fetched to the
-host: the metrics stay device tensors.
+``make_eval_step``, ``make_infer_fn``, ``make_eval_decode_step``,
+``_pck_from_heatmaps``, ``MetricAccumulator``) for a single device: no
+mesh. One train step is HRNet's train-mode forward, the masked MSE
+(optionally weighted by the perceptual loss), autograd's backward, the
+optimizer update and the PCK metric, whose two peak searches run on K1.
+The eval and inference functions run under ``torch.no_grad()``; with
+flip-TTA the mirrored crops (``torch.flip`` of the width axis) go into the
+same batch for one forward of 2N crops, and the two halves are combined
+in the model's (N, H, W, J) view, as the reference does. That view lies
+on NCHW memory and the combine's elementwise ops keep that layout, so the
+(N, J, H, W) view that the loss, PCK and decode read is contiguous maps:
+K1's bulk kernel. An eval function puts the model in eval mode only if it
+is in train mode: ``model.eval()`` walks HRNet-W32's ~1,000 modules, some
+milliseconds of host time before the first launch of every call.
+Nothing is fetched to the host: the metrics stay device tensors.
+
+The inference functions close over the model, which holds its weights:
+``make_infer_fn`` and ``make_eval_decode_step`` return functions of the
+batch alone, where the reference's take the train state first.
 """
 
 from __future__ import annotations
@@ -16,7 +29,8 @@ from typing import Callable
 
 import torch
 
-from stlpose_tpu_torch.ops.decode import heatmap_argmax
+from stlpose_tpu_torch.ops.decode import decode_heatmaps, heatmap_argmax
+from stlpose_tpu_torch.ops.flip import average_flip_tta_nhwc
 from stlpose_tpu_torch.train.loss import (apply_perceptual_loss,
                                           person_mse_loss)
 from stlpose_tpu_torch.train.state import PoseTrainState
@@ -121,18 +135,75 @@ def make_train_step(perceptual_cfg: dict | None = None) -> Callable:
     return step
 
 
-def make_eval_step() -> Callable:
+def _forward_heatmaps(model, images, flip_tta: bool):
+    """Eval-mode forward -> (N, J, H, W) heatmaps; with ``flip_tta`` one
+    forward of the crops and their mirror images, combined by
+    ``average_flip_tta_nhwc``."""
+    if model.training:
+        model.eval()
+    if not flip_tta:
+        return _nhwc_to_njhw(model(images))
+    n = images.shape[0]
+    out = model(torch.cat([images, torch.flip(images, dims=[2])], dim=0))
+    return _nhwc_to_njhw(average_flip_tta_nhwc(out[:n], out[n:]))
+
+
+def _eval_metrics(pred_njhw, batch):
+    loss = person_mse_loss(pred_njhw, batch["target"], batch["target_weight"])
+    hit, cnt = _pck_from_heatmaps(pred_njhw, batch["target"])
+    return {"loss": loss, "pck_hit": hit, "pck_cnt": cnt}
+
+
+def make_eval_step(flip_tta: bool = False) -> Callable:
     """step(state, batch) -> (heatmaps (N, J, H, W), metrics): eval-mode
-    forward, loss and PCK; no flip-TTA."""
+    forward (optionally flip-TTA), loss and PCK."""
 
     def step(state: PoseTrainState, batch):
-        model = state.model
-        model.eval()
         with torch.no_grad():
-            pred = _nhwc_to_njhw(model(batch["image"]))
-            loss = person_mse_loss(pred, batch["target"],
-                                   batch["target_weight"])
-            hit, cnt = _pck_from_heatmaps(pred, batch["target"])
-        return pred, {"loss": loss, "pck_hit": hit, "pck_cnt": cnt}
+            pred = _forward_heatmaps(state.model, batch["image"], flip_tta)
+            return pred, _eval_metrics(pred, batch)
+
+    return step
+
+
+def make_infer_fn(model, flip_tta: bool = True,
+                  decode: bool = True) -> Callable:
+    """Crops -> heatmaps -> keypoints in source-image pixels.
+
+    Returns fn(images, centers, scales) -> (preds (N, J, 3) [x, y,
+    maxval], heatmaps (N, J, H, W)) when ``decode``, else fn(images) ->
+    heatmaps. Runs where ``model`` lives."""
+
+    def infer_hm(images):
+        with torch.no_grad():
+            return _forward_heatmaps(model, images, flip_tta)
+
+    if not decode:
+        return infer_hm
+
+    def infer(images, centers, scales):
+        with torch.no_grad():
+            hm = _forward_heatmaps(model, images, flip_tta)
+            preds, maxvals, _ = decode_heatmaps(hm, centers, scales)
+            return torch.cat([preds, maxvals[..., None]], dim=-1), hm
+
+    return infer
+
+
+def make_eval_decode_step(model, flip_tta: bool = True) -> Callable:
+    """The evaluator's whole per-batch device work: flip-TTA forward, loss,
+    PCK and decoded keypoints from one forward.
+
+    Returns fn(batch) -> (preds (N, J, 3) [x, y, maxval] in source-image
+    pixels, metrics); ``batch`` holds image, target, target_weight, center
+    and scale as tensors on the model's device."""
+
+    def step(batch):
+        with torch.no_grad():
+            hm = _forward_heatmaps(model, batch["image"], flip_tta)
+            metrics = _eval_metrics(hm, batch)
+            preds, maxvals, _ = decode_heatmaps(hm, batch["center"],
+                                                batch["scale"])
+            return torch.cat([preds, maxvals[..., None]], dim=-1), metrics
 
     return step
