@@ -51,7 +51,9 @@ Phases, each fatal on failure:
      last timed step's own prediction and target heatmaps, and one step
      on the kernels against the same step on the plain versions (cuDNN
      deterministic: loss, PCK hits and count, every peak, parameters);
-     time samples/s and ms per step, split into finalize and step;
+     time samples/s and ms per step, split into finalize and step, and
+     the step with and without model.train() before it (the train-mode
+     guard), in turns;
   5b. flip-TTA COCO evaluation through the port's PoseEvaluator at full
      width (HRNet-W32 256x192, f32, B = 64, so 128 crops a forward):
      256 seeded 640x640 images with two people each written as a
@@ -69,6 +71,23 @@ Phases, each fatal on failure:
      px, maxima 1e-4, loss and PCK exact, K1 on its own heatmaps exact);
      the oracle AP/AR (target heatmaps decoded and scored, >= 0.95); the
      bf16 flavor's ms per batch and its drift from f32 (a record);
+  5c. the training CLI (01 -> 02 -> 03) in-process through the scripts'
+     main(argv) and PoseTrainer at full width (HRNet-W32 256x192, B = 32,
+     Styled-COCO with perceptual-loss weighting and the COCO augmentation,
+     device warp): 128 train and 80 valid seeded 640x640 images with two
+     people each (8 train batches an epoch, 1 validation batch), read
+     from memory; seeded weights saved as the experiment's checkpoint
+     "seed" and loaded weights-only; counters set to 0, two f32 epochs
+     (K4 and K1 launched, K1 through its bulk kernel; 2 finite epochs in
+     training_logs.json, checkpoints 0, 1 and final, the StepTimer stats,
+     the scheduler stepped); a resume from checkpoint 1 (epoch, step,
+     learning rate and scheduler restored); the trainer on the kernels
+     against the trainer on the plain versions (first train batch's crops
+     and targets 0.0, its step within the training path's limits, first
+     valid batch's loss and PCK equal); one bf16 epoch (parameters, Adam
+     moments and checkpoint f32); 03 on "final" with flip-TTA (10 finite
+     stats); the engine's ms per iteration against the training path's
+     bare loop, the validation epoch's ms, the bf16 ms per iteration;
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
      same function, over 20 repeats with the inputs warm in L2, and for
@@ -80,9 +99,12 @@ Phases, each fatal on failure:
      kernel launches, device busy time and idle share (the bf16 call
      must run no abs/amax/div/round/clamp op on a pyramid level; the
      40 largest
-     kernels into DIR/chip_smoke_profile.txt when --out is given); one
-     eval-decode step's launches and idle share likewise, in each
-     layout of the flip combine.
+     kernels into DIR/chip_smoke_profile.txt when --out is given), also
+     with model.train() before the step (as every step ran before the
+     train-mode guard); one eval-decode step's launches and idle share
+     likewise, in each layout of the flip combine; one engine training
+     iteration (PoseTrainer's loop body: pipeline, step, metric update)
+     likewise, in f32 and in bf16.
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -1242,8 +1264,9 @@ def train_path(torch, mods, dev, args):
     threads would), 2 warm-up iterations, then TRAIN_STEPS timed ones,
     one eval step and one scheduler step with every launch counter set to
     0 first; K1 against its plain version on the last timed step's own
-    heatmaps; then one step on the kernels against the same step on the
-    plain versions."""
+    heatmaps; the step with and without model.train() before it, in
+    turns; then one step on the kernels against the same step on the
+    plain versions. Returns (launches, summary, {form: iteration})."""
     import copy
     k1 = mods["k1"]
     t0 = time.time()
@@ -1334,6 +1357,26 @@ def train_path(torch, mods, dev, args):
     print("K1 on the training step's heatmaps: equal to its plain version",
           json.dumps(k1_train))
 
+    # the train-mode guard: a step on a model already in train mode
+    # against the same step with model.train() before it, as every step
+    # ran before the guard (host clock, synchronised, in turns)
+    forms = {"guarded": lambda: iteration(raw[0]),
+             "model_train_each_step": lambda: (model.train(),
+                                               iteration(raw[0]))}
+    forms["guarded"]()                  # back to train mode after eval
+    guard = {form: [] for form in forms}
+    for order in (list(forms), list(forms)[::-1]) * 2:
+        for form in order:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            forms[form]()
+            torch.cuda.synchronize()
+            guard[form].append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    model.train()
+    guard["model_train_call_ms"] = (time.perf_counter() - t) * 1e3
+    print("training step, train-mode guard (ms):", json.dumps(guard))
+
     # one step on the kernels, the same step on the plain versions
     torch.backends.cudnn.deterministic = True
     saved = (copy.deepcopy(model.state_dict()),
@@ -1380,9 +1423,9 @@ def train_path(torch, mods, dev, args):
                "loss_mean": train_m["loss_mean"],
                "pck": train_m["pck_hit_sum"] / max(train_m["pck_cnt_sum"], 1),
                "eval_loss": eval_m["loss_mean"], "lr_after_scheduler": lr,
-               "kernels_vs_plain": vs_plain}
+               "kernels_vs_plain": vs_plain, "train_mode_guard_ms": guard}
     print("training:", json.dumps(summary), flush=True)
-    return launches, summary, (iteration, raw[0])
+    return launches, summary, forms
 
 
 # ---------------------------------------------------------------- eval path
@@ -1394,17 +1437,14 @@ EVAL_CONFIG = "w32_256x192"
 ORACLE_MIN = 0.95               # AP and AR, as tests/test_oracle_ap.py
 
 
-def eval_dataset(root, seed):
-    """``root``/annotations/person_keypoints_val.json in COCO layout, from
-    ``seed``: EVAL_IMAGES images of CANVAS x CANVAS, EVAL_PEOPLE people on
+def coco_people(rng, ids):
+    """COCO-layout images and person annotations for the image ``ids``,
+    from ``rng``: CANVAS x CANVAS uint8 canvases, EVAL_PEOPLE people on
     each (boxes of 80-240 x 160-400 px, 17 keypoints inside, 80% labelled
-    visible). Returns {image_id: uint8 canvas}, the decoded images."""
-    rng = np.random.RandomState(seed)
-    canvases = rng.randint(0, 256, (EVAL_IMAGES, CANVAS, CANVAS, 3),
-                           np.uint8)
+    visible). Returns (images, annotations, {image_id: canvas})."""
+    canvases = rng.randint(0, 256, (len(ids), CANVAS, CANVAS, 3), np.uint8)
     images, anns = [], []
-    for i in range(EVAL_IMAGES):
-        img_id = 1000 + i
+    for img_id in ids:
         images.append({"id": img_id, "height": CANVAS, "width": CANVAS,
                        "file_name": "%012d.jpg" % img_id})
         for _ in range(EVAL_PEOPLE):
@@ -1418,12 +1458,27 @@ def eval_dataset(root, seed):
                          "area": w * h, "iscrowd": 0,
                          "keypoints": kp.reshape(-1).tolist(),
                          "num_keypoints": int((vis > 0).sum())})
+    return images, anns, dict(zip(ids, canvases))
+
+
+def write_keypoints_file(root, split, images, anns):
+    """``root``/annotations/person_keypoints_``split``.json."""
     os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
     with open(os.path.join(root, "annotations",
-                           "person_keypoints_val.json"), "w") as f:
+                           f"person_keypoints_{split}.json"), "w") as f:
         json.dump({"images": images, "annotations": anns,
                    "categories": [{"id": 1, "name": "person"}]}, f)
-    return {1000 + i: canvases[i] for i in range(EVAL_IMAGES)}
+
+
+def eval_dataset(root, seed):
+    """``root``/annotations/person_keypoints_val.json in COCO layout, from
+    ``seed``: EVAL_IMAGES images (``coco_people``). Returns {image_id:
+    uint8 canvas}, the decoded images."""
+    rng = np.random.RandomState(seed)
+    images, anns, canvases = coco_people(
+        rng, [1000 + i for i in range(EVAL_IMAGES)])
+    write_keypoints_file(root, "val", images, anns)
+    return canvases
 
 
 def eval_evaluator(torch, mods, exp_path, data, canvases, dev, dtype):
@@ -1688,6 +1743,352 @@ def eval_path(torch, mods, dev, args, tmp):
     return launches, summary, (fns, devb, forms)
 
 
+# ------------------------------------------------------------ trainer path
+# The training CLI, 01 -> 02 -> 03, through PoseTrainer at full width
+# (HRNet-W32 256x192, B = 32): Styled-COCO with perceptual-loss
+# weighting, 128 train and 80 valid images of CANVAS x CANVAS with two
+# people each, so 8 train batches an epoch and 1 validation batch
+# (max(1, 5 // 5)); the COCO augmentation of the training path (AUG)
+ENGINE_TRAIN_IMAGES, ENGINE_VALID_IMAGES = 128, 80
+ENGINE_CONFIG = "w32_256x192"
+STYLES, ALPHA = "redblack", "0.5"
+
+
+def engine_dataset(root, dict_root, seed):
+    """The Styled-COCO layout from ``seed``: the train and val keypoint
+    files (``coco_people``), the styled-name mapping dicts, and the
+    per-image perceptual losses (uniform in 0.1-2.5) under ``dict_root``.
+    Returns {image_id: uint8 canvas}, train and valid."""
+    rng = np.random.RandomState(seed)
+    canvases, ploss = {}, {}
+    os.makedirs(os.path.join(root, "mapping_dicts"), exist_ok=True)
+    for split, mapping, ids in (
+            ("train", "train", range(1, ENGINE_TRAIN_IMAGES + 1)),
+            ("val", "valid", range(1001, 1001 + ENGINE_VALID_IMAGES))):
+        images, anns, cv = coco_people(rng, list(ids))
+        write_keypoints_file(root, split, images, anns)
+        canvases.update(cv)
+        names = {"%012d" % i: "styled_%012d.jpg" % i for i in ids}
+        with open(os.path.join(root, "mapping_dicts", f"{mapping}_dict_style_"
+                               f"{STYLES}_alpha_{ALPHA}.json"), "w") as f:
+            json.dump(names, f)
+        ploss.update({n: float(v) for n, v in zip(
+            names.values(), rng.uniform(0.1, 2.5, len(names)))})
+    os.makedirs(dict_root, exist_ok=True)
+    with open(os.path.join(dict_root, f"perceptual_loss_dict_alpha_{ALPHA}_"
+                           f"styles_{STYLES}.json"), "w") as f:
+        json.dump(ploss, f)
+    return canvases
+
+
+@contextlib.contextmanager
+def engine_environment(mods, tmp):
+    """The CLI's surroundings for the trainer phase: the experiments root
+    and the perceptual-loss dicts in ``tmp`` (``CONFIG`` and the
+    environment), ENGINE_CONFIG, no pretrained file, and f32 and no
+    profiling unless a step sets them."""
+    paths = mods["CONFIG"]["paths"]
+    saved_paths = dict(paths)
+    keys = ("STLPOSE_EXPERIMENTS_PATH", "STLPOSE_PRETRAINED",
+            "STLPOSE_MODEL_CONFIG", "STLPOSE_DTYPE", "STLPOSE_PROFILE")
+    saved_env = {k: os.environ.get(k) for k in keys}
+    paths["experiments_path"] = os.path.join(tmp, "experiments")
+    paths["dict_path"] = os.path.join(tmp, "dicts")
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ.update(STLPOSE_EXPERIMENTS_PATH=paths["experiments_path"],
+                      STLPOSE_PRETRAINED="", STLPOSE_MODEL_CONFIG=ENGINE_CONFIG)
+    try:
+        yield
+    finally:
+        paths.update(saved_paths)
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def canvases_in_memory(mods, canvases):
+    """Every engine pipeline reads the decoded canvases from memory, not
+    JPEG files (the card's machine has no cv2)."""
+    pipe_cls = mods["PoseDataPipeline"]
+    load_raw = pipe_cls._load_one_raw
+    pipe_cls._load_one_raw = \
+        lambda self, rec: self._letterbox(canvases[rec.image_id], rec)
+    try:
+        yield
+    finally:
+        pipe_cls._load_one_raw = load_raw
+
+
+@contextlib.contextmanager
+def epoch_clock(torch, trainer_cls, times):
+    """Host ms of every train and valid epoch of any PoseTrainer, each
+    bracketed by a synchronise, appended to ``times["train"|"valid"]``;
+    and what each ``training_loop`` starts from (epoch, step, learning
+    rate, scheduler), appended to ``times["start"]``."""
+    saved = {n: getattr(trainer_cls, n) for n in
+             ("_run_train_epoch", "_run_valid_epoch", "training_loop")}
+
+    def timed(key, fn):
+        def call(self, epoch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, epoch)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def loop(self):
+        times["start"].append({
+            "epoch": self.cur_epoch, "step": int(self.state.step),
+            "lr": self.state.optimizer.param_groups[0]["lr"],
+            "scheduler": self.scheduler.state_dict()})
+        return saved["training_loop"](self)
+
+    trainer_cls._run_train_epoch = timed("train", saved["_run_train_epoch"])
+    trainer_cls._run_valid_epoch = timed("valid", saved["_run_valid_epoch"])
+    trainer_cls.training_loop = loop
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(trainer_cls, n, fn)
+
+
+def new_experiment(mods, name, epochs, model):
+    """01_create_experiment with the CLI's flags for the trainer phase,
+    then ``dataset.device_warp`` set (host warp needs cv2) and the seeded
+    weights saved as the experiment's checkpoint "seed"."""
+    exp_path = mods["scripts"]["01_create_experiment"].main(
+        ["-d", name, "--dataset_name", "styled_coco", "--styles", STYLES,
+         "--alpha", ALPHA, "--batch_size", str(TRAIN_B), "--num_epochs",
+         str(epochs), "--save_frequency", "1"] +
+        [a for k, v in AUG["dataset"].items()
+         for a in (f"--{k}", str(v).lower())])
+    exp = mods["load_experiment_parameters"](exp_path)
+    exp["dataset"]["device_warp"] = True
+    mods["save_experiment_parameters"](exp_path, exp)
+    mods["save_checkpoint"](mods["create_train_state"](model, exp),
+                            exp_path, "seed")
+    return exp_path
+
+
+def check_logs(exp_path, epochs, label):
+    """training_logs.json holds ``epochs`` finite epochs."""
+    with open(os.path.join(exp_path, "training_logs.json")) as f:
+        logs = json.load(f)
+    vals = [v for key in ("loss", "accuracy")
+            for split in ("training", "validation")
+            for v in logs[key][split]]
+    if len(logs["loss"]["training"]) != epochs or \
+            len(vals) != 4 * epochs or not np.isfinite(vals).all():
+        fail(f"{label}: training_logs.json {logs}")
+    return logs
+
+
+def trainer_vs_plain(torch, mods, exp_path, data, dev):
+    """Two PoseTrainers from checkpoint "seed", one on the kernels and one
+    on their plain versions, cuDNN deterministic: the first valid batch's
+    eval step and the first train batch's step of each."""
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for plain in (False, True):
+            with (plain_versions(mods) if plain
+                  else contextlib.nullcontext()):
+                tr = mods["PoseTrainer"](exp_path, checkpoint="seed",
+                                         data_path=data,
+                                         use_perceptual_loss=True,
+                                         device=dev)
+                tr.load_dataset()
+                tr.setup_model(config_name=ENGINE_CONFIG, pretrained=None)
+                _, vm = tr.eval_step(tr.state, next(iter(tr.valid_pipe)))
+                tb = next(iter(tr.train_pipe))
+                m = tr.train_step(tr.state, tr._step_view(tb))
+                torch.cuda.synchronize()
+                runs.append(({k: tb[k] for k in ("image", "target",
+                                                 "target_weight")},
+                             {k: float(v) for k, v in vm.items()},
+                             {k: float(v) for k, v in m.items()},
+                             [p.detach().clone()
+                              for p in tr.model.parameters()]))
+                del tr
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (bk, vk, mk, pk), (bp, vp, mp, pp) = runs
+    out = {f"{k}_max_abs_diff": float((bk[k] - bp[k]).abs().max())
+           for k in bk}
+    out.update(valid_kernels=vk, valid_plain=vp, step_kernels=mk,
+               step_plain=mp,
+               loss_rel_diff=abs(mk["loss"] - mp["loss"]) / abs(mp["loss"]),
+               param_max_rel_diff=max(
+                   float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(pk, pp)))
+    print("trainer, kernels vs plain versions:", json.dumps(out))
+    # crops and targets 0.0; the step within the training path's limits;
+    # the valid batch's loss and PCK equal
+    if not (all(out[f"{k}_max_abs_diff"] == 0.0 for k in bk)
+            and out["loss_rel_diff"] <= 1e-6
+            and out["param_max_rel_diff"] <= 1e-6
+            and all(mk[k] == mp[k] for k in ("pck_hit", "pck_cnt"))
+            and vk == vp):
+        fail(f"trainer disagrees with its plain-version run: {out}")
+    return out
+
+
+def engine_iteration(mods, trainer):
+    """One iteration of the engine's train loop on ``trainer``: the next
+    batch of its pipeline (host letterbox, collate, K4), the step (K1) and
+    the device-side metric update; the pipeline restarts when it ends."""
+    state = {"it": iter(trainer.train_pipe)}
+    acc = mods["MetricAccumulator"]()
+
+    def iteration():
+        try:
+            batch = next(state["it"])
+        except StopIteration:
+            state["it"] = iter(trainer.train_pipe)
+            batch = next(state["it"])
+        acc.update(trainer.train_step(trainer.state,
+                                      trainer._step_view(batch)))
+
+    return iteration
+
+
+def trainer_path(torch, mods, dev, args, tmp, bare_ms):
+    """The training CLI at full width, in-process through the scripts'
+    ``main``: 01 (Styled-COCO, B = 32, 2 epochs, checkpoint every epoch,
+    COCO augmentation, device warp) -> seeded HRNet-W32 weights as the
+    experiment's checkpoint "seed" -> 02 from it, weights only, with the
+    perceptual loss, f32 (every counter set to 0 first: K4 and K1 must
+    launch, K1 through its bulk kernel; 2 finite epochs, checkpoints 0, 1
+    and final, the StepTimer stats, the scheduler stepped) -> 02 resumed
+    from checkpoint 1 with 3 epochs (epoch 1, step, learning rate and
+    scheduler restored) -> the trainer on the kernels against the trainer
+    on the plain versions -> 02 for one epoch in bf16 (f32 parameters,
+    Adam moments and checkpoint) -> 03 on "final" with flip-TTA (10 finite
+    stats). ``bare_ms``: ms per iteration of the training path's bare
+    loop in this run. Returns (launches, summary, (canvases, {dtype:
+    (trainer, ms per iteration)}))."""
+    t0 = time.time()
+    data = os.path.join(tmp, "data")
+    canvases = engine_dataset(data, os.path.join(tmp, "dicts"),
+                              args.seed + 30)
+    model = seeded_weights(torch, mods["PoseHighResolutionNet"](
+        mods["get_hrnet_config"](ENGINE_CONFIG), device=dev), args.seed + 7)
+    scripts = mods["scripts"]
+    times = {"train": [], "valid": [], "start": []}
+    argv = ["--data_path", data, "--use_perceptual_loss", "true"]
+    with engine_environment(mods, tmp), canvases_in_memory(mods, canvases), \
+            epoch_clock(torch, mods["PoseTrainer"], times):
+        exp_path = new_experiment(mods, "chip_smoke_train", 2, model)
+        print(f"trainer set-up in {time.time() - t0:.1f} s", flush=True)
+
+        reset_counts(mods)
+        trainer = scripts["02_train"].main(
+            ["-d", exp_path, "--checkpoint", "seed"] + argv)
+        torch.cuda.synchronize()
+        launches = launch_counts(mods)
+        print("trainer-path launches (two epochs):", json.dumps(launches))
+        if launches["warp_two_pass"] < 1 or launches["heatmap_peaks"] < 1:
+            fail(f"a kernel of the trainer path was not launched: {launches}")
+        k1_took_bulk(mods, "trainer")
+        n_iter = len(trainer.train_pipe)
+        if n_iter != ENGINE_TRAIN_IMAGES * EVAL_PEOPLE // TRAIN_B or \
+                len(trainer.valid_pipe) != 5:
+            fail(f"trainer: {n_iter} train and {len(trainer.valid_pipe)} "
+                 f"valid batches")
+        logs = check_logs(exp_path, 2, "02")
+        for label in ("0", "1", "final"):
+            if not os.path.exists(mods["checkpoint_path"](exp_path, label)
+                                  + ".pt"):
+                fail(f"02: no checkpoint {label}")
+        with open(os.path.join(exp_path, "timing_logs.json")) as f:
+            timing = json.load(f)["train_epoch"]
+        sched = trainer.scheduler.state_dict()
+        if len(timing) != 2 or not all(t["examples_per_sec"] > 0
+                                       for t in timing) \
+                or sched["best"] is None:
+            fail(f"02: StepTimer stats {timing}, scheduler {sched}")
+        end = {"epoch": 1, "step": int(trainer.state.step),
+               "lr": trainer.state.optimizer.param_groups[0]["lr"],
+               "scheduler": sched}
+
+        exp = mods["load_experiment_parameters"](exp_path)
+        exp["training"]["num_epochs"] = 3
+        mods["save_experiment_parameters"](exp_path, exp)
+        resumed = scripts["02_train"].main(
+            ["-d", exp_path, "--checkpoint", "1", "--resume_training",
+             "true"] + argv)
+        if times["start"][-1] != end or end["step"] != 2 * n_iter:
+            fail(f"resume restored {times['start'][-1]}, expected {end}")
+        check_logs(exp_path, 4, "02 resumed")
+        del resumed
+
+        vs_plain = trainer_vs_plain(torch, mods, exp_path, data, dev)
+
+        exp16 = new_experiment(mods, "chip_smoke_train_bf16", 1, model)
+        os.environ["STLPOSE_DTYPE"] = "bfloat16"
+        n_train = len(times["train"])
+        tr16 = scripts["02_train"].main(["-d", exp16, "--checkpoint",
+                                         "seed"] + argv)
+        del os.environ["STLPOSE_DTYPE"]
+        with open(os.path.join(exp16, "timing_logs.json")) as f:
+            timing16 = json.load(f)["train_epoch"][0]
+        blob = torch.load(mods["checkpoint_path"](exp16, "final") + ".pt",
+                          map_location="cpu", weights_only=True)
+        kinds = {"params": {p.dtype for p in tr16.model.parameters()},
+                 "adam": {t.dtype for s in tr16.state.optimizer.state.values()
+                          for t in s.values() if t.dim() > 0},
+                 "checkpoint": {v.dtype for k, v in
+                                blob["model_state_dict"].items()
+                                if not k.endswith("num_batches_tracked")}}
+        logs16 = check_logs(exp16, 1, "02 bf16")
+        if tr16.model.dtype != torch.bfloat16 or \
+                any(v != {torch.float32} for v in kinds.values()):
+            fail(f"bf16 training: dtypes {kinds}")
+        del blob
+
+        stats = scripts["03_evaluate"].main(
+            ["-d", exp_path, "--checkpoint", "final", "--flip", "true",
+             "--data_path", data])
+        stats_file = os.path.join(exp_path, f"evaluation_stats_styled_coco_"
+                                  f"styles_{STYLES}_alpha_{ALPHA}.json")
+        with open(stats_file) as f:
+            saved = json.load(f)["final"]
+        if len(saved) != 10 or not np.isfinite(list(saved.values())).all():
+            fail(f"03: stats {saved}")
+
+    train_ms = times["train"][1] / n_iter      # epoch 1: cuDNN plans made
+    summary = {
+        "batch": TRAIN_B, "train_batches_per_epoch": n_iter,
+        "engine_ms_per_iteration": train_ms,
+        "engine_steptimer_examples_per_s": timing[1]["examples_per_sec"],
+        "engine_steptimer_ms_per_iteration":
+            1e3 / timing[1]["steps_per_sec"],
+        "bare_train_path_ms_per_iteration": bare_ms,
+        "engine_over_bare": train_ms / bare_ms,
+        "valid_epoch_ms": times["valid"][1],
+        "train_epoch_ms": times["train"][:2],
+        "launches_per_iteration": {k: v / (2 * n_iter) for k, v in
+                                   launches.items() if v},
+        "logs": {k: logs[k] for k in ("loss", "accuracy")},
+        "resumed_from": end,
+        "kernels_vs_plain": vs_plain,
+        "bf16_epoch_ms": times["train"][n_train],
+        "bf16_ms_per_iteration": times["train"][n_train] / n_iter,
+        "bf16_steptimer_ms_per_iteration": 1e3 / timing16["steps_per_sec"],
+        "bf16_loss": logs16["loss"]["training"][0],
+        "stats_03": list(saved.values())}
+    print("trainer:", json.dumps(summary), flush=True)
+    return launches, summary, (canvases, {
+        "f32": (trainer, train_ms),
+        "bf16": (tr16, summary["bf16_steptimer_ms_per_iteration"])})
+
+
 def forbidden_ops(prof, ops, shapes):
     """[(op, input shapes)] of the profiled ops named in ``ops`` that took
     an input of one of ``shapes`` (the profile must record shapes)."""
@@ -1856,13 +2257,15 @@ def main():
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from stlpose_tpu_torch.config import FasterRCNNConfig, get_hrnet_config
+    import importlib
+    from stlpose_tpu_torch.config import (CONFIG, IMAGENET_STD,
+                                          FasterRCNNConfig, get_hrnet_config)
     from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
-    from stlpose_tpu_torch.config import IMAGENET_STD
     from stlpose_tpu_torch.data.pose_dataset import (AugmentationParams,
                                                      PoseRecord, _xywh_to_cs)
     from stlpose_tpu_torch.engines.evaluator import (PoseEvaluator,
                                                      device_batch)
+    from stlpose_tpu_torch.engines.trainer import PoseTrainer
     from stlpose_tpu_torch.engines.vase_evaluator import build_fused_two_stage
     from stlpose_tpu_torch.eval.submission import (compute_precision,
                                                    generate_submission)
@@ -1892,9 +2295,14 @@ def main():
                                                get_current_lr,
                                                set_current_lr)
     from stlpose_tpu_torch.train.state import create_train_state
-    from stlpose_tpu_torch.utils.checkpoint import save_checkpoint
+    from stlpose_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    save_checkpoint)
     from stlpose_tpu_torch.utils.experiment import (
-        create_experiment, load_experiment_parameters)
+        create_experiment, load_experiment_parameters,
+        save_experiment_parameters)
+    scripts = {name: importlib.import_module(
+        f"stlpose_tpu_torch.scripts.{name}") for name in
+        ("01_create_experiment", "02_train", "03_evaluate")}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1944,7 +2352,10 @@ def main():
                 decode_heatmaps=decode_heatmaps,
                 generate_submission=generate_submission,
                 compute_precision=compute_precision,
-                IMAGENET_STD=IMAGENET_STD)
+                IMAGENET_STD=IMAGENET_STD, CONFIG=CONFIG,
+                PoseTrainer=PoseTrainer, scripts=scripts,
+                save_experiment_parameters=save_experiment_parameters,
+                checkpoint_path=checkpoint_path)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
     checks = [check_decode(torch, k1, dev, rng),
               check_warp(torch, k2, affine, affine_warp, dev, rng)]
@@ -1963,10 +2374,13 @@ def main():
     launches, tput, state = main_path(torch, mods, dev, args)
     stages = stage_times(torch, mods, state)
     q_launches, quant, q_state = quant_path(torch, mods, dev, args)
-    train_launches, train, train_state = train_path(torch, mods, dev, args)
+    train_launches, train, train_forms = train_path(torch, mods, dev, args)
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches, evaluation, eval_state = eval_path(torch, mods, dev,
                                                           args, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer_launches, trainer, trainer_state = trainer_path(
+            torch, mods, dev, args, tmp, train["ms_per_step"])
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
@@ -1976,7 +2390,8 @@ def main():
         by_path = {"serving": launches[k["name"]],
                    "serving_bf16_roi8": q_launches[k["name"]],
                    "training": train_launches[k["name"]],
-                   "eval": eval_launches[k["name"]]}
+                   "eval": eval_launches[k["name"]],
+                   "trainer": trainer_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         kernels.append(k)
@@ -1995,10 +2410,20 @@ def main():
         "one quantized bf16 fused call",
         expect=("absmax_kernel", "quantize_kernel", "roi_align_kernel"),
         forbid=(QUANTIZE_OPS, [[B, s, s, ROI_C] for s in ROI_SIZES]))
-    iteration, samples = train_state
     train["profile"] = profile_program(
-        torch, lambda: iteration(samples), train["ms_per_step"], args.out,
+        torch, train_forms["guarded"], train["ms_per_step"], args.out,
         "one training iteration")
+    train["profile_model_train_each_step"] = profile_program(
+        torch, train_forms["model_train_each_step"], float(np.median(
+            train["train_mode_guard_ms"]["model_train_each_step"])),
+        args.out, "one training iteration, model.train() before the step")
+    canvases, engines = trainer_state
+    with canvases_in_memory(mods, canvases):
+        for dtype, (engine, engine_ms) in engines.items():
+            trainer["profile" if dtype == "f32" else f"profile_{dtype}"] = \
+                profile_program(torch, engine_iteration(mods, engine),
+                                engine_ms, args.out, "one engine training "
+                                f"iteration (PoseTrainer, B = 32, {dtype})")
 
     fns, devb, forms = eval_state
     for form, fn in fns.items():
@@ -2011,7 +2436,7 @@ def main():
     print(json.dumps({"kernels": kernels, "end_to_end": tput,
                       "stages_ms": stages, "profile": prof,
                       "serving_bf16_roi8": quant, "training": train,
-                      "eval": evaluation}))
+                      "eval": evaluation, "trainer": trainer}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,11 +5,12 @@ module names so each counterpart is easy to find. Ported so far: the
 fused two-stage serving path (``engines.vase_evaluator.
 build_fused_two_stage``: Faster R-CNN ResNet50-FPN -> score filter ->
 cross-batch crop compaction -> affine crops -> HRNet-W32 -> heatmap
-decode) in f32 and in the quantized bf16 flavor, pose training on
-device-warp batches (``parallel.steps.make_train_step``), and flip-TTA
-COCO evaluation (``engines.evaluator.PoseEvaluator``). The TPU kernels of
-these paths are CUDA C++ kernels under ``kernels/csrc`` (built with nvcc
-at first use).
+decode) in f32 and in the quantized bf16 flavor, pose training
+(``engines.trainer.PoseTrainer`` around ``parallel.steps.
+make_train_step``, f32 or bf16 on f32 weights), flip-TTA COCO evaluation
+(``engines.evaluator.PoseEvaluator``) and the CLI scripts 01-03 that
+drive them (``scripts/``). The TPU kernels of these paths are CUDA C++
+kernels under ``kernels/csrc`` (built with nvcc at first use).
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; with "cuda" and no GPU it raises. On CPU tensors

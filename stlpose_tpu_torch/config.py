@@ -37,9 +37,10 @@ CONFIG = {
     "random_seed": 13,
 }
 
-# Per-experiment defaults, as in the JAX package, plus ``device_warp``
-# (the JAX pipeline reads it with a default of False; the port's pipeline
-# is device-warp only, so an experiment it runs sets it true).
+# Per-experiment defaults, as in the JAX package, plus ``device_warp``,
+# which the JAX pipeline reads with a default of False: host warp, with
+# cv2, which the card's machine does not have, so an experiment run there
+# sets it true.
 DEFAULT_ARGS = {
     "dataset": {
         "dataset_name": "coco",

@@ -2,13 +2,13 @@
 
 Port of the pose half of ``stlpose_tpu/data/loaders.py``
 (``build_pose_records``, ``load_dataset``) with the same dataset names
-and path layout, for ``coco`` (GT boxes, or the person detector's boxes
-when ``evaluation.use_gt_bbox`` is false) and ``styled_coco`` (the
-``<data>/mapping_dicts`` name mapping). The port's pipeline is device-
-warp only: ``load_dataset`` refuses an experiment without
-``dataset.device_warp`` and with ``dataset.inline_style``, and
-``arch_data`` and ``combined`` are refused too; they come with the
-host-warp pipeline and the ClassArch records (ROADMAP Queue 1 item 2).
+and path layout: ``coco`` (GT boxes, or the person detector's boxes when
+``evaluation.use_gt_bbox`` is false), ``styled_coco`` (the
+``<data>/mapping_dicts`` name mapping), ``arch_data`` (the ClassArch
+records, split by ``<dict_path>/arch_data_det_splits.json`` when it
+exists) and ``combined`` (both). The pipelines crop on the device or on
+the host as ``dataset.device_warp`` says. ``dataset.inline_style`` is
+refused: the AdaIN stylizer comes with ROADMAP Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -20,9 +20,7 @@ from stlpose_tpu_torch.config import CONFIG
 from stlpose_tpu_torch.data import pose_dataset as pd
 from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
 
-POSE_DATASETS = ("coco", "styled_coco")
-_NOT_YET = ("not ported yet: the host-warp pipeline, the ClassArch records "
-            "and the inline stylizer come with ROADMAP Queue 1 item 2")
+POSE_DATASETS = ("coco", "styled_coco", "arch_data", "combined")
 
 
 def _styled_mapping(data_path, styles, alpha, train: bool):
@@ -38,10 +36,11 @@ def _styled_mapping(data_path, styles, alpha, train: bool):
 
 
 def build_pose_records(exp_data: dict, split: str,
-                       perceptual_loss_dict=None,
+                       perceptual_loss_dict=None, percentage=None,
                        data_path: str | None = None):
     """Pose records for one split ("train" or "valid") of the experiment's
-    dataset."""
+    dataset; ``percentage`` keeps the first N% of the ClassArch train
+    records."""
     data_path = data_path or CONFIG["paths"]["data_path"]
     name = exp_data["dataset"]["dataset_name"]
     alpha = exp_data["dataset"].get("alpha", "0.5")
@@ -72,8 +71,25 @@ def build_pose_records(exp_data: dict, split: str,
             labels_file, img_root, is_train=train, styled_mapping=mapping,
             styled_img_root=styled_root, alpha=alpha,
             perceptual_loss_dict=perceptual_loss_dict)
-    if name in ("arch_data", "combined"):
-        raise NotImplementedError(f"dataset '{name}' is {_NOT_YET}")
+    if name == "arch_data":
+        records = pd.load_archdata_pose_records(
+            os.path.join(data_path, "annotations_arch_data",
+                         "arch_data_keypoints.json"),
+            os.path.join(data_path, "class_arch_poses", "characters"))
+        split_file = os.path.join(CONFIG["paths"]["dict_path"],
+                                  "arch_data_det_splits.json")
+        if os.path.exists(split_file):
+            records = pd.canonical_archdata_split(
+                records, split_file, "train" if train else "test")
+        if percentage is not None and train:
+            records = pd.percentage_subset(records, percentage)
+        return records
+    if name == "combined":
+        return [rec for part in ("styled_coco", "arch_data")
+                for rec in build_pose_records(
+                    {**exp_data, "dataset": {**exp_data["dataset"],
+                                             "dataset_name": part}},
+                    split, perceptual_loss_dict, percentage, data_path)]
     raise ValueError(
         f"Dataset '{name}' not supported; use one of {POSE_DATASETS}")
 
@@ -83,31 +99,32 @@ def load_dataset(exp_data: dict, train: bool = True, validation: bool = True,
                  perceptual_loss_dict=None, num_workers: int | None = None,
                  pad_multiple: int = 1, data_path: str | None = None,
                  device="cuda"):
-    """Device-warp pose pipelines for the experiment, making their batches
-    on ``device``. Returns (train_pipeline, valid_pipeline); either may be
+    """Pose pipelines for the experiment, cropping on the device or on the
+    host as ``dataset.device_warp`` says and making their batches on
+    ``device``. Returns (train_pipeline, valid_pipeline); either may be
     None."""
     d = exp_data["dataset"]
-    if not d.get("device_warp", False):
-        raise NotImplementedError(
-            "load_dataset: the port's pipeline is device-warp only (set "
-            f"dataset.device_warp); the host-warp pipeline is {_NOT_YET}")
     if d.get("inline_style"):
-        raise NotImplementedError(f"load_dataset: dataset.inline_style is "
-                                  f"{_NOT_YET}")
+        raise NotImplementedError(
+            "load_dataset: dataset.inline_style is not ported yet: the "
+            "AdaIN stylizer comes with ROADMAP Queue 1 item 4")
+    dw = bool(d.get("device_warp", False))
     bs = exp_data["training"]["batch_size"]
     nw = num_workers if num_workers is not None else CONFIG["num_workers"]
     train_pipe = valid_pipe = None
     if train:
         recs = build_pose_records(exp_data, "train", perceptual_loss_dict,
-                                  data_path)
+                                  data_path=data_path)
         train_pipe = PoseDataPipeline(
             recs, bs, is_train=True, exp_data=exp_data,
             shuffle=shuffle_train, num_workers=nw,
-            pad_multiple=pad_multiple, drop_last=True, device=device)
+            pad_multiple=pad_multiple, drop_last=True, device_warp=dw,
+            device=device)
     if validation:
         recs = build_pose_records(exp_data, "valid", perceptual_loss_dict,
-                                  data_path)
+                                  data_path=data_path)
         valid_pipe = PoseDataPipeline(
             recs, bs, is_train=False, shuffle=shuffle_valid,
-            num_workers=nw, pad_multiple=pad_multiple, device=device)
+            num_workers=nw, pad_multiple=pad_multiple, device_warp=dw,
+            device=device)
     return train_pipe, valid_pipe

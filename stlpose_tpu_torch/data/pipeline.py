@@ -1,18 +1,28 @@
-"""Host -> device input pipeline, device-warp mode.
+"""Host -> device input pipeline.
 
-Port of the device-warp path of ``stlpose_tpu/data/pipeline.py``. The host
-decodes each image onto a fixed square letterbox canvas (uint8: resizing
-a uint8 image gives uint8, so shipping bytes is exact and moves 4x less
-than f32) and draws the augmentation; centres, scales and joints travel
-in canvas coordinates. On the device, one finalize makes the batch: the
-rotated affine crop warp, the joint transform, ImageNet normalisation and
-the Gaussian targets.
+Port of ``stlpose_tpu/data/pipeline.py``, in its two modes.
 
-The crop warp follows the TPU package's gate: the two-pass filter (K4,
-``ops.warp.affine_warp_two_pass``) whenever the canvas side is a multiple
-of 128 (the default canvas is 640), direct bilinear sampling (K2,
-``ops.warp.affine_warp``) otherwise, on any device. The host-warp path
-(``process_sample`` with ``cv2.warpAffine``) is not ported.
+- Device warp: the host decodes each image onto a fixed square letterbox
+  canvas (uint8: resizing a uint8 image gives uint8, so shipping bytes is
+  exact and moves 4x less than f32) and draws the augmentation; centres,
+  scales and joints travel in canvas coordinates. On the device, one
+  finalize makes the batch: the rotated affine crop warp, the joint
+  transform, ImageNet normalisation and the Gaussian targets. The crop
+  warp follows the TPU package's gate: the two-pass filter (K4,
+  ``ops.warp.affine_warp_two_pass``) whenever the canvas side is a
+  multiple of 128 (the default canvas is 640), direct bilinear sampling
+  (K2, ``ops.warp.affine_warp``) otherwise, on any device.
+- Host warp: each decode thread draws its sample's augmentation (under a
+  lock) and crops it with ``cv2.warpAffine`` (``process_sample``); the
+  uint8 crops (``warpAffine`` of a uint8 image is integer-valued, so the
+  bytes are exact) go to the device, where ``device_finalize`` casts,
+  normalises and renders the targets. ``cv2`` is on no card's machine
+  here, so this mode runs off the card.
+
+The mode is the ``device_warp`` argument; unlike the JAX pipeline's, it
+defaults to True, the mode the card runs. The inline AdaIN stylizer of
+the JAX host-warp pipeline is not ported (``data/loaders.py`` refuses
+``dataset.inline_style``).
 """
 
 from __future__ import annotations
@@ -29,10 +39,28 @@ from stlpose_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from stlpose_tpu_torch.data.pose_dataset import (HEATMAP_SIZE, IMAGE_SIZE,
                                                  AugmentationParams,
                                                  PoseRecord, flip_perm,
-                                                 read_image)
+                                                 process_sample, read_image)
 from stlpose_tpu_torch.ops.affine import apply_affine, get_affine_matrix
 from stlpose_tpu_torch.ops.heatmap import generate_targets
 from stlpose_tpu_torch.ops.warp import affine_warp, affine_warp_two_pass
+
+
+def _normalise(crops):
+    """(N, 256, 192, 3) crops on the 0-255 scale -> ImageNet-normalised."""
+    dev = crops.device
+    return ((crops / 255.0 - torch.as_tensor(IMAGENET_MEAN, device=dev)) /
+            torch.as_tensor(IMAGENET_STD, device=dev))
+
+
+def device_finalize(crops, joints, vis):
+    """The host-warp batch on the device: uint8 crops (N, 256, 192, 3),
+    crop-space joints and visibility -> normalised f32 crops, targets
+    (N, J, 64, 48) and target weights (N, J)."""
+    x = _normalise(crops.to(torch.float32))
+    target, weight = generate_targets(joints, vis,
+                                      heatmap_size=HEATMAP_SIZE,
+                                      image_size=IMAGE_SIZE)
+    return x, target, weight
 
 
 def device_warp_finalize(canvases, centers, scales, rots, joints, vis,
@@ -47,9 +75,7 @@ def device_warp_finalize(canvases, centers, scales, rots, joints, vis,
     else:
         crops = affine_warp(canvases.to(torch.float32), centers, scales,
                             rots, IMAGE_SIZE)
-    dev = crops.device
-    x = ((crops / 255.0 - torch.as_tensor(IMAGENET_MEAN, device=dev)) /
-         torch.as_tensor(IMAGENET_STD, device=dev))
+    x = _normalise(crops)
     mats = get_affine_matrix(centers, scales, rots, IMAGE_SIZE)
     joints_crop = apply_affine(joints, mats)
     joints_crop = torch.where(vis[..., None] > 0, joints_crop, joints)
@@ -60,7 +86,7 @@ def device_warp_finalize(canvases, centers, scales, rots, joints, vis,
 
 
 class PoseDataPipeline:
-    """Iterable over device-ready batches of pose crops (device warp).
+    """Iterable over device-ready batches of pose crops.
 
     Args:
       records: list of PoseRecord.
@@ -69,11 +95,13 @@ class PoseDataPipeline:
       exp_data: experiment params; augmentation knobs are read from
         ``exp_data["dataset"]``.
       shuffle: shuffle each epoch.
-      num_workers: host decode threads.
+      num_workers: host decode (and, with host warp, crop) threads.
       pad_multiple: pad the last batch to a multiple with repeated
         samples; "n_valid" marks the real entries.
       drop_last: drop the last partial batch.
-      canvas_size: side of the square letterbox canvas.
+      device_warp: crop on the device from letterbox canvases (True) or
+        on the host with cv2 (False).
+      canvas_size: side of the square letterbox canvas (device warp).
       device: where the batch is made ("cuda" unless told otherwise).
     """
 
@@ -81,7 +109,8 @@ class PoseDataPipeline:
                  is_train: bool, exp_data: dict | None = None,
                  shuffle: bool = False, num_workers: int = 8,
                  pad_multiple: int = 1, drop_last: bool = False,
-                 seed: int = 13, canvas_size: int = 640, device="cuda"):
+                 seed: int = 13, device_warp: bool = True,
+                 canvas_size: int = 640, device="cuda"):
         self.records = list(records)
         self.batch_size = batch_size
         self.is_train = is_train
@@ -89,6 +118,7 @@ class PoseDataPipeline:
         self.num_workers = max(1, num_workers)
         self.pad_multiple = pad_multiple
         self.drop_last = drop_last
+        self.device_warp = device_warp
         self.canvas_size = canvas_size
         self.device = resolve_device(device)
         self.rng = np.random.RandomState(seed)
@@ -110,8 +140,19 @@ class PoseDataPipeline:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def _load_one(self, rec: PoseRecord):
+        """Host-warp stage: decode, augmentation draw (serialised: the
+        draws share one RandomState), then ``process_sample``."""
+        img = read_image(rec.image)
+        if self.aug is None:
+            return process_sample(rec, img, None)
+        with self._aug_lock:
+            drawn = self.aug.sample(rec.center, rec.scale, rec.joints,
+                                    rec.joints_vis)
+        return process_sample(rec, img, _FrozenAug(*drawn))
+
     def _load_one_raw(self, rec: PoseRecord):
-        """Host stage: decode, then ``_letterbox``."""
+        """Device-warp stage: decode, then ``_letterbox``."""
         return self._letterbox(read_image(rec.image), rec)
 
     def _letterbox(self, img: np.ndarray, rec: PoseRecord):
@@ -157,50 +198,33 @@ class PoseDataPipeline:
         order = np.arange(len(self.records))
         if self.shuffle:
             self.rng.shuffle(order)
+        loader = self._load_one_raw if self.device_warp else self._load_one
+        collate = (self._collate_device_warp if self.device_warp
+                   else self._collate)
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
             for start in range(0, len(order), self.batch_size):
                 idx = order[start:start + self.batch_size]
                 if self.drop_last and len(idx) < self.batch_size:
                     break
                 samples = list(pool.map(
-                    lambda i: self._load_one_raw(self.records[i]), idx))
-                yield self._collate_device_warp(
-                    samples, [self.records[i] for i in idx])
+                    lambda i: loader(self.records[i]), idx))
+                yield collate(samples, [self.records[i] for i in idx])
 
-    def _collate_device_warp(self, samples: List, recs: List[PoseRecord]
-                             ) -> dict:
-        """Stack the host samples, move them to the device and finalize.
-        ``joints`` (crop space) stays on the device; the metadata stays on
-        the host, in original image coordinates."""
-        canvases = np.stack([s[0] for s in samples])
-        centers = np.stack([s[1] for s in samples])
-        scales = np.stack([s[2] for s in samples])
-        rots = np.asarray([s[3] for s in samples], np.float32)
-        joints = np.stack([s[4] for s in samples])
-        vis = np.stack([s[5] for s in samples])
-        metas = [s[6] for s in samples]
-        n_valid = len(samples)
-
+    def _pad(self, n_valid: int, arrays: list, metas: list):
+        """Repeat samples to fill the batch to a multiple of
+        ``pad_multiple``."""
         pad = (-n_valid) % self.pad_multiple if self.pad_multiple > 1 else 0
-        if pad:
-            sel = np.arange(pad) % n_valid
-            canvases = np.concatenate([canvases, canvases[sel]])
-            centers = np.concatenate([centers, centers[sel]])
-            scales = np.concatenate([scales, scales[sel]])
-            rots = np.concatenate([rots, rots[sel]])
-            joints = np.concatenate([joints, joints[sel]])
-            vis = np.concatenate([vis, vis[sel]])
-            metas = metas + [metas[i] for i in sel]
+        if not pad:
+            return arrays, metas
+        sel = np.arange(pad) % n_valid
+        return ([np.concatenate([a, a[sel]]) for a in arrays],
+                metas + [metas[i] for i in sel])
 
-        dev = self.device
-        x, target, weight, joints_crop = device_warp_finalize(
-            *(torch.from_numpy(a).to(dev) for a in
-              (canvases, centers, scales, rots, joints, vis)),
-            # no augmentation: rot is 0, the conditioning test is skipped
-            may_rotate=self.aug is not None)
+    @staticmethod
+    def _host_meta(metas: list, n_valid: int) -> dict:
+        """The batch's metadata, on the host, in original image
+        coordinates."""
         return {
-            "image": x, "target": target, "target_weight": weight,
-            "joints": joints_crop, "joints_vis": vis,
             "center": np.stack([m["center"] for m in metas]),
             "scale": np.stack([m["scale"] for m in metas]),
             "score": np.array([m["score"] for m in metas], np.float32),
@@ -209,3 +233,50 @@ class PoseDataPipeline:
                 [m["perceptual_loss"] for m in metas], np.float32),
             "n_valid": n_valid,
         }
+
+    def _collate(self, samples: List, recs: List[PoseRecord]) -> dict:
+        """Stack the host-warp samples, move the uint8 crops and the
+        joints to the device and finalize; ``joints`` and ``joints_vis``
+        stay host arrays, as in the JAX pipeline."""
+        n_valid = len(samples)
+        (crops, joints, vis), metas = self._pad(
+            n_valid, [np.stack([s[k] for s in samples]) for k in range(3)],
+            [s[3] for s in samples])
+        dev = self.device
+        x, target, weight = device_finalize(
+            torch.from_numpy(crops.astype(np.uint8)).to(dev),
+            torch.from_numpy(joints).to(dev), torch.from_numpy(vis).to(dev))
+        return {"image": x, "target": target, "target_weight": weight,
+                "joints": joints, "joints_vis": vis,
+                **self._host_meta(metas, n_valid)}
+
+    def _collate_device_warp(self, samples: List, recs: List[PoseRecord]
+                             ) -> dict:
+        """Stack the host samples, move them to the device and finalize.
+        ``joints`` (crop space) stays on the device; the metadata stays on
+        the host, in original image coordinates."""
+        n_valid = len(samples)
+        arrays = [np.stack([s[k] for s in samples]) for k in (0, 1, 2, 4, 5)]
+        arrays.insert(3, np.asarray([s[3] for s in samples], np.float32))
+        arrays, metas = self._pad(n_valid, arrays, [s[6] for s in samples])
+        canvases, centers, scales, rots, joints, vis = arrays
+        dev = self.device
+        x, target, weight, joints_crop = device_warp_finalize(
+            *(torch.from_numpy(a).to(dev) for a in
+              (canvases, centers, scales, rots, joints, vis)),
+            # no augmentation: rot is 0, the conditioning test is skipped
+            may_rotate=self.aug is not None)
+        return {"image": x, "target": target, "target_weight": weight,
+                "joints": joints_crop, "joints_vis": vis,
+                **self._host_meta(metas, n_valid)}
+
+
+class _FrozenAug:
+    """Augmentation parameters drawn under the lock, handed to
+    ``process_sample`` in place of the sampler."""
+
+    def __init__(self, c, s, r, f):
+        self._vals = (c, s, r, f)
+
+    def sample(self, *args):
+        return self._vals

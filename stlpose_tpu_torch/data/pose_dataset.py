@@ -1,13 +1,16 @@
-"""Top-down pose records and the per-sample host stage of the device-warp
+"""Top-down pose records and the per-sample host stage of the input
 pipeline.
 
-Port of the parts of ``stlpose_tpu/data/pose_dataset.py`` that the
-device-warp training and evaluation paths run: GT-box records from a COCO
+Port of ``stlpose_tpu/data/pose_dataset.py``: GT-box records from a COCO
 keypoint file (with the styled-COCO name mapping and the precomputed
 perceptual-loss field), detector-box records from a person-detection
-results file, the train-time augmentation sampler (a numpy ``RandomState``
-copied as it is, so a seed gives the same draws as the JAX package) and
-the RGB image read. ``cv2`` is imported only inside ``read_image``.
+results file, the ClassArch single-instance records (their own
+centre/scale convention, the canonical test split and the first-N%
+subset), the train-time augmentation sampler (a numpy ``RandomState``
+copied as it is, so a seed gives the same draws as the JAX package), the
+host-warp stage ``process_sample`` (``cv2.warpAffine``) and the RGB image
+read. ``cv2`` is imported only inside ``process_sample`` and
+``read_image``: the card's machine has none.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 
 from stlpose_tpu_torch import constants
 from stlpose_tpu_torch.data.coco_api import COCO
+from stlpose_tpu_torch.ops.affine import get_affine_matrix_np
 
 IMAGE_SIZE = (192, 256)        # (w, h)
 HEATMAP_SIZE = (48, 64)
@@ -55,6 +59,18 @@ def _xywh_to_cs(x, y, w, h, aspect_ratio=ASPECT_RATIO, pixel_std=PIXEL_STD,
     elif w < aspect_ratio * h:
         w = h * aspect_ratio
     scale = np.array([w / pixel_std, h / pixel_std], np.float32) * padding
+    return np.array([cx, cy], np.float32), scale
+
+
+def _xywh_to_cs_archdata(x, y, w, h):
+    """ClassArch variant: the box grows to the crop's aspect ratio, its
+    scale is normalised by the crop size and not padded."""
+    cx, cy = x + w * 0.5, y + h * 0.5
+    if w > ASPECT_RATIO * h:
+        h = w / ASPECT_RATIO
+    elif w < ASPECT_RATIO * h:
+        w = h * ASPECT_RATIO
+    scale = np.array([w / IMAGE_SIZE[0], h / IMAGE_SIZE[1]], np.float32)
     return np.array([cx, cy], np.float32), scale
 
 
@@ -145,6 +161,54 @@ def load_detection_result_records(bbox_file, img_root, *,
     return records
 
 
+def load_archdata_pose_records(labels_file, img_root) -> List[PoseRecord]:
+    """ClassArch pose records: the first annotated instance of each image,
+    its COCO-17 keypoints, and the original 18-keypoint set in
+    ``archdata_joints``."""
+    coco = COCO(labels_file)
+    records = []
+    for img_id in coco.getImgIds():
+        im = coco.loadImgs(img_id)[0]
+        anns = coco.loadAnns(coco.getAnnIds(imgIds=img_id, iscrowd=0))
+        if not anns:
+            continue
+        ann = anns[0]
+        kp = np.asarray(ann["keypoints"], np.float32).reshape(-1, 3)
+        arch_kp = np.asarray(ann.get("archdata_kpts", np.zeros(18 * 3)),
+                             np.float32).reshape(-1, 3)
+        center, scale = _xywh_to_cs_archdata(*ann["bbox"][:4])
+        records.append(PoseRecord(
+            image=os.path.join(img_root, im["file_name"]),
+            original_image=im.get("full_name", im["file_name"]),
+            image_id=img_id, center=center, scale=scale,
+            joints=kp[:, :2].copy(), joints_vis=np.clip(kp[:, 2], 0, 1),
+            score=float(ann.get("num_keypoints", 17)),
+            character_name=ann.get("character_name", ""),
+            archdata_joints=arch_kp))
+    return records
+
+
+def canonical_archdata_split(records, split_file, split_set: str):
+    """The canonical ClassArch split: the "test" indices of the split
+    JSON, in order, or ("train") every other record."""
+    with open(split_file) as f:
+        split = json.load(f)
+    eval_idx = set(split["test"])
+    if split_set == "train":
+        keep = [i for i in range(len(records)) if i not in eval_idx]
+    else:
+        keep = sorted(eval_idx)
+    return [records[i] for i in keep]
+
+
+def percentage_subset(records, percentage: float):
+    """The first ``percentage`` % of the records (1-100)."""
+    if not 1 <= percentage <= 100:
+        raise ValueError(f"percentage {percentage} is not in [1, 100]")
+    n = int(np.round(len(records) * percentage / 100))
+    return records[:n]
+
+
 class AugmentationParams:
     """Sampler of the train-time augmentation: half-body zoom, scale,
     rotation (in [-2*rf, 2*rf] degrees, on 60% of samples) and flip."""
@@ -203,6 +267,45 @@ def flip_perm(num_joints):
     for a, b in constants.FLIP_PAIRS:
         perm[a], perm[b] = b, a
     return perm
+
+
+def process_sample(record: PoseRecord, image: np.ndarray,
+                   aug: AugmentationParams | None = None):
+    """Host-warp stage for one sample: augmentation draw (and mirror),
+    ``cv2.warpAffine`` of the crop and the joint transform. Returns
+    (crop f32 (256, 192, 3) with integer values, joints (J, 2), vis (J,),
+    meta); the Gaussian targets are made batched on the device."""
+    import cv2
+
+    joints = record.joints.copy()
+    vis = record.joints_vis.copy()
+    c, s, r = record.center.copy(), record.scale.copy(), 0.0
+
+    if aug is not None:
+        c, s, r, do_flip = aug.sample(c, s, joints, vis)
+        if do_flip:
+            image = image[:, ::-1, :]
+            perm = flip_perm(len(joints))
+            joints[:, 0] = image.shape[1] - joints[:, 0] - 1
+            joints = joints[perm]
+            vis = vis[perm]
+            joints = joints * vis[:, None]
+            c[0] = image.shape[1] - c[0] - 1
+
+    trans = get_affine_matrix_np(c, s, r, IMAGE_SIZE)
+    crop = cv2.warpAffine(image, trans.astype(np.float64),
+                          (IMAGE_SIZE[0], IMAGE_SIZE[1]),
+                          flags=cv2.INTER_LINEAR)
+    ones = np.ones((len(joints), 1))
+    pts = np.concatenate([joints, ones], axis=1) @ trans.T
+    joints_out = np.where(vis[:, None] > 0, pts[:, :2], joints)
+
+    meta = {"center": c.astype(np.float32), "scale": s.astype(np.float32),
+            "rotation": np.float32(r), "score": np.float32(record.score),
+            "image_id": np.int64(record.image_id),
+            "perceptual_loss": np.float32(record.perceptual_loss)}
+    return crop.astype(np.float32), joints_out.astype(np.float32), \
+        vis.astype(np.float32), meta
 
 
 def read_image(path: str) -> np.ndarray:

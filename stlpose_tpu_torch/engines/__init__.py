@@ -1,1 +1,5 @@
-"""Serving programs of the port (counterparts of stlpose_tpu/engines)."""
+"""Engines and serving programs of the port (counterparts of
+stlpose_tpu/engines)."""
+
+from stlpose_tpu_torch.engines.evaluator import PoseEvaluator
+from stlpose_tpu_torch.engines.trainer import PoseTrainer

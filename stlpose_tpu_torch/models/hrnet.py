@@ -6,9 +6,14 @@ statistics, with flax's running-statistics update), and in its serving
 flavors: ``folded=True`` (BatchNorm folded into the convolutions by
 ``models/quantize.py::fold_batchnorms``: each ConvBN is a biased conv with
 no ``bn`` submodule) and ``dtype=torch.bfloat16`` (compute in bf16 as
-flax's ``dtype=bfloat16`` does: conv weights rounded to bf16, ReLU and
+flax's ``dtype=bfloat16`` does: convolutions on bf16 weights, ReLU and
 residual adds in bf16, live BatchNorm in f32, heatmaps cast to f32 at the
-end). Inside, tensors are NCHW; the public forward keeps
+end). With bf16 compute the convolution weights are stored rounded to
+bf16 (serving: the values flax's cast gives at every call, with no cast
+launched), or, with ``param_dtype=torch.float32`` (training, flax's
+``param_dtype``), kept in f32 and cast at each call, so the optimizer
+updates f32 master weights and the gradients reach them in f32. Inside,
+tensors are NCHW; the public forward keeps
 the JAX package's layout: (N, 256, 192, 3) NHWC in, (N, 64, 48, J) out
 (a permuted view of the NCHW heatmaps, so decode reads them in place).
 
@@ -68,6 +73,20 @@ def compute_in(module: nn.Module, dtype):
     return module
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that runs in its input's dtype: weights stored in
+    another dtype (f32 master weights under bf16 compute) are cast at each
+    call, as flax casts its params; weights stored in the input's dtype
+    are used as they are."""
+
+    def forward(self, x):
+        w, b = self.weight, self.bias
+        if w.dtype != x.dtype:
+            w = w.to(x.dtype)
+            b = None if b is None else b.to(x.dtype)
+        return self._conv_forward(x, w, b)
+
+
 class ConvBN(nn.Module):
     """conv (no bias, symmetric k//2 padding) + BatchNorm (eps 1e-5, the
     reference's; flax's train-mode update) [+ ReLU]. ``folded``: a biased
@@ -77,8 +96,8 @@ class ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True, folded: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
-                              bias=folded)
+        self.conv = Conv2d(cin, cout, kernel, stride, kernel // 2,
+                           bias=folded)
         self.bn = None if folded else FlaxBatchNorm2d(cout)
         self.relu = relu
 
@@ -188,11 +207,13 @@ class HighResolutionModule(nn.Module):
 class PoseHighResolutionNet(nn.Module):
     """HRNet keypoint-heatmap regressor: (N, 256, 192, 3) NHWC ->
     (N, 64, 48, num_joints) heatmaps, float32; built in eval mode.
-    ``dtype`` (float32 or bfloat16) is the compute dtype; ``folded``
-    takes BatchNorm-folded weights (serving only)."""
+    ``dtype`` (float32 or bfloat16) is the compute dtype; ``param_dtype``
+    the storage of the convolution weights (None: ``dtype``; float32 for
+    training); ``folded`` takes BatchNorm-folded weights (serving only)."""
 
     def __init__(self, config: HRNetConfig = get_hrnet_config("w32_256x192"),
-                 device="cuda", dtype=torch.float32, folded: bool = False):
+                 device="cuda", dtype=torch.float32, folded: bool = False,
+                 param_dtype=None):
         super().__init__()
         device = resolve_device(device)
         self.config = cfg = config
@@ -233,10 +254,9 @@ class PoseHighResolutionNet(nn.Module):
             prev = list(stage.num_channels)
 
         k = cfg.final_conv_kernel
-        self.final_layer = nn.Conv2d(cfg.stage4.num_channels[0],
-                                     cfg.num_joints, k, 1,
-                                     1 if k == 3 else 0)
-        compute_in(self.to(device), dtype)
+        self.final_layer = Conv2d(cfg.stage4.num_channels[0],
+                                  cfg.num_joints, k, 1, 1 if k == 3 else 0)
+        compute_in(self.to(device), param_dtype or dtype)
         self.eval()
 
     def forward(self, x):

@@ -13,9 +13,11 @@ same batch for one forward of 2N crops, and the two halves are combined
 in the model's (N, H, W, J) view, as the reference does. That view lies
 on NCHW memory and the combine's elementwise ops keep that layout, so the
 (N, J, H, W) view that the loss, PCK and decode read is contiguous maps:
-K1's bulk kernel. An eval function puts the model in eval mode only if it
-is in train mode: ``model.eval()`` walks HRNet-W32's ~1,000 modules, some
-milliseconds of host time before the first launch of every call.
+K1's bulk kernel. A step switches the model's mode only when it is not
+already in the one it needs (eval for the eval functions, train for the
+train step): ``model.eval()`` or ``model.train()`` walks HRNet-W32's
+~1,000 modules, some milliseconds of host time before the first launch of
+every call.
 Nothing is fetched to the host: the metrics stay device tensors.
 
 The inference functions close over the model, which holds its weights:
@@ -119,7 +121,8 @@ def make_train_step(perceptual_cfg: dict | None = None) -> Callable:
 
     def step(state: PoseTrainState, batch):
         model = state.model
-        model.train()
+        if not model.training:
+            model.train()
         pred = _nhwc_to_njhw(model(batch["image"]))
         loss = person_mse_loss(pred, batch["target"], batch["target_weight"])
         if perceptual_cfg is not None:

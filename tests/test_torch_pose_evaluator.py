@@ -147,15 +147,10 @@ def test_pose_evaluator_matches_jax(tmp_path, capsys):
 
 def test_engine_refuses_what_is_not_ported(tmp_path, monkeypatch):
     exp = load_experiment_parameters(_exp(tmp_path, "refuse"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         load_dataset({**exp, "dataset": {**exp["dataset"],
-                                         "device_warp": False}},
+                                         "inline_style": {"style_dir": "/s"}}},
                      train=False, device="cpu")
-    for name in ("arch_data", "combined"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            load_dataset({**exp, "dataset": {**exp["dataset"],
-                                             "dataset_name": name}},
-                         train=False, device="cpu")
     exp_path = _exp(tmp_path, "refuse2")
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         PoseEvaluator(exp_path, save_visualizations=True, device="cpu")

@@ -132,6 +132,11 @@ def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "stlpose_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15 and files[-1].exists()
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {f"stlpose_tpu_torch/{m}" for m in (
+        "engines/trainer.py", "utils/arguments.py", "utils/profiling.py",
+        "scripts/01_create_experiment.py", "scripts/02_train.py",
+        "scripts/03_evaluate.py")} <= names
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "stlpose_tpu"}
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & banned)
            for f in files}
