@@ -42,6 +42,25 @@ Phases, each fatal on failure:
      the same checks as 4 (K1, K2, K3q and K3's int8 -> bf16
      instantiation launched); images/s, crops/s and the drift from the
      f32 flavor on the same weights (a record, not a gate);
+  4c. the qualitative vase engine behind 04_evaluate_vases_qualitatively.py
+     (VaseEvaluator) at the same width: phase 4's seeded models saved as
+     a temporary experiment's pose and detector checkpoints "final" and
+     loaded through the engine's loaders, the vase pipeline's images made
+     in memory (seeded sources of 240-640 px letterboxed to 400x400, no
+     cv2 on the card's machine), no drawing; counters set to 0, 04's
+     traffic (qualitative_comparison over 11 records at B = 1), one batch
+     of 8 canvases (7 images, one empty) and 13 records at B = 8 (a short
+     tail batch): K1 (bulk), K2, K3 f32 and K5 (twice a fused call)
+     launched; at a bbox_thr that makes the per-image counts vary, the
+     fused engine against its host path (boxes 1e-4, scores 1e-5,
+     keypoints 1e-3) and against itself on the plain versions; the
+     quantized bf16 flavor (K3q and K3 int8 -> bf16 launched, kernels vs
+     plain, tied scores counted); the torchvision-parity detector (K5 on
+     3,654 proposal candidates, its shared-memory branch, and K3 on
+     8 x 1000 boxes, each against its plain version on the call's
+     inputs); engine ms per image at B = 1, per batch at B = 8 in turns
+     with phase 4's bare fused call and split into upload, fused program
+     and fetch + unpack; host-path, bf16 and torchvision-parity ms;
   5. drive the pose training path at full width (HRNet-W32 256x192, f32,
      B = 32, Adam lr 1e-3, seeded weights): batches from the device-warp
      collate on seeded 640x640 uint8 canvases with the COCO augmentation
@@ -104,7 +123,8 @@ Phases, each fatal on failure:
      train-mode guard); one eval-decode step's launches and idle share
      likewise, in each layout of the flip combine; one engine training
      iteration (PoseTrainer's loop body: pipeline, step, metric update)
-     likewise, in f32 and in bf16.
+     likewise, in f32 and in bf16; one vase engine call at B = 1 and one
+     at B = 8 likewise.
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -1258,6 +1278,419 @@ def throughput(torch, fused, images, n_valid, iters):
             "ms_per_call": dt / iters * 1e3, "iters": iters}
 
 
+# --------------------------------------------------------------- vase path
+# The qualitative vase engine behind 04_evaluate_vases_qualitatively.py
+# (VaseEvaluator) at full width: phase 4's seeded detector and HRNet-W32
+# saved as a temporary experiment's checkpoints "final", vase images of
+# seeded source sizes letterboxed in memory (the card's machine has no
+# cv2), 04's batch of 1 and the serving batch of B.
+VASE_DETECTOR = "faster_rcnn"
+VASE_PARITY = "faster_rcnn_torchvision_parity"
+VASE_POSE = "w32_256x192"
+VASE_CLI_IMAGES, VASE_BATCH_IMAGES = 11, 13
+VASE_SOURCE = (240, 640)            # source sides before the letterbox
+NMS_REGISTER_CANDIDATES = 3 * 1024  # K5 keeps more in shared memory (nms.cu)
+
+
+def vase_canvas(seed, image_id, S):
+    """A seeded uint8 source image of 240-640 x 240-640 px resized
+    (nearest) to a longest side of S and zero-padded to S x S, in [0, 1]
+    as the vase pipeline gives it; and the resize factor."""
+    rng = np.random.RandomState(seed * 7919 + image_id)
+    h, w = (int(v) for v in rng.randint(VASE_SOURCE[0], VASE_SOURCE[1] + 1,
+                                        2))
+    src = rng.randint(0, 256, (h, w, 3), np.uint8)
+    scale = S / max(h, w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    rows = np.minimum((np.arange(nh) / scale).astype(np.int64), h - 1)
+    cols = np.minimum((np.arange(nw) / scale).astype(np.int64), w - 1)
+    canvas = np.zeros((S, S, 3), np.float32)
+    canvas[:nh, :nw] = src[rows][:, cols] / np.float32(255.0)
+    return canvas, scale
+
+
+@contextlib.contextmanager
+def vase_canvases_in_memory(mods, seed):
+    """Every DetectionDataPipeline reads its records as ``vase_canvas``
+    images from memory, not as JPEG files."""
+    cls = mods["DetectionDataPipeline"]
+    saved = cls._load_one
+
+    def load(self, rec):
+        canvas, scale = vase_canvas(seed, rec.image_id, self.img_size)
+        n = self.max_boxes
+        return (canvas, np.zeros((n, 4), np.float32),
+                np.zeros((n,), np.int32), np.zeros((n,), np.float32),
+                np.float32(scale), np.int64(rec.image_id), np.float32(0.0))
+
+    cls._load_one = load
+    try:
+        yield
+    finally:
+        cls._load_one = saved
+
+
+def vase_folder(root, name, n):
+    """``root``/``name`` holding ``n`` empty image files: the records of
+    the vase pipeline (``vase_canvases_in_memory`` gives their pixels)."""
+    d = os.path.join(root, name)
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        open(os.path.join(d, f"vase_{i:04d}.jpg"), "wb").close()
+    return d
+
+
+def vase_engine(mods, exp_path, data, dev, batch_size=1, **kw):
+    """VaseEvaluator as 04's main builds it, on the experiment's pose and
+    detector checkpoints "final", HRNet VASE_POSE, without drawing."""
+    ev = mods["VaseEvaluator"](exp_path, checkpoint="final",
+                               detector_checkpoint="final",
+                               dataset_name="vases_cli", data_path=data,
+                               save=False, device=dev,
+                               **{"detector_config": VASE_DETECTOR, **kw})
+    ev.load_vase_subset(batch_size=batch_size)
+    ev.setup_models(config_name=VASE_POSE, pretrained=None)
+    return ev
+
+
+@contextlib.contextmanager
+def calls_to(module, name, log):
+    """Append (args, kwargs, output) of every call of ``module.name`` to
+    ``log``."""
+    fn = getattr(module, name)
+
+    def logged(*a, **kw):
+        out = fn(*a, **kw)
+        log.append((a, kw, out))
+        return out
+
+    setattr(module, name, logged)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def result_diffs(got, ref):
+    """Largest differences between two ``process_images`` results, image
+    by image: boxes, scores, keypoint coordinates (crop and image) and
+    keypoint scores; None where the per-image counts differ."""
+    if [len(r["boxes"]) for r in got] != [len(r["boxes"]) for r in ref]:
+        return None
+    d = dict.fromkeys(("boxes", "scores", "crop_xy", "image_xy",
+                       "kpt_scores"), 0.0)
+    for g, r in zip(got, ref):
+        if not len(r["boxes"]):
+            continue
+        pairs = {"boxes": (g["boxes"], r["boxes"]),
+                 "scores": (g["scores"], r["scores"]),
+                 "crop_xy": (g["crop_keypoints"][..., :2],
+                             r["crop_keypoints"][..., :2]),
+                 "image_xy": (g["image_keypoints"][..., :2],
+                              r["image_keypoints"][..., :2]),
+                 "kpt_scores": (
+                     np.concatenate([g["crop_keypoints"][..., 2],
+                                     g["image_keypoints"][..., 2]]),
+                     np.concatenate([r["crop_keypoints"][..., 2],
+                                     r["image_keypoints"][..., 2]]))}
+        for k, (a, b) in pairs.items():
+            d[k] = max(d[k], float(np.abs(np.asarray(a, np.float64) -
+                                          np.asarray(b, np.float64)).max()))
+    return d
+
+
+def results_ok(results, n, J=17):
+    """``n`` results of finite boxes, scores and keypoints of their
+    shapes."""
+    return len(results) == n and all(
+        r["boxes"].shape == (len(r["scores"]), 4)
+        and r["crop_keypoints"].shape == r["image_keypoints"].shape ==
+        (len(r["scores"]), J, 3)
+        and all(np.isfinite(r[k]).all() for k in r) for r in results)
+
+
+def tied_scores(results):
+    """Detections whose score equals an earlier one of the same image."""
+    return sum(len(r["scores"]) - len(np.unique(r["scores"]))
+               for r in results)
+
+
+def host_ms(torch, fn, iters):
+    """Host-clock ms per call of ``fn`` over ``iters`` calls after one
+    warm-up call, synchronised at both ends."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def in_turns(torch, fns, iters, rounds=2):
+    """Host ms per call of each of ``fns`` (label -> function), timed in
+    turns a, b, b, a, ... so that drift falls on each alike."""
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]) * rounds:
+        for k in order:
+            times[k].append(host_ms(torch, fns[k], iters))
+    return {k: float(np.mean(v)) for k, v in times.items()}
+
+
+def engine_split(torch, ev, images, iters):
+    """One engine call at a batch, split on the host clock (synchronised
+    between parts): the upload, the fused program, the fetch + unpack."""
+    f, spec = ev._get_fused(len(images), ev._fused_budget(len(images)))
+    parts = {"upload_ms": 0.0, "fused_program_ms": 0.0,
+             "fetch_unpack_ms": 0.0}
+    with torch.inference_mode():
+        for i in range(iters + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = ev._upload(images)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            buf = f(x)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ev._unpack(buf, spec)
+            t3 = time.perf_counter()
+            if i:                                   # the first is a warm-up
+                for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                    parts[k] += dt * 1e3 / iters
+    return parts
+
+
+def proposal_candidates(cfg):
+    """Candidates of the proposal NMS of ``select_proposals``: each level's
+    top ``pre_nms_top_n_test`` of its h * w * anchors logits."""
+    S, A = cfg.image_size, len(cfg.anchor_ratios)
+    return sum(min(cfg.pre_nms_top_n_test, (-(-S // st)) ** 2 * A)
+               for st in cfg.strides)
+
+
+def vase_path(torch, mods, dev, args, tmp, state):
+    """The qualitative vase engine at full width (phase 4c): phase 4's
+    seeded models saved as the experiment's checkpoints "final" and
+    loaded by VaseEvaluator as 04's main loads them, the pipeline's
+    images from memory, no drawing. Counters set to 0, then 04's traffic
+    (``qualitative_comparison`` over VASE_CLI_IMAGES records at B = 1), a
+    serving batch (``process_images`` on B canvases, B - 1 of them
+    images), VASE_BATCH_IMAGES records at B (a short tail batch): K1
+    (bulk), K2, K3 f32 and K5 (twice a fused call) launched. Then, at a
+    ``bbox_thr`` that makes the per-image counts vary: the fused engine
+    against its host path (boxes 1e-4, scores 1e-5, keypoints 1e-3) and
+    against itself on the plain versions; the quantized bf16 flavor (K3q
+    and K3 int8 -> bf16 launched, kernels against plain versions, tied
+    scores counted); the torchvision-parity detector (K5 on its proposal
+    candidates, in shared memory, and K3 on B x 1000 boxes, each against
+    its plain version on that call's inputs). Times on the host clock,
+    the in-memory pipeline's own ms per image beside 04's.
+    Returns ({path: launches}, summary, profile state)."""
+    det, pose, bare_fused, bare_images, _ = state
+    t0 = time.time()
+    data = os.path.join(tmp, "data")
+    vase_folder(data, "vases_cli", VASE_CLI_IMAGES)
+    vase_folder(data, "vases_batch", VASE_BATCH_IMAGES)
+    exp_path = mods["create_experiment"]("chip_smoke_vase", {},
+                                         root=os.path.join(tmp, "exp"))
+    exp = mods["load_experiment_parameters"](exp_path)
+    mods["save_checkpoint"](mods["create_train_state"](pose, exp), exp_path,
+                            "final")
+    mods["save_checkpoint"](mods["create_train_state"](det, exp), exp_path,
+                            "final", detector=True)
+    paths = {}
+    with vase_canvases_in_memory(mods, args.seed + 40):
+        ev = vase_engine(mods, exp_path, data, dev)
+        S, m = ev.det_cfg.image_size, ev.max_dets
+        canvases = np.stack([vase_canvas(args.seed + 41, i, S)[0]
+                             for i in range(B)])
+        canvases[-1] = 0.0                      # B - 1 images, one empty
+        print(f"vase set-up in {time.time() - t0:.1f} s", flush=True)
+        for b in (1, B, VASE_BATCH_IMAGES % B):           # cuDNN plans
+            ev.process_images(canvases[:b])
+        torch.cuda.synchronize()
+
+        reset_counts(mods)
+        n_cli = ev.qualitative_comparison(limit=VASE_CLI_IMAGES)
+        res8 = ev.process_images(canvases)
+        cli_pipe = ev.pipe
+        ev.pipe = mods["get_vase_subset"](img_size=S,
+                                          dataset_name="vases_batch",
+                                          data_path=data, batch_size=B)
+        n_batch = ev.qualitative_comparison()
+        torch.cuda.synchronize()
+        paths["vase"] = launch_counts(mods)
+        print("vase-path launches:", json.dumps(paths["vase"]))
+        calls = VASE_CLI_IMAGES + 1 + -(-VASE_BATCH_IMAGES // B)
+        if (n_cli, n_batch, len(ev.pipe)) != (
+                VASE_CLI_IMAGES, VASE_BATCH_IMAGES, 2) or \
+                not results_ok(res8, B):
+            fail(f"vase: {n_cli} and {n_batch} images, "
+                 f"{len(ev.pipe)} batches, results_ok "
+                 f"{results_ok(res8, B)}")
+        if min(paths["vase"][k] for k in ("heatmap_peaks", "affine_crop",
+                                          "roi_align")) < 1 or \
+                paths["vase"]["box_nms_topk"] != 2 * calls:
+            fail(f"vase: a kernel of the path was not launched, or K5 not "
+                 f"twice in each of {calls} fused calls: {paths['vase']}")
+        k1_took_bulk(mods, "vase")
+
+        # a threshold at the median of the candidates' scores (each image's
+        # top max_dets person scores of one predict), so counts vary
+        with torch.inference_mode():
+            d = ev.detector.predict(torch.from_numpy(canvases).to(dev))
+        ps = torch.where(d["valid"] & (d["labels"] == 1), d["scores"],
+                         -torch.inf).float()
+        top = ps.topk(m, dim=1).values
+        thr = float(top[top > -torch.inf].median())
+        ev_thr = vase_engine(mods, exp_path, data, dev, bbox_thr=thr)
+        fused = ev_thr.process_images(canvases)
+        host = ev_thr.process_images(canvases, use_fused=False)
+        counts = [len(r["boxes"]) for r in host]
+        vs_host = result_diffs(fused, host)
+        print(f"vase: bbox_thr {thr:.6f}, detections per image {counts}; "
+              f"fused vs host path:", json.dumps(vs_host), flush=True)
+        if len(set(counts)) < 2 or not results_ok(fused, B):
+            fail(f"vase: counts {counts} do not vary")
+        # the JAX package's fused-vs-host tolerances
+        if vs_host is None or not (
+                vs_host["boxes"] <= 1e-4 and vs_host["scores"] <= 1e-5 and
+                max(vs_host["crop_xy"], vs_host["image_xy"],
+                    vs_host["kpt_scores"]) <= 1e-3):
+            fail(f"vase: fused engine disagrees with its host path: "
+                 f"{vs_host}")
+
+        def vs_plain(engine, label):
+            with plain_versions(mods):
+                ref = engine.process_images(canvases)
+            torch.cuda.synchronize()
+            diffs = result_diffs(engine.process_images(canvases), ref)
+            print(f"{label}, kernels vs plain versions:", json.dumps(diffs))
+            # as phase 4: keypoints and boxes 1e-3 px, peaks 1e-4; scores
+            # 1e-5
+            if diffs is None or not (
+                    diffs["boxes"] <= 1e-3 and diffs["scores"] <= 1e-5 and
+                    max(diffs["crop_xy"], diffs["image_xy"]) <= 1e-3 and
+                    diffs["kpt_scores"] <= 1e-4):
+                fail(f"{label} disagrees with its plain-version run: "
+                     f"{diffs}")
+            return diffs
+
+        plain_f32 = vs_plain(ev_thr, "vase f32 engine")
+
+        ev16 = vase_engine(mods, exp_path, data, dev, bbox_thr=thr,
+                           dtype=torch.bfloat16, trunk_quant="folded",
+                           roi_patch_quant=True)
+        ev16.process_images(canvases)
+        torch.cuda.synchronize()
+        reset_counts(mods)
+        out16 = ev16.process_images(canvases)
+        torch.cuda.synchronize()
+        paths["vase_bf16_roi8"] = launch_counts(mods)
+        print("vase bf16 launches:", json.dumps(paths["vase_bf16_roi8"]))
+        if min(paths["vase_bf16_roi8"][k] for k in (
+                "heatmap_peaks", "affine_crop", "quantize_levels",
+                "roi_align_i8_bf16")) < 1 or \
+                paths["vase_bf16_roi8"]["box_nms_topk"] != 2 or \
+                not results_ok(out16, B):
+            fail(f"vase bf16: {paths['vase_bf16_roi8']}")
+        plain_bf16 = vs_plain(ev16, "vase bf16 engine")
+        ties16 = tied_scores(out16)
+
+        evp = vase_engine(mods, exp_path, data, dev, bbox_thr=thr,
+                          detector_config=VASE_PARITY)
+        evp.process_images(canvases)
+        torch.cuda.synchronize()
+        nms_calls, roi_calls = [], []
+        reset_counts(mods)
+        with calls_to(mods["k5"], "box_nms_topk", nms_calls), \
+                calls_to(mods["k3"], "roi_align", roi_calls):
+            outp = evp.process_images(canvases)
+        torch.cuda.synchronize()
+        paths["vase_tv_parity"] = launch_counts(mods)
+        cfg = evp.det_cfg
+        M = proposal_candidates(cfg)
+        shapes = {"nms": [tuple(a[1].shape) for a, _, _ in nms_calls],
+                  "roi_boxes": [tuple(a[1].shape) for a, _, _ in roi_calls]}
+        print("vase torchvision parity:", json.dumps(
+            {"launches": paths["vase_tv_parity"], **shapes}), flush=True)
+        if shapes != {"nms": [(B, M), (B, cfg.post_nms_top_n_test)],
+                      "roi_boxes": [(B, cfg.post_nms_top_n_test, 4)]} or \
+                M <= NMS_REGISTER_CANDIDATES or not results_ok(outp, B):
+            fail(f"vase torchvision parity: {shapes}, M = {M}")
+        k5, k3 = mods["k5"], mods["k3"]
+        parity = {"proposal_candidates": M,
+                  "nms_mismatches": [int((out != k5.box_nms_topk_plain(
+                      *a, **kw)).sum()) for a, kw, out in nms_calls]}
+        (ra, rkw, rout), = roi_calls
+        parity["roi_align_max_abs_err"] = float(
+            (rout - k3.roi_align_plain(*ra, **rkw)).abs().max())
+        print("vase torchvision parity, K5 and K3 vs plain versions:",
+              json.dumps(parity), flush=True)
+        if any(parity["nms_mismatches"]) or \
+                parity["roi_align_max_abs_err"] > 1e-5:
+            fail(f"vase torchvision parity: kernels disagree with their "
+                 f"plain versions on the call's inputs: {parity}")
+        (na, nkw, _), _ = nms_calls
+        parity["k5_proposals_ms"] = elapsed_ms(
+            torch, lambda: k5.box_nms_topk(*na, **nkw), 20)
+        parity["k5_proposals_plain_ms"] = elapsed_ms(
+            torch, lambda: k5.box_nms_topk_plain(*na, **nkw), 2)
+        parity["k3_ms"] = elapsed_ms(torch, lambda: k3.roi_align(*ra, **rkw),
+                                     20)
+        parity["k3_plain_ms"] = elapsed_ms(
+            torch, lambda: k3.roi_align_plain(*ra, **rkw), 2)
+        del nms_calls, roi_calls, na, nkw, ra, rkw, rout
+
+        # times, host clock; 04's traffic at B = 1, then B
+        ev.pipe = cli_pipe
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev.qualitative_comparison(limit=VASE_CLI_IMAGES)
+        torch.cuda.synchronize()
+        b1_ms = (time.perf_counter() - t) * 1e3 / VASE_CLI_IMAGES
+        t = time.perf_counter()
+        n_piped = sum(bt["n_valid"] for bt in cli_pipe)
+        pipe_ms = (time.perf_counter() - t) * 1e3 / n_piped
+        one = canvases[:1]
+        b1_call_ms = host_ms(torch, lambda: ev.process_images(one),
+                             args.iters)
+        turns = in_turns(torch, {
+            "bare_fused_call": lambda: bare_fused(bare_images),
+            "engine": lambda: ev_thr.process_images(canvases)}, args.iters)
+        split = engine_split(torch, ev_thr, canvases, args.iters)
+        turns_host = in_turns(torch, {
+            "engine": lambda: ev_thr.process_images(canvases),
+            "host_path": lambda: ev_thr.process_images(canvases,
+                                                       use_fused=False)},
+            args.iters, rounds=1)
+        bf16_ms = host_ms(torch, lambda: ev16.process_images(canvases),
+                          args.iters)
+        parity_ms = host_ms(torch, lambda: evp.process_images(canvases),
+                            args.iters)
+    summary = {
+        "batch": B, "max_dets": m, "budget": ev_thr._fused_budget(B),
+        "cli_images": VASE_CLI_IMAGES, "batch_images": VASE_BATCH_IMAGES,
+        "fused_calls": calls, "bbox_thr": thr, "counts": counts,
+        "engine_b1_ms_per_image": b1_ms, "engine_b1_ms_per_call": b1_call_ms,
+        "pipeline_b1_ms_per_image": pipe_ms,
+        "engine_b8_ms": turns["engine"],
+        "bare_fused_call_b8_ms": turns["bare_fused_call"],
+        "engine_over_bare": turns["engine"] / turns["bare_fused_call"],
+        "engine_b8_split": split,
+        "host_path_b8_ms": turns_host["host_path"],
+        "engine_b8_ms_beside_host_path": turns_host["engine"],
+        "bf16_engine_b8_ms": bf16_ms, "bf16_tied_scores": ties16,
+        "tv_parity_b8_ms": parity_ms, "tv_parity": parity,
+        "fused_vs_host": vs_host, "kernels_vs_plain_f32": plain_f32,
+        "kernels_vs_plain_bf16": plain_bf16}
+    print("vase:", json.dumps(summary), flush=True)
+    del ev16, evp
+    return paths, summary, (ev, ev_thr, canvases, b1_call_ms,
+                            turns["engine"])
+
+
 def train_path(torch, mods, dev, args):
     """Pose training at full width: seeded HRNet-W32, Adam, batches from
     the device-warp collate (host samples made first, as the decode
@@ -2260,13 +2693,17 @@ def main():
     import importlib
     from stlpose_tpu_torch.config import (CONFIG, IMAGENET_STD,
                                           FasterRCNNConfig, get_hrnet_config)
+    from stlpose_tpu_torch.data.detection_dataset import \
+        DetectionDataPipeline
+    from stlpose_tpu_torch.data.loaders import get_vase_subset
     from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
     from stlpose_tpu_torch.data.pose_dataset import (AugmentationParams,
                                                      PoseRecord, _xywh_to_cs)
     from stlpose_tpu_torch.engines.evaluator import (PoseEvaluator,
                                                      device_batch)
     from stlpose_tpu_torch.engines.trainer import PoseTrainer
-    from stlpose_tpu_torch.engines.vase_evaluator import build_fused_two_stage
+    from stlpose_tpu_torch.engines.vase_evaluator import (
+        VaseEvaluator, build_fused_two_stage)
     from stlpose_tpu_torch.eval.submission import (compute_precision,
                                                    generate_submission)
     from stlpose_tpu_torch.kernels import _build
@@ -2355,7 +2792,9 @@ def main():
                 IMAGENET_STD=IMAGENET_STD, CONFIG=CONFIG,
                 PoseTrainer=PoseTrainer, scripts=scripts,
                 save_experiment_parameters=save_experiment_parameters,
-                checkpoint_path=checkpoint_path)
+                checkpoint_path=checkpoint_path, VaseEvaluator=VaseEvaluator,
+                DetectionDataPipeline=DetectionDataPipeline,
+                get_vase_subset=get_vase_subset)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
     checks = [check_decode(torch, k1, dev, rng),
               check_warp(torch, k2, affine, affine_warp, dev, rng)]
@@ -2374,6 +2813,10 @@ def main():
     launches, tput, state = main_path(torch, mods, dev, args)
     stages = stage_times(torch, mods, state)
     q_launches, quant, q_state = quant_path(torch, mods, dev, args)
+    with tempfile.TemporaryDirectory() as tmp:
+        vase_launches, vase, vase_state = vase_path(torch, mods, dev, args,
+                                                    tmp, state)
+    vase["card"] = card
     train_launches, train, train_forms = train_path(torch, mods, dev, args)
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches, evaluation, eval_state = eval_path(torch, mods, dev,
@@ -2389,6 +2832,7 @@ def main():
         device_times(torch, k, fns)
         by_path = {"serving": launches[k["name"]],
                    "serving_bf16_roi8": q_launches[k["name"]],
+                   **{p: n[k["name"]] for p, n in vase_launches.items()},
                    "training": train_launches[k["name"]],
                    "eval": eval_launches[k["name"]],
                    "trainer": trainer_launches[k["name"]]}
@@ -2425,6 +2869,16 @@ def main():
                                 engine_ms, args.out, "one engine training "
                                 f"iteration (PoseTrainer, B = 32, {dtype})")
 
+    ev1, ev8, vase_images, b1_ms, b8_ms = vase_state
+    for label, engine, images, ms in (
+            ("B = 1", ev1, vase_images[:1], b1_ms),
+            (f"B = {B}", ev8, vase_images, b8_ms)):
+        vase["profile_b1" if images.shape[0] == 1 else "profile_b8"] = \
+            profile_program(torch, lambda e=engine, x=images:
+                            e.process_images(x), ms, args.out,
+                            f"one vase engine call ({label}, VaseEvaluator)")
+    del ev1, ev8
+
     fns, devb, forms = eval_state
     for form, fn in fns.items():
         evaluation["profile" if form == "nhwc_view" else
@@ -2435,7 +2889,8 @@ def main():
     print(card)
     print(json.dumps({"kernels": kernels, "end_to_end": tput,
                       "stages_ms": stages, "profile": prof,
-                      "serving_bf16_roi8": quant, "training": train,
+                      "serving_bf16_roi8": quant, "vase": vase,
+                      "training": train,
                       "eval": evaluation, "trainer": trainer}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

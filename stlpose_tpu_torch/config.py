@@ -165,6 +165,13 @@ class FasterRCNNConfig:
     detections_per_img: int = 64
 
 
+# torchvision's fasterrcnn_resnet50_fpn test-time budgets (pre/post NMS
+# 1000/1000, 100 detections an image), for AP-parity evaluation; the
+# default above keeps the tighter serving budgets
+FASTER_RCNN_TORCHVISION_PARITY = FasterRCNNConfig(
+    pre_nms_top_n_test=1000, post_nms_top_n_test=1000,
+    detections_per_img=100)
+
 FASTER_RCNN_TINY = FasterRCNNConfig(
     stage_sizes=(1, 1, 1, 1), width=8, fpn_channels=32, image_size=128,
     pre_nms_top_n_test=64, post_nms_top_n_test=32, detections_per_img=8)

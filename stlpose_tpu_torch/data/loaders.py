@@ -8,7 +8,9 @@ and path layout: ``coco`` (GT boxes, or the person detector's boxes when
 records, split by ``<dict_path>/arch_data_det_splits.json`` when it
 exists) and ``combined`` (both). The pipelines crop on the device or on
 the host as ``dataset.device_warp`` says. ``dataset.inline_style`` is
-refused: the AdaIN stylizer comes with ROADMAP Queue 1 item 4.
+refused: the AdaIN stylizer comes with ROADMAP Queue 1 item 4. Also
+``get_vase_subset``, the image-folder pipeline of the qualitative vase
+evaluation.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import json
 import os
 
 from stlpose_tpu_torch.config import CONFIG
+from stlpose_tpu_torch.data import detection_dataset as dd
 from stlpose_tpu_torch.data import pose_dataset as pd
 from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
 
@@ -128,3 +131,22 @@ def load_dataset(exp_data: dict, train: bool = True, validation: bool = True,
             num_workers=nw, pad_multiple=pad_multiple, device_warp=dw,
             device=device)
     return train_pipe, valid_pipe
+
+
+def get_vase_subset(img_size: int = 400, dataset_name: str | None = None,
+                    data_path: str | None = None, batch_size: int = 1,
+                    num_workers: int | None = None):
+    """The loose vase-image pipeline of the qualitative two-stage
+    evaluation: the images of ``<data>/ccoimages_final``, or of
+    ``<data>/<dataset_name>`` (red_black, open_subset, ...), falling back
+    to ``<data>/class_arch_data/<dataset_name>`` when that is no
+    directory."""
+    data_path = data_path or CONFIG["paths"]["data_path"]
+    sub = dataset_name or "ccoimages_final"
+    d = os.path.join(data_path, sub)
+    if not os.path.isdir(d) and dataset_name:
+        d = os.path.join(data_path, "class_arch_data", dataset_name)
+    recs = dd.list_directory_records(d)
+    nw = num_workers if num_workers is not None else CONFIG["num_workers"]
+    return dd.DetectionDataPipeline(recs, batch_size, img_size=img_size,
+                                    num_workers=nw)

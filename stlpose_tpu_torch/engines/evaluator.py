@@ -28,6 +28,8 @@ from stlpose_tpu_torch.data.loaders import load_dataset
 from stlpose_tpu_torch.eval.submission import (compute_precision,
                                                generate_submission)
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
+from stlpose_tpu_torch.ops.affine import get_affine_matrix_np
+from stlpose_tpu_torch.ops.pose_entries import unnormalize
 from stlpose_tpu_torch.parallel.steps import (MetricAccumulator,
                                               make_eval_decode_step)
 from stlpose_tpu_torch.train.state import create_train_state
@@ -37,6 +39,7 @@ from stlpose_tpu_torch.utils.experiment import (load_experiment_parameters,
                                                 reset_predictions_file,
                                                 save_evaluation_stats)
 from stlpose_tpu_torch.utils.logger import print_
+from stlpose_tpu_torch.utils.visualization import draw_pose
 
 
 def records_to_coco_gt(records):
@@ -82,11 +85,8 @@ class PoseEvaluator:
     def __init__(self, exp_path: str, checkpoint=None, dataset_name=None,
                  data_path=None, num_workers=None, flip: bool = True,
                  save_results: bool = True, save_visualizations: bool = False,
-                 dtype=torch.float32, device="cuda"):
-        if save_visualizations:
-            raise NotImplementedError(
-                "save_visualizations: utils/visualization.py is not ported "
-                "yet; it comes with VaseEvaluator (ROADMAP Queue 1 item 3)")
+                 max_visualizations: int = 16, dtype=torch.float32,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.exp_path = exp_path
         self.exp_data = load_experiment_parameters(exp_path)
@@ -97,6 +97,9 @@ class PoseEvaluator:
         self.num_workers = num_workers
         self.flip = flip
         self.save_results = save_results
+        self.save_visualizations = save_visualizations
+        self.max_visualizations = max_visualizations
+        self._n_vis = 0
         self.dtype = dtype
         self.preds_file = os.path.join(exp_path,
                                        CONFIG["paths"]["submission"])
@@ -177,6 +180,9 @@ class PoseEvaluator:
         all_preds, all_boxes, image_ids = self._pending_host
         n = batch["n_valid"]
         preds = preds_dev[:n].cpu().numpy()
+        if self.save_visualizations and \
+                self._n_vis < self.max_visualizations:
+            self._dump_visualizations(batch, preds)
         center, scale = batch["center"][:n], batch["scale"][:n]
         area = np.prod(scale * 200.0, axis=1)
         all_preds.append(preds)
@@ -185,6 +191,27 @@ class PoseEvaluator:
         image_ids.extend(batch["image_id"][:n].tolist())
         if len(image_ids) >= self._write_every:
             self._flush()
+
+    def _dump_visualizations(self, batch, preds):
+        """The predicted skeletons drawn over the un-normalised input crops
+        (``plots/eval_examples/eval_<image_id>_<i>.png``), until
+        ``max_visualizations`` crops are drawn."""
+        out_dir = os.path.join(self.exp_path, "plots", "eval_examples")
+        os.makedirs(out_dir, exist_ok=True)
+        n = min(len(preds), self.max_visualizations - self._n_vis)
+        imgs = batch["image"][:n].float().cpu().numpy()
+        for i in range(n):
+            # image-space predictions into the crop
+            mat = get_affine_matrix_np(batch["center"][i],
+                                       batch["scale"][i], 0.0, (192, 256))
+            pts = np.concatenate([preds[i, :, :2],
+                                  np.ones((preds.shape[1], 1))], 1) @ mat.T
+            pose = np.concatenate([pts, preds[i, :, 2:3]], axis=1)
+            draw_pose(unnormalize(imgs[i]), pose,
+                      savepath=os.path.join(
+                          out_dir,
+                          f"eval_{int(batch['image_id'][i])}_{i}.png"))
+            self._n_vis += 1
 
     def _flush(self):
         all_preds, all_boxes, image_ids = self._pending_host

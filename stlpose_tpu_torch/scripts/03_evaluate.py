@@ -2,13 +2,14 @@
 """HRNet COCO evaluation.
 
     python stlpose_tpu_torch/scripts/03_evaluate.py -d EXP [--checkpoint N|final]
-        [--flip true] [--data_path DIR] [--device cuda|cpu]
+        [--flip true] [--save true] [--data_path DIR] [--device cuda|cpu]
 
 Counterpart of ``scripts/03_evaluate.py``: ``PoseEvaluator`` over the
 experiment's validation set (flip-TTA unless ``--flip false``), the
 submission file, COCO keypoint AP and the stats JSON keyed by checkpoint.
-``--save true`` (visualisations) raises ``NotImplementedError`` until
-``utils/visualization.py`` is ported. Environment as for ``02_train.py``.
+``--save true`` also draws the first 16 crops with their predicted
+skeletons under ``plots/eval_examples`` (needs matplotlib). Environment
+as for ``02_train.py``.
 """
 
 import os

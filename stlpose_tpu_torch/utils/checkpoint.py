@@ -7,7 +7,9 @@ BatchNorm statistics), the optimizer's (moments and learning rate) and
 the step, as ``<name>.pt``, beside a ``<name>.meta.json`` with the epoch,
 the learning rate and the scheduler's state. Loading has the reference's
 three modes: full resume, weights only, and weights with the head left
-at the template's (transfer to another keypoint or class count).
+at the template's (transfer to another keypoint or class count). A
+detector checkpoint loads weights-only into a detector of any serving
+flavor (``load_detector_checkpoint``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from stlpose_tpu_torch.models.convert import (load_strict,
                                               load_torch_statedict,
                                               torch_statedict_to_port)
+from stlpose_tpu_torch.models.quantize import apply_trunk_flavor
 from stlpose_tpu_torch.train.optim import get_current_lr, set_current_lr
 from stlpose_tpu_torch.train.state import PoseTrainState
 
@@ -96,6 +99,22 @@ def load_checkpoint(template_state: PoseTrainState, exp_path: str, epoch,
         scheduler.load_state_dict(meta["scheduler"])
     ep = meta.get("epoch", 0)
     return template_state, (0 if ep == "final" else int(ep))
+
+
+def load_detector_checkpoint(detector, exp_path: str, epoch):
+    """Load a detector checkpoint's weights into ``detector`` in place.
+
+    The file holds a live-BatchNorm detector's f32 state dict; for a
+    detector built with ``trunk_quant="folded"`` it is folded first
+    (``models/quantize.py::apply_trunk_flavor``), then every entry is
+    loaded strictly, rounded to the detector's dtype on the way in. Only
+    the weights are read; the file's optimizer state is left."""
+    path = checkpoint_path(exp_path, epoch, detector=True)
+    blob = torch.load(path + ".pt", map_location="cpu", weights_only=True)
+    sd = {k: v for k, v in blob["model_state_dict"].items()
+          if not k.endswith("num_batches_tracked")}
+    return load_strict(detector, apply_trunk_flavor(sd,
+                                                    detector.trunk_quant))
 
 
 def list_checkpoints(exp_path: str, detector: bool = False):

@@ -227,7 +227,8 @@ def test_archdata_records_match_jax(tmp_path, monkeypatch, name):
 
 def test_cli_chain_on_the_cpu(tmp_path, monkeypatch, capsys):
     """01 -> 02 (two epochs, host warp with rotation, the first train
-    epoch traced) -> resume -> 03, in-process, on the CPU."""
+    epoch traced) -> resume -> 03 (with ``--save true``: the evaluated
+    crops drawn), in-process, on the CPU."""
     data = str(tmp_path / "data")
     make_coco_dataset(data, n_train=4, n_val=2)
     monkeypatch.setitem(CONFIG["paths"], "experiments_path",
@@ -259,11 +260,13 @@ def test_cli_chain_on_the_cpu(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("STLPOSE_DTYPE", "bfloat16")
     evaluate = _script("03_evaluate")
     stats = evaluate.main(["-d", exp_path, "--data_path", data, "--device",
-                           "cpu", "--checkpoint", "final"])
+                           "cpu", "--checkpoint", "final", "--save", "true"])
     assert stats.shape == (10,) and np.isfinite(stats).all()
     with open(os.path.join(exp_path, "evaluation_stats_coco_styles_"
                            "redblack_alpha_0.5.json")) as f:
         assert list(json.load(f)) == ["final"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        evaluate.main(["-d", exp_path, "--device", "cpu", "--save", "true"])
+    examples = os.path.join(exp_path, "plots", "eval_examples")
+    assert len(os.listdir(examples)) == 4 and all(
+        f.startswith("eval_") and f.endswith(".png")
+        for f in os.listdir(examples))
     capsys.readouterr()

@@ -145,15 +145,29 @@ def test_pose_evaluator_matches_jax(tmp_path, capsys):
     assert ev.valid_acc == pytest.approx(runs["jax"][3].valid_acc, abs=1e-6)
 
 
-def test_engine_refuses_what_is_not_ported(tmp_path, monkeypatch):
+def test_engine_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """The inline stylizer is refused; ``save_visualizations=True`` draws
+    the first ``max_visualizations`` crops under plots/eval_examples; no
+    engine without a card unless the CPU is asked for."""
     exp = load_experiment_parameters(_exp(tmp_path, "refuse"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         load_dataset({**exp, "dataset": {**exp["dataset"],
                                          "inline_style": {"style_dir": "/s"}}},
                      train=False, device="cpu")
-    exp_path = _exp(tmp_path, "refuse2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        PoseEvaluator(exp_path, save_visualizations=True, device="cpu")
+    exp_path = _exp(tmp_path, "refuse2", batch_size=2)
+    data = tmp_path / "data"
+    make_coco_dataset(str(data), n_train=1, n_val=2)
+    ev = PoseEvaluator(exp_path, data_path=str(data), num_workers=2,
+                       save_visualizations=True, max_visualizations=3,
+                       device="cpu")
+    ev.setup_model_dataset(config_name="tiny", pretrained=None)
+    ev.evaluate_model()
+    capsys.readouterr()
+    assert len(ev.valid_pipe.records) == 4
+    assert sorted(os.listdir(os.path.join(exp_path, "plots",
+                                          "eval_examples"))) == sorted(
+        f"eval_{int(r.image_id)}_{i % 2}.png"
+        for i, r in enumerate(ev.valid_pipe.records[:3]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PoseEvaluator(exp_path)
