@@ -107,6 +107,25 @@ Phases, each fatal on failure:
      moments and checkpoint f32); 03 on "final" with flip-TTA (10 finite
      stats); the engine's ms per iteration against the training path's
      bare loop, the validation epoch's ms, the bf16 ms per iteration;
+  5d. style transfer (the VGG16 perceptual loss, the AdaIN stylizer inline
+     in both pipelines and the three aux scripts' stages), seeded
+     weights, f32: the stylizer at B = 32 on 256x192 crops from a bank of
+     16 seeded exemplars (alpha 0.8 and a per-sample alpha vector) and on
+     the preload's 512x512 canvases (finite, in [0, 1], alpha 0 apart
+     from alpha 1, a second call equal, the same weights on the CPU at
+     B = 2 within STYLE_CPU_TOL); the perceptual loss (VGG16 to relu4_3)
+     at B = 64 on 224x224 (identical inputs 0, a small corruption below a
+     large one, the CPU within LOSS_CPU_REL_TOL); train_adain_decoder at
+     B = 8 on 256x256 (recon_weight 1, 10 steps, the loss falls); the
+     detection pipeline's stylizer through get_detection_dataset at
+     400x400, B = 8 (canvases changed; boxes, labels and masks equal the
+     unstylized batch's); then the style CLI in-process: 01 with
+     --inline_style_dir and --inline_style_alpha 0.8 -> 02 (HRNet-W32,
+     B = 32, Styled-COCO with perceptual weighting, host warp, the crops
+     and exemplars from memory, one epoch of 4 batches; counters set to 0
+     first: K1 launched, K4 not; the train pipeline stylized, validation
+     not) -> 03 on "final" (10 finite stats); the stylizer's ms per batch
+     beside the collate's and the step's;
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
      same function, over 20 repeats with the inputs warm in L2, and for
@@ -124,7 +143,8 @@ Phases, each fatal on failure:
      likewise, in each layout of the flip combine; one engine training
      iteration (PoseTrainer's loop body: pipeline, step, metric update)
      likewise, in f32 and in bf16; one vase engine call at B = 1 and one
-     at B = 8 likewise.
+     at B = 8 likewise; one stylizer call at B = 32 on 256x192 crops and
+     one style engine iteration (host warp, crops stylized) likewise.
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -2187,17 +2207,19 @@ ENGINE_CONFIG = "w32_256x192"
 STYLES, ALPHA = "redblack", "0.5"
 
 
-def engine_dataset(root, dict_root, seed):
+def engine_dataset(root, dict_root, seed, n_train=ENGINE_TRAIN_IMAGES,
+                   n_valid=ENGINE_VALID_IMAGES):
     """The Styled-COCO layout from ``seed``: the train and val keypoint
-    files (``coco_people``), the styled-name mapping dicts, and the
-    per-image perceptual losses (uniform in 0.1-2.5) under ``dict_root``.
-    Returns {image_id: uint8 canvas}, train and valid."""
+    files of ``n_train`` and ``n_valid`` images (``coco_people``), the
+    styled-name mapping dicts, and the per-image perceptual losses
+    (uniform in 0.1-2.5) under ``dict_root``. Returns {image_id: uint8
+    canvas}, train and valid."""
     rng = np.random.RandomState(seed)
     canvases, ploss = {}, {}
     os.makedirs(os.path.join(root, "mapping_dicts"), exist_ok=True)
     for split, mapping, ids in (
-            ("train", "train", range(1, ENGINE_TRAIN_IMAGES + 1)),
-            ("val", "valid", range(1001, 1001 + ENGINE_VALID_IMAGES))):
+            ("train", "train", range(1, n_train + 1)),
+            ("val", "valid", range(1001, 1001 + n_valid))):
         images, anns, cv = coco_people(rng, list(ids))
         write_keypoints_file(root, split, images, anns)
         canvases.update(cv)
@@ -2291,18 +2313,19 @@ def epoch_clock(torch, trainer_cls, times):
             setattr(trainer_cls, n, fn)
 
 
-def new_experiment(mods, name, epochs, model):
-    """01_create_experiment with the CLI's flags for the trainer phase,
-    then ``dataset.device_warp`` set (host warp needs cv2) and the seeded
-    weights saved as the experiment's checkpoint "seed"."""
+def new_experiment(mods, name, epochs, model, device_warp=True, flags=()):
+    """01_create_experiment with the CLI's flags for the trainer phase and
+    ``flags``, then ``dataset.device_warp`` set as asked (True for the
+    trainer phase, whose crops then need no cv2) and the seeded weights
+    saved as the experiment's checkpoint "seed"."""
     exp_path = mods["scripts"]["01_create_experiment"].main(
         ["-d", name, "--dataset_name", "styled_coco", "--styles", STYLES,
          "--alpha", ALPHA, "--batch_size", str(TRAIN_B), "--num_epochs",
          str(epochs), "--save_frequency", "1"] +
         [a for k, v in AUG["dataset"].items()
-         for a in (f"--{k}", str(v).lower())])
+         for a in (f"--{k}", str(v).lower())] + list(flags))
     exp = mods["load_experiment_parameters"](exp_path)
-    exp["dataset"]["device_warp"] = True
+    exp["dataset"]["device_warp"] = device_warp
     mods["save_experiment_parameters"](exp_path, exp)
     mods["save_checkpoint"](mods["create_train_state"](model, exp),
                             exp_path, "seed")
@@ -2522,6 +2545,628 @@ def trainer_path(torch, mods, dev, args, tmp, bare_ms):
         "bf16": (tr16, summary["bf16_steptimer_ms_per_iteration"])})
 
 
+# --------------------------------------------------------------- style path
+# Style transfer: the shapes of the three aux scripts (the preload's 512 x
+# 512 canvases at its batch of 32, the perceptual loss at its batch of 64
+# on 224 x 224, the decoder trainer at its batch of 8 on 256 x 256), the
+# detection pipeline's 400 x 400 canvases at B = 8, and the style CLI at
+# the trainer phase's width: 4 train batches of 32 (64 images, two people
+# each) and one validation batch
+STYLE_BANK, STYLE_ALPHA = 16, 0.8
+STYLE_CROP, PRELOAD_SIDE = (256, 192), 512
+PERCEPTUAL_B, PERCEPTUAL_SIDE = 64, 224
+DECODER_B, DECODER_SIDE, DECODER_STEPS = 8, 256, 10
+DETECTION_B, DETECTION_SIDE = 8, 400
+STYLE_TRAIN_IMAGES, STYLE_VALID_IMAGES = 64, 16
+# the card against the CPU on the same weights and inputs, f32 with TF32
+# off: ~25 chained 3x3 convolutions summed in other orders (two CPU
+# libraries differ by 1e-5 on [0, 1] images:
+# tests/test_torch_style_transfer.py)
+STYLE_CPU_TOL, LOSS_CPU_REL_TOL = 2e-4, 1e-4
+# alpha 0 against alpha 1 on ``style_weights`` and the tinted bank: ~0.19
+# apart at most at 256 x 192 and at 512 x 512 on the CPU (B = 2); a
+# quarter of that is the floor
+STYLE_ALPHA_FLOOR = 0.05
+
+
+def style_bank(seed, hw):
+    """STYLE_BANK seeded exemplars of (H, W) = hw in [0, 1] (what
+    ``read_style_bank`` reads from a folder of images), each with a tint
+    and a contrast of its own: AdaIN moves content towards moments that
+    differ from uniform noise's."""
+    rng = np.random.RandomState(seed + hw[0] * 7 + hw[1])
+    tint = rng.uniform(0.1, 0.9, (STYLE_BANK, 1, 1, 3))
+    contrast = rng.uniform(0.05, 0.5, (STYLE_BANK, 1, 1, 1))
+    noise = rng.rand(STYLE_BANK, hw[0], hw[1], 3) - 0.5
+    return np.clip(tint + contrast * noise, 0.0, 1.0).astype(np.float32)
+
+
+def style_weights(seed, n_convs=10):
+    """Seeded VGG16 (convs 0..n_convs - 1, He-scaled) and AdaIN decoder
+    (variance 1/fan_in) weights in the JAX package's Flax layout (HWIO
+    kernels, biases of std 0.05), made with numpy. The default init's
+    stylizer makes images of std 0.03 that alpha barely moves; these make
+    alpha 0 and 1 differ by ~0.2 on the tinted bank."""
+    from stlpose_tpu_torch.models.adain import AdaINDecoder
+    from stlpose_tpu_torch.models.vgg import VGG16_CHANNELS
+    rng = np.random.RandomState(seed)
+
+    def conv(cin, cout, gain):
+        return {"kernel": (rng.randn(3, 3, cin, cout) *
+                           np.sqrt(gain / (9 * cin))).astype(np.float32),
+                "bias": (rng.randn(cout) * 0.05).astype(np.float32)}
+
+    enc, cin = {}, 3
+    for i in range(n_convs):
+        enc[f"conv{i}"] = conv(cin, VGG16_CHANNELS[i], 2.0)
+        cin = VGG16_CHANNELS[i]
+    dec = {f"dec{i}": conv(cin, cout, 1.0)
+           for i, (cin, cout) in enumerate(AdaINDecoder._CHANNELS)}
+    return enc, dec
+
+
+def seeded_stylizer(mods, dev, enc, dec):
+    """``AdaINStylizer`` on ``dev`` holding ``style_weights``' encoder (to
+    relu3_3) and decoder, through the port's converters."""
+    taps = mods["AdaINStylizer"].ENC_TAPS
+    convert = mods["convert"]
+    return mods["AdaINStylizer"](
+        convert.vgg_from_jax({"params": {f"conv{i}": enc[f"conv{i}"]
+                                         for i in range(max(taps) + 1)}},
+                             taps, dev),
+        convert.adain_decoder_from_jax({"params": dec}, dev), device=dev)
+
+
+@contextlib.contextmanager
+def style_bank_in_memory(mods, seed):
+    """``build_inline_stylizer`` reads ``style_bank`` (the card's machine
+    has no cv2 to read exemplar files)."""
+    adain = mods["adain"]
+    saved = adain.read_style_bank
+    adain.read_style_bank = lambda style_dir, crop_hw: style_bank(seed,
+                                                                   crop_hw)
+    try:
+        yield
+    finally:
+        adain.read_style_bank = saved
+
+
+@contextlib.contextmanager
+def crops_in_memory(mods):
+    """Every host-warp PoseDataPipeline takes seeded 256 x 192 crops in
+    place of ``process_sample``'s (cv2.warpAffine): integer-valued f32
+    pixels, joints inside the crop where visible, and the record's
+    metadata."""
+    cls = mods["PoseDataPipeline"]
+    saved = cls._load_one
+
+    def load(self, rec):
+        rng = np.random.RandomState([int(rec.image_id),
+                                     int(rec.center[0] * 16) % 2 ** 31])
+        h, w = STYLE_CROP
+        vis = rec.joints_vis.astype(np.float32)
+        joints = (np.stack([rng.uniform(0, w - 1, len(vis)),
+                            rng.uniform(0, h - 1, len(vis))], -1)
+                  * (vis[:, None] > 0)).astype(np.float32)
+        meta = {"center": rec.center.astype(np.float32),
+                "scale": rec.scale.astype(np.float32),
+                "rotation": np.float32(0.0), "score": np.float32(rec.score),
+                "image_id": np.int64(rec.image_id),
+                "perceptual_loss": np.float32(rec.perceptual_loss)}
+        return (rng.randint(0, 256, (h, w, 3)).astype(np.float32), joints,
+                vis, meta)
+
+    cls._load_one = load
+    try:
+        yield
+    finally:
+        cls._load_one = saved
+
+
+@contextlib.contextmanager
+def detection_canvases_in_memory(mods, canvases):
+    """Every DetectionDataPipeline letterboxes the decoded square images
+    ``canvases`` ({image_id: uint8}) from memory (nearest resize; no cv2),
+    boxes scaled and padded as ``_load_one`` does."""
+    cls = mods["DetectionDataPipeline"]
+    saved = cls._load_one
+
+    def load(self, rec):
+        img = canvases[rec.image_id]
+        S = self.img_size
+        scale = S / max(img.shape[:2])
+        idx = np.minimum((np.arange(S) / scale).astype(np.int64),
+                         img.shape[0] - 1)
+        k = min(len(rec.boxes), self.max_boxes)
+        boxes = np.zeros((self.max_boxes, 4), np.float32)
+        labels = np.zeros((self.max_boxes,), np.int32)
+        mask = np.zeros((self.max_boxes,), np.float32)
+        boxes[:k] = rec.boxes[:k] * scale
+        labels[:k] = rec.labels[:k]
+        mask[:k] = 1.0
+        return (img[idx][:, idx].astype(np.float32) / np.float32(255.0),
+                boxes, labels, mask, np.float32(scale),
+                np.int64(rec.image_id), np.float32(rec.perceptual_loss))
+
+    cls._load_one = load
+    try:
+        yield
+    finally:
+        cls._load_one = saved
+
+
+@contextlib.contextmanager
+def stylizer_clock(torch, cls, times):
+    """CUDA-event ms of every call of any ``cls`` (the stylizer), input
+    conversion included, appended to ``times``."""
+    saved = cls.__call__
+
+    def timed(self, *a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = saved(self, *a, **kw)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        return out
+
+    cls.__call__ = timed
+    try:
+        yield
+    finally:
+        cls.__call__ = saved
+
+
+def on_cpu(torch, mods, stylizer):
+    """The same stylizer weights on the CPU."""
+    import copy
+    return mods["AdaINStylizer"](copy.deepcopy(stylizer.encoder).cpu(),
+                                 copy.deepcopy(stylizer.decoder).cpu(),
+                                 device="cpu")
+
+
+def check_stylizer(torch, mods, dev, seed):
+    """The stylizer on ``style_weights`` at B = TRAIN_B on 256 x 192
+    crops from the bank with alpha STYLE_ALPHA and with a per-sample alpha
+    vector, then on the preload's PRELOAD_SIDE canvases: finite, in
+    [0, 1], alpha 0 more than STYLE_ALPHA_FLOOR from alpha 1 somewhere, a
+    second call equal; the same weights on the CPU at B = 2 within
+    STYLE_CPU_TOL; CUDA-event ms, at the crops also with cuDNN's benchmark
+    mode (its own algorithm search) in place of its heuristics.
+    Returns (summary, stylizer, the timed call at the crops' shape)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    stylizer = seeded_stylizer(mods, dev, *style_weights(seed))
+    out = {}
+    for label, (h, w) in (("crops", STYLE_CROP),
+                          ("preload", (PRELOAD_SIDE, PRELOAD_SIDE))):
+        content = torch.rand((TRAIN_B, h, w, 3), generator=g).to(dev)
+        bank = torch.from_numpy(style_bank(seed, (h, w))).to(dev)
+        style = bank[torch.randint(0, STYLE_BANK, (TRAIN_B,),
+                                   generator=g).to(dev)]
+        alphas = {"scalar": STYLE_ALPHA,
+                  "vector": torch.rand(TRAIN_B, generator=g).to(dev),
+                  "zero": 0.0, "one": 1.0}
+        res = {k: stylizer(content, style, a) for k, a in alphas.items()}
+        again = stylizer(content, style, STYLE_ALPHA)
+        torch.cuda.synchronize()
+        for k, y in res.items():
+            if tuple(y.shape) != (TRAIN_B, h, w, 3) or \
+                    not bool(torch.isfinite(y).all()) or \
+                    float(y.min()) < 0.0 or float(y.max()) > 1.0:
+                fail(f"stylizer ({label}, alpha {k}): shape "
+                     f"{tuple(y.shape)} or values outside [0, 1]")
+
+        def call(content=content, style=style):
+            return stylizer(content, style, STYLE_ALPHA)
+
+        rec = {"alpha0_vs_alpha1_max_abs": float(
+                   (res["zero"] - res["one"]).abs().max()),
+               "repeat_equal": bool(torch.equal(again, res["scalar"])),
+               "ms": elapsed_ms(torch, call, 5),
+               "output_std": float(res["scalar"].std())}
+        if rec["alpha0_vs_alpha1_max_abs"] <= STYLE_ALPHA_FLOOR or \
+                not rec["repeat_equal"]:
+            fail(f"stylizer ({label}): {rec}")
+        if label == "crops":
+            ref = on_cpu(torch, mods, stylizer)(
+                content[:2].cpu(), style[:2].cpu(),
+                alphas["vector"][:2].cpu())
+            rec["cpu_max_abs_err"] = float(
+                (res["vector"][:2].cpu() - ref).abs().max())
+            if not rec["cpu_max_abs_err"] <= STYLE_CPU_TOL:
+                fail(f"stylizer: card vs CPU {rec['cpu_max_abs_err']} > "
+                     f"{STYLE_CPU_TOL}")
+            torch.backends.cudnn.benchmark = True
+            try:
+                rec["ms_cudnn_benchmark"] = elapsed_ms(torch, call, 5)
+            finally:
+                torch.backends.cudnn.benchmark = False
+            crops_call = (call, rec["ms"])
+        out[label] = rec
+    return out, stylizer, crops_call
+
+
+def check_perceptual(torch, mods, dev, seed):
+    """The perceptual loss (VGG16 to relu4_3) at B = PERCEPTUAL_B on
+    224 x 224, as the offline script calls it: identical inputs give 0, a
+    small corruption scores below a large one, the CPU agrees at B = 2
+    within LOSS_CPU_REL_TOL; CUDA-event ms."""
+    import copy
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    vgg_mod = mods["vgg"]
+    vgg = vgg_mod.VGG16Features(device=dev, generator=g)
+    fn = vgg_mod.make_perceptual_loss_fn(vgg)
+    s = PERCEPTUAL_SIDE
+    x = torch.rand((PERCEPTUAL_B, s, s, 3), generator=g)
+    noise = torch.rand((PERCEPTUAL_B, s, s, 3), generator=g) - 0.5
+    x, noise = x.to(dev), noise.to(dev)
+    small = (x + 0.02 * noise).clamp(0, 1)
+    large = (x + 0.4 * noise).clamp(0, 1)
+    with torch.no_grad():
+        same = fn(x, x)
+        l_small, l_large = fn(x, small), fn(x, large)
+        ms = elapsed_ms(torch, lambda: fn(x, small), 5)
+        ref = vgg_mod.make_perceptual_loss_fn(copy.deepcopy(vgg).cpu())(
+            x[:2].cpu(), large[:2].cpu())
+    rec = {"identical_max": float(same.abs().max()),
+           "small_mean": float(l_small.mean()),
+           "large_mean": float(l_large.mean()),
+           "cpu_max_rel_err": float(((l_large[:2].cpu() - ref).abs() /
+                                     ref.abs()).max()),
+           "ms": ms}
+    if tuple(same.shape) != (PERCEPTUAL_B,) or rec["identical_max"] != 0.0 \
+            or not bool((l_small < l_large).all()) or \
+            not rec["cpu_max_rel_err"] <= LOSS_CPU_REL_TOL:
+        fail(f"perceptual loss: {rec}")
+    return rec
+
+
+def check_decoder_training(torch, mods, stylizer, seed):
+    """``train_adain_decoder`` at B = DECODER_B on DECODER_SIDE squares,
+    recon_weight 1, DECODER_STEPS steps on one seeded batch: the loss
+    falls; host ms per step after the first (each step fetches its
+    loss)."""
+    import copy
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    s = DECODER_SIDE
+    batch = (torch.rand((DECODER_B, s, s, 3), generator=g),
+             torch.rand((DECODER_B, s, s, 3), generator=g))
+    stamps = []
+    decoder = copy.deepcopy(stylizer.decoder)
+    _, hist = mods["adain"].train_adain_decoder(
+        stylizer.encoder, decoder, [batch] * DECODER_STEPS,
+        recon_weight=1.0, callback=lambda i, loss: stamps.append(
+            time.perf_counter()))
+    rec = {"loss": hist, "ms_per_step": (stamps[-1] - stamps[0]) * 1e3 /
+           (len(stamps) - 1)}
+    if len(hist) != DECODER_STEPS or not np.isfinite(hist).all() or \
+            not np.mean(hist[-3:]) < np.mean(hist[:3]):
+        fail(f"decoder training: loss {hist}")
+    return rec
+
+
+def check_detection_stylizer(torch, mods, dev, tmp, seed):
+    """``get_detection_dataset`` on a seeded COCO file of DETECTION_B
+    640 x 640 images (two people each) at DETECTION_SIDE, without and
+    with ``dataset.inline_style``: the stylized canvases differ, in
+    [0, 1]; boxes, labels and masks equal the unstylized batch's;
+    CUDA-event ms of the stylizer at that shape."""
+    data = os.path.join(tmp, "detection")
+    rng = np.random.RandomState(seed)
+    images, anns, canvases = coco_people(rng, list(range(1,
+                                                         DETECTION_B + 1)))
+    write_keypoints_file(data, "train", images, anns)
+    exp = mods["default_experiment_args"]()
+    exp["dataset"]["image_size"] = DETECTION_SIDE
+    exp["training"]["batch_size"] = DETECTION_B
+    with detection_canvases_in_memory(mods, canvases), \
+            style_bank_in_memory(mods, seed):
+        plain = mods["get_detection_dataset"](exp, "train", data_path=data,
+                                              num_workers=4, device=dev)
+        exp["dataset"]["inline_style"] = {"style_dir": os.path.join(
+            tmp, "styles"), "alpha": STYLE_ALPHA}
+        styled = mods["get_detection_dataset"](exp, "train", data_path=data,
+                                               num_workers=4, device=dev)
+        p, b = next(iter(plain)), next(iter(styled))
+    img = b["image"]
+    torch.cuda.synchronize()
+    rec = {"boxes_per_image": float(b["box_mask"].sum(1).mean()),
+           "mean_abs_change": float((img.cpu() - torch.from_numpy(
+               p["image"])).abs().mean())}
+    held = {
+        "a tensor on the device": torch.is_tensor(img) and
+        img.device.type == dev.type,
+        "the shape": tuple(img.shape) == (DETECTION_B, DETECTION_SIDE,
+                                          DETECTION_SIDE, 3),
+        "finite, in [0, 1]": bool(torch.isfinite(img).all()) and
+        float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+        "changed": rec["mean_abs_change"] > 1e-3,
+        **{f"{k} equal": np.array_equal(b[k], p[k])
+           for k in ("boxes", "labels", "box_mask", "scale")},
+        "boxes": rec["boxes_per_image"] >= 1}
+    if not all(held.values()):
+        fail(f"detection stylizer: {rec}, not held: "
+             f"{[k for k, v in held.items() if not v]}")
+    bank = styled.style_bank
+    idx = torch.arange(DETECTION_B, device=dev) % STYLE_BANK
+    content = torch.from_numpy(p["image"]).to(dev)
+    rec["ms"] = elapsed_ms(torch, lambda: styled.stylizer(
+        content, bank[idx], STYLE_ALPHA), 5)
+    return rec
+
+
+# the aux_* scripts' main: 64 COCO-sized images (the preload's two
+# batches of 32, the perceptual script's one batch of 64)
+AUX_IMAGES, AUX_HW = 64, (480, 640)
+
+
+def nearest(img, hw):
+    """``img`` (H, W, ...) resized to (H', W') = hw by nearest index."""
+    ys = np.arange(hw[0]) * img.shape[0] // hw[0]
+    xs = np.arange(hw[1]) * img.shape[1] // hw[1]
+    return img[ys][:, xs]
+
+
+@contextlib.contextmanager
+def aux_images_in_memory(mods, seed, written):
+    """The aux_* scripts read and write their images in memory in place of
+    cv2's files (the card's machine has no cv2): a path that the preload
+    wrote reads back what it wrote (``written``, {path: uint8}; an empty
+    file marks it on disk), any other a seeded AUX_HW uint8 image; resizes
+    by nearest index."""
+    import zlib
+    sc = mods["scripts"]
+    pre, perc, dec = (sc["aux_styled_coco_preload"],
+                      sc["aux_create_offline_perceptual_loss"],
+                      sc["aux_train_adain_decoder"])
+
+    def image(path):
+        if path in written:
+            return written[path]
+        rng = np.random.RandomState([seed, zlib.crc32(path.encode())])
+        return rng.randint(0, 256, AUX_HW + (3,)).astype(np.uint8)
+
+    def read_square(path, size):
+        img = image(path)
+        return (nearest(img, (size, size)).astype(np.float32) / 255.0,
+                img.shape[:2])
+
+    def write_resized(path, img, hw):
+        written[path] = (nearest(img, hw) * 255).astype(np.uint8)
+        open(path, "wb").close()
+
+    def read_short_side(path, size):
+        img = image(path)
+        scale = max(size / img.shape[0], size / img.shape[1])
+        return nearest(img, (max(size, int(round(img.shape[0] * scale))),
+                             max(size, int(round(img.shape[1] * scale)))))
+
+    replaced = [(pre, "read_square", read_square),
+                (pre, "write_resized", write_resized),
+                (perc, "read_image", lambda path, size=224: nearest(
+                    image(path), (size, size)).astype(np.float32) / 255.0),
+                (dec, "read_short_side", read_short_side)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in replaced]
+    for m, name, fn in replaced:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def aux_scripts_path(torch, mods, dev, tmp, seed):
+    """The three aux_* scripts' ``main`` on ``dev``, chained as a user runs
+    them, their images from ``aux_images_in_memory`` and the exemplars
+    from ``style_bank_in_memory``: the decoder trainer (B = DECODER_B at
+    DECODER_SIDE, DECODER_STEPS steps, the encoder from a torchvision
+    .pth of ``style_weights``) writes its npz; the preload stylizes
+    AUX_IMAGES images at PRELOAD_SIDE in batches of TRAIN_B with random
+    alphas, the trained decoder and that .pth, and writes its JPEGs and
+    mapping; the offline perceptual script scores them at B =
+    PERCEPTUAL_B. Checks: finite losses, the npz loads, every image
+    mapped, written at its own size and scored finite and above 0.
+    Host seconds of each ``main``."""
+    sc = mods["scripts"]
+    root = os.path.join(tmp, "aux")
+    data = os.path.join(root, "data")
+    orig = os.path.join(data, "original_images", "train2017")
+    styles = os.path.join(root, "styles")
+    for d, names in ((orig, ["%012d.jpg" % i for i in range(AUX_IMAGES)]),
+                     (styles, [f"style{i}.jpg" for i in range(STYLE_BANK)])):
+        os.makedirs(d)
+        for n in names:
+            open(os.path.join(d, n), "wb").close()
+    enc, _ = style_weights(seed)
+    conv_idx = mods["vgg"].VGG16_CONV_IDX
+    pth = os.path.join(root, "vgg16.pth")
+    torch.save({f"features.{conv_idx[int(k[4:])]}.{leaf}": torch.from_numpy(
+        np.ascontiguousarray(v["kernel"].transpose(3, 2, 0, 1))
+        if leaf == "weight" else v["bias"])
+        for k, v in enc.items() for leaf in ("weight", "bias")}, pth)
+    npz = os.path.join(root, "decoder.npz")
+    written, secs = {}, {}
+    with aux_images_in_memory(mods, seed, written), \
+            style_bank_in_memory(mods, seed):
+        t = time.perf_counter()
+        hist = sc["aux_train_adain_decoder"].main(
+            ["--content_dir", orig, "--style_dir", styles, "--out", npz,
+             "--steps", str(DECODER_STEPS), "--batch_size", str(DECODER_B),
+             "--size", str(DECODER_SIDE), "--vgg_weights", pth,
+             "--log_every", str(DECODER_STEPS), "--seed", str(seed),
+             "--device", dev.type])
+        secs["train_adain_decoder"] = time.perf_counter() - t
+        t = time.perf_counter()
+        mapping_file = sc["aux_styled_coco_preload"].main(
+            ["--style_dir", styles, "--alpha", "random", "--data_path", data,
+             "--batch_size", str(TRAIN_B), "--size", str(PRELOAD_SIDE),
+             "--decoder_ckpt", npz, "--vgg_weights", pth,
+             "--device", dev.type])
+        secs["styled_coco_preload"] = time.perf_counter() - t
+        t = time.perf_counter()
+        losses_file = sc["aux_create_offline_perceptual_loss"].main(
+            ["--alpha", "random", "--data_path", data, "--dict_path",
+             os.path.join(root, "dicts"), "--batch_size", str(PERCEPTUAL_B),
+             "--vgg_weights", pth, "--device", dev.type])
+        secs["create_offline_perceptual_loss"] = time.perf_counter() - t
+    with open(mapping_file) as f:
+        mapping = json.load(f)
+    with open(losses_file) as f:
+        losses = json.load(f)
+    decoder = mods["adain"].load_decoder_npz(npz, dev)
+    rec = {"decoder_loss": hist, "main_s": secs,
+           "alphas": len({v.split("_alpha_")[1] for v in mapping.values()}),
+           "perceptual_loss": [min(losses.values(), default=None),
+                               max(losses.values(), default=None)]}
+    held = {
+        "decoder losses finite": len(hist) == DECODER_STEPS and
+        bool(np.isfinite(hist).all()),
+        "decoder npz finite": all(bool(torch.isfinite(p).all())
+                                  for p in decoder.parameters()),
+        "every image mapped": len(mapping) == AUX_IMAGES == len(written),
+        "written at its size": all(v.shape == AUX_HW + (3,)
+                                   for v in written.values()),
+        "random alphas": rec["alphas"] > 1,
+        "every image scored": sorted(losses) == sorted(mapping.values()),
+        "losses finite, above 0": all(np.isfinite(v) and v > 0
+                                      for v in losses.values())}
+    if not all(held.values()):
+        fail(f"aux scripts: {rec}, not held: "
+             f"{[k for k, v in held.items() if not v]}")
+    return rec
+
+
+def style_path(torch, mods, dev, args, tmp):
+    """Style transfer on the card: the stylizer, the perceptual loss, the
+    decoder trainer and the detection pipeline's stylizer at their
+    scripts' shapes; then the style CLI at full width, in-process: 01
+    with ``--inline_style_dir`` and ``--inline_style_alpha`` (Styled-COCO,
+    B = 32, one epoch, host warp, the COCO augmentation flags) -> seeded
+    HRNet-W32 as checkpoint "seed" -> 02 from it with the perceptual loss
+    (every counter set to 0 first; the crops from ``crops_in_memory``, the
+    exemplars from ``style_bank_in_memory``: K1 must launch, K4 must not;
+    the train pipeline stylized, validation not; one finite epoch) -> 03
+    on "final" (10 finite stats); then the engine's iteration split into
+    collate (the stylizer inside it) and step, each synchronised, the
+    stylizer's ms per batch, and the engine's iteration unsynchronised
+    (CUDA events over an epoch's last n_iter - 1), which the stylizer's
+    share is taken against. Before the CLI, the three aux_* scripts'
+    ``main`` (``aux_scripts_path``). Returns (launches, summary,
+    (trainer, its ms per iteration, (the stylizer's call at the crops'
+    shape, its ms)))."""
+    t0 = time.time()
+    summary = {}
+    summary["stylizer"], stylizer, crops_call = check_stylizer(
+        torch, mods, dev, args.seed + 40)
+    print("style, stylizer:", json.dumps(summary["stylizer"]), flush=True)
+    summary["perceptual_loss"] = check_perceptual(torch, mods, dev,
+                                                  args.seed + 41)
+    print("style, perceptual loss:", json.dumps(summary["perceptual_loss"]),
+          flush=True)
+    summary["decoder_training"] = check_decoder_training(torch, mods,
+                                                         stylizer,
+                                                         args.seed + 42)
+    print("style, decoder training:",
+          json.dumps(summary["decoder_training"]), flush=True)
+    summary["detection"] = check_detection_stylizer(torch, mods, dev, tmp,
+                                                    args.seed + 43)
+    print("style, detection stylizer:", json.dumps(summary["detection"]),
+          flush=True)
+    del stylizer
+    summary["aux_scripts"] = aux_scripts_path(torch, mods, dev, tmp,
+                                              args.seed + 47)
+    print("style, aux scripts:", json.dumps(summary["aux_scripts"]),
+          flush=True)
+
+    data = os.path.join(tmp, "data")
+    engine_dataset(data, os.path.join(tmp, "dicts"), args.seed + 44,
+                   STYLE_TRAIN_IMAGES, STYLE_VALID_IMAGES)
+    model = seeded_weights(torch, mods["PoseHighResolutionNet"](
+        mods["get_hrnet_config"](ENGINE_CONFIG), device=dev), args.seed + 45)
+    scripts = mods["scripts"]
+    times = {"train": [], "valid": [], "start": []}
+    styl_ms = []
+    with engine_environment(mods, tmp), crops_in_memory(mods), \
+            style_bank_in_memory(mods, args.seed + 46), \
+            epoch_clock(torch, mods["PoseTrainer"], times), \
+            stylizer_clock(torch, mods["AdaINStylizer"], styl_ms):
+        exp_path = new_experiment(
+            mods, "chip_smoke_style", 1, model, device_warp=False,
+            flags=["--inline_style_dir", os.path.join(tmp, "styles"),
+                   "--inline_style_alpha", str(STYLE_ALPHA)])
+        print(f"style CLI set-up in {time.time() - t0:.1f} s", flush=True)
+        reset_counts(mods)
+        trainer = scripts["02_train"].main(
+            ["-d", exp_path, "--checkpoint", "seed", "--data_path", data,
+             "--use_perceptual_loss", "true"])
+        torch.cuda.synchronize()
+        n_iter = len(trainer.train_pipe)
+        train_calls = len(styl_ms)
+        tp, vp = trainer.train_pipe, trainer.valid_pipe
+        if tp.device_warp or tp.stylizer is None or vp.stylizer is not None \
+                or tp.style_alpha != STYLE_ALPHA or tuple(
+                    tp.style_bank.shape) != (STYLE_BANK,) + STYLE_CROP + (3,) \
+                or n_iter != STYLE_TRAIN_IMAGES * EVAL_PEOPLE // TRAIN_B \
+                or train_calls != n_iter:
+            fail(f"style CLI: {n_iter} train batches, {train_calls} "
+                 f"stylizer calls, pipelines {tp.device_warp}, "
+                 f"{tp.stylizer}, {vp.stylizer}")
+        logs = check_logs(exp_path, 1, "02 (inline style)")
+        stats = scripts["03_evaluate"].main(
+            ["-d", exp_path, "--checkpoint", "final", "--data_path", data])
+        torch.cuda.synchronize()
+        launches = launch_counts(mods)
+        print("style-path launches (01 -> 02 -> 03):", json.dumps(launches))
+        if launches["heatmap_peaks"] < 1 or launches["warp_two_pass"] != 0:
+            fail(f"style path: K1 must launch and K4 must not: {launches}")
+        stats_file = os.path.join(exp_path, f"evaluation_stats_styled_coco_"
+                                  f"styles_{STYLES}_alpha_{ALPHA}.json")
+        with open(stats_file) as f:
+            saved = json.load(f)["final"]
+        if len(saved) != 10 or not np.isfinite(list(saved.values())).all():
+            fail(f"03 (inline style): stats {saved}")
+
+        # the engine's iteration, split: collate (host crops, upload, the
+        # stylizer, finalize) and the train step, each synchronised (a
+        # breakdown only: the syncs keep the host from queuing ahead)
+        split = {"collate": [], "step": []}
+        it = iter(tp)
+        del styl_ms[:]
+        for _ in range(n_iter):
+            t_a = time.perf_counter()
+            batch = next(it)
+            torch.cuda.synchronize()
+            t_b = time.perf_counter()
+            trainer.train_step(trainer.state, trainer._step_view(batch))
+            torch.cuda.synchronize()
+            split["collate"].append((t_b - t_a) * 1e3)
+            split["step"].append((time.perf_counter() - t_b) * 1e3)
+    # the engine's iteration as it runs: the epoch's last n_iter - 1
+    # iterations back to back (the first, which starts the pipeline, is
+    # the warm-up), no sync between them and no stylizer clock
+    with crops_in_memory(mods):
+        it_ms = elapsed_ms(torch, engine_iteration(mods, trainer),
+                           n_iter - 1)
+    styl = float(np.median(styl_ms))
+    summary["cli"] = {
+        "batch": TRAIN_B, "train_batches": n_iter,
+        "train_epoch_ms": times["train"][0],
+        "engine_ms_per_iteration": times["train"][0] / n_iter,
+        "valid_epoch_ms": times["valid"][0],
+        "ms_per_iteration": it_ms,
+        "split_ms_synced": {k: float(np.median(v))
+                            for k, v in split.items()},
+        "stylizer_ms_per_batch": styl,
+        "stylizer_share_of_iteration": styl / it_ms,
+        "loss": logs["loss"], "accuracy": logs["accuracy"],
+        "stats_03": list(saved.values())}
+    print("style:", json.dumps(summary), flush=True)
+    del tp, vp, it
+    return launches, summary, (trainer, it_ms, crops_call)
+
+
 def forbidden_ops(prof, ops, shapes):
     """[(op, input shapes)] of the profiled ops named in ``ops`` that took
     an input of one of ``shapes`` (the profile must record shapes)."""
@@ -2692,10 +3337,13 @@ def main():
     sys.path.insert(0, here)
     import importlib
     from stlpose_tpu_torch.config import (CONFIG, IMAGENET_STD,
-                                          FasterRCNNConfig, get_hrnet_config)
+                                          FasterRCNNConfig,
+                                          default_experiment_args,
+                                          get_hrnet_config)
     from stlpose_tpu_torch.data.detection_dataset import \
         DetectionDataPipeline
-    from stlpose_tpu_torch.data.loaders import get_vase_subset
+    from stlpose_tpu_torch.data.loaders import (get_detection_dataset,
+                                                get_vase_subset)
     from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
     from stlpose_tpu_torch.data.pose_dataset import (AugmentationParams,
                                                      PoseRecord, _xywh_to_cs)
@@ -2713,6 +3361,7 @@ def main():
     from stlpose_tpu_torch.kernels import roi_align as k3
     from stlpose_tpu_torch.kernels import warp as k2
     from stlpose_tpu_torch.kernels import warp_two_pass as k4
+    from stlpose_tpu_torch.models import adain, convert, vgg
     from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
     from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
     from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
@@ -2739,7 +3388,9 @@ def main():
         save_experiment_parameters)
     scripts = {name: importlib.import_module(
         f"stlpose_tpu_torch.scripts.{name}") for name in
-        ("01_create_experiment", "02_train", "03_evaluate")}
+        ("01_create_experiment", "02_train", "03_evaluate",
+         "aux_train_adain_decoder", "aux_styled_coco_preload",
+         "aux_create_offline_perceptual_loss")}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2794,7 +3445,11 @@ def main():
                 save_experiment_parameters=save_experiment_parameters,
                 checkpoint_path=checkpoint_path, VaseEvaluator=VaseEvaluator,
                 DetectionDataPipeline=DetectionDataPipeline,
-                get_vase_subset=get_vase_subset)
+                get_vase_subset=get_vase_subset, adain=adain, vgg=vgg,
+                convert=convert,
+                AdaINStylizer=adain.AdaINStylizer,
+                get_detection_dataset=get_detection_dataset,
+                default_experiment_args=default_experiment_args)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
     checks = [check_decode(torch, k1, dev, rng),
               check_warp(torch, k2, affine, affine_warp, dev, rng)]
@@ -2824,6 +3479,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         trainer_launches, trainer, trainer_state = trainer_path(
             torch, mods, dev, args, tmp, train["ms_per_step"])
+    with tempfile.TemporaryDirectory() as tmp:
+        style_launches, style, style_state = style_path(torch, mods, dev,
+                                                        args, tmp)
+    style["card"] = card
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
@@ -2835,7 +3494,8 @@ def main():
                    **{p: n[k["name"]] for p, n in vase_launches.items()},
                    "training": train_launches[k["name"]],
                    "eval": eval_launches[k["name"]],
-                   "trainer": trainer_launches[k["name"]]}
+                   "trainer": trainer_launches[k["name"]],
+                   "style": style_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         kernels.append(k)
@@ -2869,6 +3529,17 @@ def main():
                                 engine_ms, args.out, "one engine training "
                                 f"iteration (PoseTrainer, B = 32, {dtype})")
 
+    style_trainer, style_it_ms, (style_call, style_call_ms) = style_state
+    style["profile_stylizer"] = profile_program(
+        torch, style_call, style_call_ms, args.out,
+        f"one stylizer call (B = {TRAIN_B}, 256x192 crops)")
+    with crops_in_memory(mods):
+        style["profile_iteration"] = profile_program(
+            torch, engine_iteration(mods, style_trainer), style_it_ms,
+            args.out, f"one style engine iteration (PoseTrainer, B = "
+            f"{TRAIN_B}, host warp, crops stylized)")
+    del style_trainer, style_call, style_state
+
     ev1, ev8, vase_images, b1_ms, b8_ms = vase_state
     for label, engine, images, ms in (
             ("B = 1", ev1, vase_images[:1], b1_ms),
@@ -2891,7 +3562,8 @@ def main():
                       "stages_ms": stages, "profile": prof,
                       "serving_bf16_roi8": quant, "vase": vase,
                       "training": train,
-                      "eval": evaluation, "trainer": trainer}))
+                      "eval": evaluation, "trainer": trainer,
+                      "style": style}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,9 +8,13 @@ cross-batch crop compaction -> affine crops -> HRNet-W32 -> heatmap
 decode) in f32 and in the quantized bf16 flavor, pose training
 (``engines.trainer.PoseTrainer`` around ``parallel.steps.
 make_train_step``, f32 or bf16 on f32 weights), flip-TTA COCO evaluation
-(``engines.evaluator.PoseEvaluator``) and the CLI scripts 01-03 that
-drive them (``scripts/``). The TPU kernels of these paths are CUDA C++
-kernels under ``kernels/csrc`` (built with nvcc at first use).
+(``engines.evaluator.PoseEvaluator``), the qualitative vase evaluation
+(``engines.vase_evaluator.VaseEvaluator``), style transfer
+(``models.vgg``, ``models.adain``: the perceptual loss and the AdaIN
+stylizer, inline in the host-warp pose pipeline and the detection
+pipeline) and the CLI scripts 01-04 and ``aux_*`` that drive them
+(``scripts/``). The TPU kernels of these paths are CUDA C++ kernels
+under ``kernels/csrc`` (built with nvcc at first use).
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; with "cuda" and no GPU it raises. On CPU tensors

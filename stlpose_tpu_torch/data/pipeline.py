@@ -20,9 +20,11 @@ Port of ``stlpose_tpu/data/pipeline.py``, in its two modes.
   here, so this mode runs off the card.
 
 The mode is the ``device_warp`` argument; unlike the JAX pipeline's, it
-defaults to True, the mode the card runs. The inline AdaIN stylizer of
-the JAX host-warp pipeline is not ported (``data/loaders.py`` refuses
-``dataset.inline_style``).
+defaults to True, the mode the card runs. The host-warp mode can stylize
+its crops on the device before they are normalised (the inline AdaIN
+stylizer, ``models/adain.py``, with a bank of style exemplars; the
+exemplar of each crop drawn from the pipeline's ``RandomState`` after
+padding, as in the JAX package); the device-warp mode refuses a stylizer.
 """
 
 from __future__ import annotations
@@ -53,9 +55,10 @@ def _normalise(crops):
 
 
 def device_finalize(crops, joints, vis):
-    """The host-warp batch on the device: uint8 crops (N, 256, 192, 3),
-    crop-space joints and visibility -> normalised f32 crops, targets
-    (N, J, 64, 48) and target weights (N, J)."""
+    """The host-warp batch on the device: uint8 crops (N, 256, 192, 3)
+    (or f32 on the 0-255 scale, from the stylizer), crop-space joints and
+    visibility -> normalised f32 crops, targets (N, J, 64, 48) and target
+    weights (N, J)."""
     x = _normalise(crops.to(torch.float32))
     target, weight = generate_targets(joints, vis,
                                       heatmap_size=HEATMAP_SIZE,
@@ -103,6 +106,9 @@ class PoseDataPipeline:
         on the host with cv2 (False).
       canvas_size: side of the square letterbox canvas (device warp).
       device: where the batch is made ("cuda" unless told otherwise).
+      stylizer, style_bank, style_alpha: the inline stylizer (an
+        ``AdaINStylizer`` on ``device``), its exemplars (S, 256, 192, 3)
+        in [0, 1] and its alpha; host warp only.
     """
 
     def __init__(self, records: Sequence[PoseRecord], batch_size: int,
@@ -110,7 +116,8 @@ class PoseDataPipeline:
                  shuffle: bool = False, num_workers: int = 8,
                  pad_multiple: int = 1, drop_last: bool = False,
                  seed: int = 13, device_warp: bool = True,
-                 canvas_size: int = 640, device="cuda"):
+                 canvas_size: int = 640, device="cuda", stylizer=None,
+                 style_bank=None, style_alpha=1.0):
         self.records = list(records)
         self.batch_size = batch_size
         self.is_train = is_train
@@ -121,6 +128,17 @@ class PoseDataPipeline:
         self.device_warp = device_warp
         self.canvas_size = canvas_size
         self.device = resolve_device(device)
+        if device_warp and stylizer is not None:
+            # the device-warp finalize normalises inside its own program;
+            # skipping the stylizer there would be a wrong result
+            raise ValueError("inline stylization is not supported with "
+                             "device_warp=True; use the host-warp pipeline")
+        self.stylizer = stylizer
+        # the bank lives on the device: each batch indexes it there
+        self.style_bank = (torch.as_tensor(np.asarray(style_bank, np.float32),
+                                           device=self.device)
+                           if style_bank is not None else None)
+        self.style_alpha = style_alpha
         self.rng = np.random.RandomState(seed)
         self.aug = None
         if is_train and exp_data is not None:
@@ -236,16 +254,24 @@ class PoseDataPipeline:
 
     def _collate(self, samples: List, recs: List[PoseRecord]) -> dict:
         """Stack the host-warp samples, move the uint8 crops and the
-        joints to the device and finalize; ``joints`` and ``joints_vis``
-        stay host arrays, as in the JAX pipeline."""
+        joints to the device, stylize the crops when there is a stylizer
+        (exemplar indices drawn after padding) and finalize; ``joints``
+        and ``joints_vis`` stay host arrays, as in the JAX pipeline."""
         n_valid = len(samples)
         (crops, joints, vis), metas = self._pad(
             n_valid, [np.stack([s[k] for s in samples]) for k in range(3)],
             [s[3] for s in samples])
         dev = self.device
+        crops_dev = torch.from_numpy(crops.astype(np.uint8)).to(dev)
+        if self.stylizer is not None and self.style_bank is not None:
+            sidx = self.rng.randint(0, len(self.style_bank), len(crops))
+            crops_dev = self.stylizer(
+                crops_dev.to(torch.float32) / 255.0,
+                self.style_bank[torch.from_numpy(sidx).to(dev)],
+                alpha=self.style_alpha) * 255.0
         x, target, weight = device_finalize(
-            torch.from_numpy(crops.astype(np.uint8)).to(dev),
-            torch.from_numpy(joints).to(dev), torch.from_numpy(vis).to(dev))
+            crops_dev, torch.from_numpy(joints).to(dev),
+            torch.from_numpy(vis).to(dev))
         return {"image": x, "target": target, "target_weight": weight,
                 "joints": joints, "joints_vis": vis,
                 **self._host_meta(metas, n_valid)}

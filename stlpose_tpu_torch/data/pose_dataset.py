@@ -26,6 +26,14 @@ from stlpose_tpu_torch import constants
 from stlpose_tpu_torch.data.coco_api import COCO
 from stlpose_tpu_torch.ops.affine import get_affine_matrix_np
 
+# ClassArch character classes that count as person instances
+PERSON_CHARACTER_FILTER = (
+    "Heracles", "persecutor", "wrestler", "abductor", "abductee", "Triton",
+    "bride", "groom", "Theseus", "Antaios", "Peleus", "Atalante", "Skiron",
+    "Eros", "Thetis", "Nereus", "maenad", "satyr", "Anteros", "Procrustes",
+    "fleeing", "Kerkyon",
+)
+
 IMAGE_SIZE = (192, 256)        # (w, h)
 HEATMAP_SIZE = (48, 64)
 ASPECT_RATIO = IMAGE_SIZE[0] / IMAGE_SIZE[1]

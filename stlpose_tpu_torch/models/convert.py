@@ -22,6 +22,9 @@ across, so a run continues a JAX run step for step. ``hrnet_from_jax``
 and ``faster_rcnn_from_jax`` also build the serving flavors: they take
 live-BatchNorm variables (folded here by ``models/quantize.py``) or
 variables the JAX package already folded (no ``batch_stats``).
+``vgg_from_jax`` and ``adain_decoder_from_jax`` carry the style-transfer
+networks across; ``adain_decoder_to_flax_params`` goes the other way, for
+the decoder npz that both packages read.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ import numpy as np
 import torch
 
 from stlpose_tpu_torch.config import FasterRCNNConfig, HRNetConfig
+from stlpose_tpu_torch.models.adain import AdaINDecoder
 from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
 from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
                                                fold_batchnorms)
+from stlpose_tpu_torch.models.vgg import VGG16Features
 from stlpose_tpu_torch.train.optim import set_current_lr
 from stlpose_tpu_torch.train.state import PoseTrainState, create_train_state
 
@@ -220,6 +225,32 @@ def faster_rcnn_from_jax(variables_np, config: FasterRCNNConfig,
         sd = apply_trunk_flavor(sd, trunk_quant)
     return load_strict(FasterRCNN(config, device, dtype, roi_patch_quant,
                                   trunk_quant), sd)
+
+
+def vgg_from_jax(variables_np, taps=(1, 3, 6, 9),
+                 device="cuda") -> VGG16Features:
+    """A fresh ``VGG16Features`` to ``max(taps)`` holding the JAX VGG's
+    weights (``{"params": {"conv0": ...}}``, as ``torch_vgg16_to_flax``
+    gives them)."""
+    return load_strict(VGG16Features(taps, device=device),
+                       jax_variables_to_state_dict(variables_np))
+
+
+def adain_decoder_from_jax(variables_np, device="cuda") -> AdaINDecoder:
+    """A fresh ``AdaINDecoder`` holding the JAX decoder's weights
+    (``{"params": {"dec0": ...}}``)."""
+    return load_strict(AdaINDecoder(device=device),
+                       jax_variables_to_state_dict(variables_np))
+
+
+def adain_decoder_to_flax_params(decoder: AdaINDecoder) -> dict:
+    """The decoder's weights as the Flax parameter dict of the JAX
+    package's decoder npz: ``{"dec0": {"kernel": HWIO, "bias": (O,)},
+    ...}``, f32 numpy."""
+    return {name: {"kernel": conv.weight.detach().cpu().numpy()
+                   .transpose(2, 3, 1, 0).copy(),
+                   "bias": conv.bias.detach().cpu().numpy().copy()}
+            for name, conv in decoder.named_children()}
 
 
 def _optax_leaf_state(opt_state, field):

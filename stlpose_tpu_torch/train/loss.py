@@ -75,6 +75,6 @@ def load_perceptual_loss_dict(exp_data: dict, dict_path_root: str,
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"Perceptual-loss dict '{path}' not found; precompute it with "
-            "scripts/aux_create_offline_perceptual_loss.py")
+            "stlpose_tpu_torch/scripts/aux_create_offline_perceptual_loss.py")
     with open(path) as f:
         return json.load(f)

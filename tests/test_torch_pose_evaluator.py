@@ -146,17 +146,31 @@ def test_pose_evaluator_matches_jax(tmp_path, capsys):
 
 
 def test_engine_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
-    """The inline stylizer is refused; ``save_visualizations=True`` draws
-    the first ``max_visualizations`` crops under plots/eval_examples; no
-    engine without a card unless the CPU is asked for."""
-    exp = load_experiment_parameters(_exp(tmp_path, "refuse"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        load_dataset({**exp, "dataset": {**exp["dataset"],
-                                         "inline_style": {"style_dir": "/s"}}},
-                     train=False, device="cpu")
+    """``dataset.inline_style`` builds the inline stylizer for host-warp
+    pipelines (the validation one with ``apply_to_valid``) and is refused
+    with device warp, as in the JAX package; ``save_visualizations=True``
+    draws the first ``max_visualizations`` crops under
+    plots/eval_examples; no engine without a card unless the CPU is asked
+    for."""
+    import cv2
+
     exp_path = _exp(tmp_path, "refuse2", batch_size=2)
     data = tmp_path / "data"
     make_coco_dataset(str(data), n_train=1, n_val=2)
+    os.makedirs(tmp_path / "styles")
+    for i in range(2):
+        cv2.imwrite(str(tmp_path / "styles" / f"s{i}.png"),
+                    np.full((30, 20, 3), 60 * i, np.uint8))
+    exp = load_experiment_parameters(_exp(tmp_path, "refuse"))
+    styled = {**exp, "dataset": {**exp["dataset"], "inline_style": {
+        "style_dir": str(tmp_path / "styles"), "apply_to_valid": True}}}
+    with pytest.raises(ValueError, match="device_warp"):
+        load_dataset(styled, train=False, data_path=str(data), device="cpu")
+    styled["dataset"]["device_warp"] = False
+    _, pipe = load_dataset(styled, train=False, data_path=str(data),
+                           device="cpu")
+    assert pipe.stylizer.device.type == "cpu" and pipe.style_alpha == 1.0
+    assert pipe.style_bank.shape == (2, 256, 192, 3)
     ev = PoseEvaluator(exp_path, data_path=str(data), num_workers=2,
                        save_visualizations=True, max_visualizations=3,
                        device="cpu")

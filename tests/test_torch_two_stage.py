@@ -157,7 +157,11 @@ def test_port_imports_nothing_of_jax():
         "scripts/03_evaluate.py", "ops/bbox_utils.py", "ops/pose_entries.py",
         "utils/visualization.py", "data/detection_dataset.py",
         "engines/detector_trainer.py",
-        "scripts/04_evaluate_vases_qualitatively.py")} <= names
+        "scripts/04_evaluate_vases_qualitatively.py", "models/vgg.py",
+        "models/adain.py", "data/loaders.py", "data/pipeline.py",
+        "scripts/aux_train_adain_decoder.py",
+        "scripts/aux_create_offline_perceptual_loss.py",
+        "scripts/aux_styled_coco_preload.py")} <= names
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "stlpose_tpu"}
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & banned)
            for f in files}
@@ -168,8 +172,11 @@ def test_port_imports_nothing_of_jax():
     assert not {k: v for k, v in at_import.items() if v}
     inside = {str(f.relative_to(ROOT)) for f in files
               if set(_imported_roots(f)) & host_only}
-    assert {"stlpose_tpu_torch/utils/visualization.py",
-            "stlpose_tpu_torch/data/detection_dataset.py"} <= inside
+    assert {f"stlpose_tpu_torch/{m}" for m in (
+        "utils/visualization.py", "data/detection_dataset.py",
+        "models/adain.py", "scripts/aux_train_adain_decoder.py",
+        "scripts/aux_create_offline_perceptual_loss.py",
+        "scripts/aux_styled_coco_preload.py")} <= inside
 
 
 def test_kernel_wrappers_take_plain_versions_only_on_cpu():
