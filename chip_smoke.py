@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name, power limit); TF32 off;
-  2. build the six CUDA kernel sources from stlpose_tpu_torch/kernels/csrc
-     (one nvcc per source, in parallel) and print the build time;
+  2. build the seven CUDA kernel sources from
+     stlpose_tpu_torch/kernels/csrc (one nvcc per source, in parallel) and
+     print the build time;
   3. per kernel, at its main path's shapes, compare the kernel with its
      plain PyTorch version on the card; bound = the bytes the function
      must move at 3.35 TB/s (or its f32 operations at 67 TFLOP/s, if
@@ -26,7 +27,12 @@ Phases, each fatal on failure:
      detection and training-budget shapes (``NMS_SHAPES``, ``nms_scene``:
      level-offset boxes, ties, zero-area boxes on top, dead images) with
      f32 and bf16 scores, with and without a valid mask; its latency
-     floor from an empty block-wide argmax round;
+     floor from an empty block-wide argmax round; K3b (RoIAlign's
+     gradient for the maps) within 1e-5 of the plain maps' max abs at the
+     training shape (B = 8, 256 boxes, C = 256, ``roi_scene``), on a
+     planted scene (``roi_backward_scene``: every level, past every
+     border, under one pixel, tall, wide) and at C = 36, each run twice
+     (the run-to-run difference of its atomic sums printed);
   4. drive the fused two-stage serving path end to end at full width
      (Faster R-CNN ResNet50-FPN 400x400 + HRNet-W32 256x192, float32,
      B = 8, seeded random weights) with every launch counter set to 0
@@ -126,6 +132,25 @@ Phases, each fatal on failure:
      first: K1 launched, K4 not; the train pipeline stylized, validation
      not) -> 03 on "final" (10 finite stats); the stylizer's ms per batch
      beside the collate's and the step's;
+  5e. detector training at full width (FasterRCNNConfig(): ResNet-50-FPN,
+     C = 256, 400x400, train budgets pre 1000 / post 512, 256 RPN anchors
+     and 256 RoIs an image; B = 8, f32, Adam, seeded weights and
+     BatchNorm; 32 train and 16 valid seeded canvases with 1-4 people
+     each, read from memory through the detection pipeline): K5's
+     global-memory branch at the torchvision-parity budget (M = 6,529,
+     2000 picks) exactly against its plain loop; counters set to 0, one
+     train step (finite loss terms, every parameter and running statistic
+     moved, stem_bn's included; K3 f32, K3b and K5 launched); the loss
+     and its gradient on the kernels against the plain versions (cuDNN
+     deterministic; terms 1e-5 relative, every gradient 1e-4 of its max
+     abs); ms per step and samples/s, split into forward + loss and
+     backward + update; one step of the torchvision-parity detector
+     through K5's global-memory branch; then the detector CLI in-process:
+     01 -> 02_train_faster_rcnn (2 epochs: 2 finite losses and 2 APs in
+     detector_logs.json, checkpoints 0, 1 and final, the plateau
+     scheduler stepped on AP) -> a resume from checkpoint 1 ->
+     03_evaluate_faster_rcnn on "final" (12 stats, finite or -1), with ms
+     per train and per validation epoch;
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
      same function, over 20 repeats with the inputs warm in L2, and for
@@ -144,7 +169,8 @@ Phases, each fatal on failure:
      iteration (PoseTrainer's loop body: pipeline, step, metric update)
      likewise, in f32 and in bf16; one vase engine call at B = 1 and one
      at B = 8 likewise; one stylizer call at B = 32 on 256x192 crops and
-     one style engine iteration (host warp, crops stylized) likewise.
+     one style engine iteration (host warp, crops stylized) likewise; one
+     detector train step likewise (K3, K3b and K5 in its trace).
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -867,10 +893,11 @@ def check_warp_two_pass(torch, k4, mods, dev, seed):
 # of the serving path (pre_nms_top_n_test 500 on P2-P5, all 147 anchors of
 # P6 at 400x400), its detection NMS (post_nms 256 proposals,
 # detections_per_img 64), and the training budget of the reference
-# (stlpose_tpu/models/faster_rcnn.py:58-60, pre_nms_top_n_train 1000)
+# (stlpose_tpu/models/faster_rcnn.py:58-60, pre_nms_top_n_train 1000 of
+# P2-P4's anchors, all 507 and 147 of P5 and P6: 3,654 candidates)
 NMS_SHAPES = (("proposal", (500, 500, 500, 500, 147), 256, 0.7),
               ("detection", (256,), 64, 0.5),
-              ("train", (1000, 1000, 1000, 1000, 147), 512, 0.7))
+              ("train", (1000, 1000, 1000, 507, 147), 512, 0.7))
 
 
 def nms_scene(torch, dev, g, levels, image=400.0):
@@ -1026,9 +1053,11 @@ def seeded_bn_statistics(torch, module, seed):
 
 
 def reset_counts(mods):
-    """Every launch counter to 0, each K3 instantiation's included."""
+    """Every launch counter to 0, each K3 instantiation's and K3b's
+    included."""
     for k in ("k1", "k2", "k3", "k3q", "k4", "k5"):
         mods[k].LAUNCHES = 0
+    mods["k3"].BACKWARD_LAUNCHES = 0
     for by_type in (mods["k3"].LAUNCHES_BY_TYPE,
                     mods["k1"].LAUNCHES_BY_KERNEL):
         for v in by_type:
@@ -1051,7 +1080,8 @@ def launch_counts(mods):
               "affine_crop": mods["k2"].LAUNCHES,
               "quantize_levels": mods["k3q"].LAUNCHES,
               "warp_two_pass": mods["k4"].LAUNCHES,
-              "box_nms_topk": mods["k5"].LAUNCHES}
+              "box_nms_topk": mods["k5"].LAUNCHES,
+              "roi_align_backward": mods["k3"].BACKWARD_LAUNCHES}
     counts.update({ROI_RECORDS[v]: n
                    for v, n in mods["k3"].LAUNCHES_BY_TYPE.items()})
     return counts
@@ -1059,11 +1089,12 @@ def launch_counts(mods):
 
 @contextlib.contextmanager
 def plain_versions(mods):
-    """Route the six kernel entry points to their plain versions (the
+    """Route the seven kernel entry points to their plain versions (the
     comparison runs only)."""
     entries = [(mods["k1"], "heatmap_peaks"), (mods["k2"], "affine_crop"),
                (mods["k3"], "roi_align"), (mods["k3q"], "quantize_levels"),
-               (mods["k4"], "warp_two_pass"), (mods["k5"], "box_nms_topk")]
+               (mods["k4"], "warp_two_pass"), (mods["k5"], "box_nms_topk"),
+               (mods["k3"], "roi_align_backward")]
     saved = [getattr(m, name) for m, name in entries]
     for m, name in entries:
         setattr(m, name, getattr(m, name + "_plain"))
@@ -3167,6 +3198,441 @@ def style_path(torch, mods, dev, args, tmp):
     return launches, summary, (trainer, it_ms, crops_call)
 
 
+# ------------------------------------------------- detector training (5e)
+# Detector training at full width: FasterRCNNConfig() (ResNet-50-FPN,
+# C = 256, 400x400; train budgets pre 1000 / post 512 proposals, 256 RPN
+# anchors and 256 RoIs an image), B = 8, f32 with TF32 off, seeded
+# weights; the detector CLI on 32 train and 16 valid seeded canvases with
+# 1-4 people each (4 train and 2 valid batches an epoch)
+DET_B, DET_SIDE, DET_LR = 8, 400, 1e-4
+DET_TRAIN_IMAGES, DET_VALID_IMAGES = 32, 16
+DET_CONFIG = "faster_rcnn"          # the CLI's STLPOSE_DETECTOR_CONFIG
+# K3b against its plain version: f32 atomic adds sum each pixel's
+# contributions in an order that changes from run to run
+K3B_REL_TOL = 1e-5                  # of the plain gradient maps' max abs
+# the train step on the kernels against the plain versions (same weights,
+# draws, cuDNN deterministic): only K3b's sums differ
+STEP_LOSS_REL_TOL, STEP_GRAD_TOL = 1e-5, 1e-4   # grads: of each max abs
+# the torchvision-parity training budget's proposal NMS: per level the top
+# 2000 of 30,000 / 7,500 / 1,875 / 507 / 147 anchors, 2000 picks
+PARITY_LEVELS, PARITY_KEEP = (2000, 2000, 1875, 507, 147), 2000
+
+
+def roi_backward_scene(torch, roi_ops, dev, rng, C=ROI_C):
+    """K3b's planted case beside ``roi_scene``: two images of the serving
+    levels with, each, boxes on every level, past every border (samples
+    inside and outside [-1, size]), under one P2 pixel, tall and wide, in
+    the last pixel's corner, and one on no level."""
+    feats = [torch.randn((2, s, s, C), generator=rng, device=dev)
+             for s in ROI_SIZES]
+    planted = torch.tensor([
+        [100.0, 100.0, 102.5, 103.0],       # under one P2 pixel
+        [30.0, 5.0, 50.0, 390.0],           # tall
+        [3.0, 150.0, 397.0, 175.0],         # wide
+        [-15.0, -12.0, 60.0, 50.0],         # past the top-left border
+        [330.0, 350.0, 440.0, 430.0],       # past the bottom-right border
+        [-150.0, 50.0, 40.0, 150.0],        # far past the left border, P3
+        [60.0, 60.0, 300.0, 260.0],         # P3
+        [-20.0, -20.0, 300.0, 330.0],       # P4, past two borders
+        [-300.0, -250.0, 700.0, 650.0],     # P5, past every border
+        [396.0, 396.0, 404.0, 407.0],       # in the last pixel's corner
+        [10.0, 10.0, 40.0, 40.0]], device=dev)   # on no level
+    boxes = planted[None].repeat(2, 1, 1)
+    levels = roi_ops._assign_levels(boxes, 4)
+    levels[:, -1] = -1
+    if set(levels.unique().tolist()) != {-1, 0, 1, 2, 3}:
+        fail(f"K3b planted scene: levels {levels.tolist()}")
+    return feats, boxes, levels
+
+
+def inside_samples(torch, boxes, levels, sizes, strides=ROI_STRIDES):
+    """Bilinear samples of the boxes that lie inside their level (within
+    [-1, size] on both axes), as K3 and K3b take them."""
+    n, sr = 7, 2
+    s = torch.arange(n * sr, device=boxes.device)
+    pos = (s // sr).float() + ((s % sr).float() + 0.5) / sr
+    total = 0
+    for li, (size, st) in enumerate(zip(sizes, strides)):
+        b = boxes[levels == li] * (1.0 / st)
+
+        def axis(lo, hi):
+            g = lo[:, None] + pos[None] * (torch.clamp(hi - lo, min=1.0) /
+                                           n)[:, None]
+            return ((g >= -1.0) & (g <= size)).sum(1)
+
+        total += int((axis(b[:, 0], b[:, 2]) * axis(b[:, 1], b[:, 3])).sum())
+    return total
+
+
+def check_roi_backward(torch, k3, roi_ops, scene, odd, dev, rng):
+    """K3b against its plain version (the autograd of ``roi_align_plain``)
+    at the training shape (``roi_scene``: B = 8, 256 boxes an image,
+    C = 256, on a seeded upstream gradient), on the planted
+    ``roi_backward_scene`` and on ``odd_roi_scene`` (C = 36): within
+    K3B_REL_TOL of the plain maps' max abs; every level of the planted
+    scene reached; each case run twice, the run-to-run difference
+    recorded. Timed warm and cold at the training shape."""
+    planted = roi_backward_scene(torch, roi_ops, dev, rng)
+    errs, rel, rerun = {}, {}, {}
+    for case, (feats, boxes, levels) in (("planted", planted),
+                                         ("odd_c_elongated", odd),
+                                         ("training", scene)):
+        shapes = [tuple(f.shape) for f in feats]
+        g = torch.randn((*boxes.shape[:2], 7, 7, shapes[0][-1]),
+                        generator=rng, device=dev)
+        args = (g, shapes, boxes, levels, ROI_STRIDES)
+        got = k3.roi_align_backward(*args)
+        again = k3.roi_align_backward(*args)
+        ref = k3.roi_align_backward_plain(*args)
+        scale = max(float(r.abs().max()) for r in ref)
+        errs[case] = max(float((a - r).abs().max())
+                         for a, r in zip(got, ref))
+        rel[case] = errs[case] / scale
+        rerun[case] = max(float((a - b).abs().max())
+                          for a, b in zip(got, again))
+        if case == "planted" and not all(bool(r.any()) for r in ref):
+            fail("K3b planted scene: a level got no gradient")
+    if not max(rel.values()) <= K3B_REL_TOL:
+        fail(f"K3b differs from its plain version: {rel} of the maps' max "
+             f"abs (tolerance {K3B_REL_TOL})")
+    feats, boxes, levels = scene
+    n_bytes = (g.numel() + sum(f.numel() for f in feats) + boxes.numel() +
+               levels.numel()) * 4
+    # per inside sample and channel: the 0.25 scale, 4 weight products
+    # and 4 adds
+    n_in = inside_samples(torch, boxes, levels, ROI_SIZES)
+    b, by = bound_ms(n_bytes, flops=9.0 * n_in * ROI_C)
+    fns = {"": lambda: k3.roi_align_backward(*args),
+           "plain_": lambda: k3.roi_align_backward_plain(*args),
+           "library_": None}
+    rec = dict(name="roi_align_backward", route="cuda",
+               source="stlpose_tpu_torch/kernels/csrc/roi_align_backward.cu",
+               replaces="stlpose_tpu/ops/roi_align.py:143 (no Pallas "
+                        "original: the VJP of multilevel_roi_align, "
+                        "differentiated at stlpose_tpu/models/"
+                        "faster_rcnn.py:515-517)",
+               max_abs_err=errs["training"],
+               tolerance=K3B_REL_TOL * errs["training"] / rel["training"]
+               if rel["training"] else 0.0,
+               rel_tolerance=K3B_REL_TOL, case_errs=errs, case_rel_errs=rel,
+               run_to_run_max_abs=rerun, bound_ms=b, bound_by=by,
+               bytes=n_bytes, inside_samples=n_in,
+               atomic_adds=4 * n_in * ROI_C,
+               library="none (torchvision is not on the card's machine)",
+               shape=[B, ROI_P, ROI_C, *ROI_SIZES],
+               **event_times(torch, fns, cold=True))
+    print("K3b run-to-run max abs difference:", json.dumps(rerun),
+          flush=True)
+    return rec, fns
+
+
+def check_nms_parity(torch, k5, dev, seed):
+    """K5's global-memory branch at the torchvision-parity training budget
+    (M = 6,529 candidates, 2000 picks) on ``nms_scene``, f32 scores with
+    ``valid`` and bf16 scores without: keep masks equal to the plain
+    loop's, the planted cases as greedy NMS gives them; CUDA-event ms."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    boxes, scores, valid = nms_scene(torch, dev, g, PARITY_LEVELS)
+    errs = {}
+    for label, sc, v in (("f32_valid", scores, valid),
+                         ("bf16_no_valid", scores.to(torch.bfloat16), None)):
+        got = k5.box_nms_topk(boxes, sc, 0.7, v, PARITY_KEEP)
+        ref = k5.box_nms_topk_plain(boxes, sc, 0.7, v, PARITY_KEEP)
+        errs[label] = int((got != ref).sum())
+        if errs[label]:
+            fail(f"K5 at M = {boxes.shape[1]} ({label}): keep mask differs "
+                 f"from the plain version at {errs[label]} candidates")
+    keep = k5.box_nms_topk(boxes, scores, 0.7, valid, PARITY_KEEP)
+    picks = keep.sum(1)
+    if not (bool(keep[0, 10]) and not bool(keep[0, 11:14].any())
+            and bool(keep[0, 20:24].all()) and int(picks[1]) == 0
+            and int(picks[2]) == 0 and 0 < int(picks[3]) <= 10):
+        fail(f"K5 at M = {boxes.shape[1]}: planted cases wrong (picks "
+             f"{picks.tolist()})")
+    return {"candidates": int(boxes.shape[1]), "picks": PARITY_KEEP,
+            "picks_longest_image": int(picks.max()), "mismatches": errs,
+            "events_ms": elapsed_ms(torch, lambda: k5.box_nms_topk(
+                boxes, scores, 0.7, valid, PARITY_KEEP), 5)}
+
+
+def detection_people(rng, ids, S=DET_SIDE):
+    """COCO-layout images with 1-4 person boxes each (40-200 x 80-380 px)
+    on S x S uint8 canvases, from ``rng``. Returns (images, annotations,
+    {image_id: canvas})."""
+    canvases = rng.randint(0, 256, (len(ids), S, S, 3), np.uint8)
+    images, anns = [], []
+    for img_id in ids:
+        images.append({"id": img_id, "height": S, "width": S,
+                       "file_name": "%012d.jpg" % img_id})
+        for _ in range(rng.randint(1, 5)):
+            w, h = rng.uniform(40, 200), rng.uniform(80, 380)
+            x, y = rng.uniform(0, S - w), rng.uniform(0, S - h)
+            anns.append({"id": len(anns) + 1, "image_id": img_id,
+                         "category_id": 1, "bbox": [x, y, w, h],
+                         "area": w * h, "iscrowd": 0})
+    return images, anns, dict(zip(ids, canvases))
+
+
+def detection_dataset(root, seed):
+    """``root``/annotations/person_keypoints_{train,val}.json of
+    DET_TRAIN_IMAGES and DET_VALID_IMAGES images (``detection_people``).
+    Returns {image_id: uint8 canvas}."""
+    rng = np.random.RandomState(seed)
+    canvases = {}
+    for split, ids in (("train", range(1, DET_TRAIN_IMAGES + 1)),
+                       ("val", range(1001, 1001 + DET_VALID_IMAGES))):
+        images, anns, cv = detection_people(rng, list(ids))
+        write_keypoints_file(root, split, images, anns)
+        canvases.update(cv)
+    return canvases
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """Environment variables set for the block, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def detector_epoch_clock(torch, trainer_cls, times):
+    """Host ms of every train and validation epoch of any DetectorTrainer,
+    each bracketed by a synchronise (``times["train"|"valid"]``), and
+    what each ``training_loop`` starts from (``times["start"]``)."""
+    saved = {n: getattr(trainer_cls, n) for n in
+             ("train_epoch", "validation_epoch", "training_loop")}
+
+    def timed(key, fn):
+        def call(self, epoch, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, epoch, *a, **kw)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def loop(self):
+        times["start"].append({
+            "epoch": self.cur_epoch, "step": int(self.state.step),
+            "lr": self.state.optimizer.param_groups[0]["lr"],
+            "scheduler": self.scheduler.state_dict()})
+        return saved["training_loop"](self)
+
+    trainer_cls.train_epoch = timed("train", saved["train_epoch"])
+    trainer_cls.validation_epoch = timed("valid", saved["validation_epoch"])
+    trainer_cls.training_loop = loop
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(trainer_cls, n, fn)
+
+
+def detector_step_vs_plain(torch, mods, base, batch, seed):
+    """FasterRCNN.loss_fn and its backward from the weights of ``base``
+    and the same draws, on the kernels and on the plain versions (cuDNN
+    deterministic): loss terms within STEP_LOSS_REL_TOL relative, every
+    parameter's gradient within STEP_GRAD_TOL of its max abs. The kernels
+    run twice: their gradients' run-to-run difference (K3b's atomic sums
+    in another order) is recorded beside."""
+    import copy
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label in ("kernels", "kernels_again", "plain"):
+            model = copy.deepcopy(base)
+            gen = torch.Generator(device=batch["image"].device) \
+                .manual_seed(seed)
+            with (plain_versions(mods) if label == "plain"
+                  else contextlib.nullcontext()):
+                total, terms = model.loss_fn(batch, gen)
+                total.backward()
+            runs[label] = ({"total": float(total.detach()), **{
+                k: float(v) for k, v in terms.items()}},
+                {n: p.grad for n, p in model.named_parameters()})
+            del model
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (tk, gk), (tp, gp) = runs["kernels"], runs["plain"]
+    loss_rel = {k: abs(tk[k] - tp[k]) / abs(tp[k]) for k in tp}
+
+    def worst_grad(ga, gb):
+        err = {n: float((ga[n] - gb[n]).abs().max() / gb[n].abs().max())
+               for n in gb}
+        worst = max(err, key=err.get)
+        return worst, err[worst]
+
+    worst, err = worst_grad(gk, gp)
+    again, again_err = worst_grad(runs["kernels_again"][1], gk)
+    rec = {"loss_rel_errs": loss_rel, "grad_max_err_of_max_abs": err,
+           "grad_worst": worst, "kernels_run_to_run_grad_of_max_abs":
+           again_err, "run_to_run_worst": again, "losses": tk}
+    if max(loss_rel.values()) > STEP_LOSS_REL_TOL or err > STEP_GRAD_TOL:
+        fail(f"detector train step, kernels vs plain: {rec}")
+    return rec
+
+
+def detector_train_path(torch, mods, dev, args, tmp):
+    """Detector training at full width (phase 5e): K5 at the parity
+    budget; one train step (seeded weights and non-trivial BatchNorm,
+    Adam) with every counter set to 0 first: finite loss terms, every
+    parameter and running statistic moved, K3 f32, K3b and K5 launched;
+    the step on the kernels against the plain versions; ms per step and
+    samples/s, split into forward + loss and backward + update; one step
+    of the torchvision-parity detector through K5's global-memory branch;
+    then the detector CLI in-process (01 -> 02 -> resume -> 03) with its
+    epochs timed. Returns (launches by path, summary, (step, ms))."""
+    import copy
+    t0 = time.time()
+    k3, k5 = mods["k3"], mods["k5"]
+    parity_nms = check_nms_parity(torch, k5, dev, args.seed + 31)
+    print("K5 at the parity training budget:", json.dumps(parity_nms),
+          flush=True)
+    cfg = mods["FasterRCNNConfig"]()
+    data = os.path.join(tmp, "detection_data")
+    canvases = detection_dataset(data, args.seed + 32)
+    exp = mods["default_experiment_args"]()
+    exp["training"]["batch_size"] = DET_B
+    exp["dataset"]["image_size"] = cfg.image_size
+    with detection_canvases_in_memory(mods, canvases):
+        pipe = mods["get_detection_dataset"](exp, "train", data_path=data,
+                                             num_workers=4, device=dev)
+        batches = [mods["detector_device_batch"](b, dev) for b in pipe]
+    if len(batches) != DET_TRAIN_IMAGES // DET_B:
+        fail(f"detector training: {len(batches)} batches")
+    det = seeded_bn_statistics(torch, seeded_weights(
+        torch, mods["FasterRCNN"](cfg, dev), args.seed + 33), args.seed + 34)
+    base = copy.deepcopy(det)
+    exp_t = {"training": {"learning_rate": DET_LR, "optimizer": "adam"},
+             "dataset": {"dataset_name": "coco"}}
+    state = mods["create_train_state"](det, exp_t)
+    step = mods["make_detector_train_step"]()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 35)
+    step(state, batches[0], gen)                   # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    print(f"detector training set-up in {time.time() - t0:.1f} s",
+          flush=True)
+    before = {k: v.detach().clone() for k, v in det.state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+    reset_counts(mods)
+    metrics = step(state, batches[1], gen)
+    torch.cuda.synchronize()
+    launches = {"detector_training": launch_counts(mods)}
+    metrics = {k: float(v) for k, v in metrics.items()}
+    after = det.state_dict()
+    still = [k for k, v in before.items() if torch.equal(v, after[k])]
+    n = launches["detector_training"]
+    print("detector train step launches:", json.dumps(
+        {k: v for k, v in n.items() if v}), flush=True)
+    if not all(np.isfinite(v) for v in metrics.values()) or \
+            metrics["finite"] != 1.0 or still or \
+            not (n["roi_align"] and n["roi_align_backward"]
+                 and n["box_nms_topk"]):
+        fail(f"detector train step: metrics {metrics}, unmoved "
+             f"{still[:8]}, launches {n}")
+    vs_plain = detector_step_vs_plain(torch, mods, base, batches[2],
+                                      args.seed + 36)
+    del base
+
+    b = batches[3]
+    step_ms = elapsed_ms(torch, lambda: step(state, b, gen), 5)
+    fwd_ms = elapsed_ms(torch, lambda: det.loss_fn(b, gen), 5)
+
+    pdet = seeded_weights(torch, mods["FasterRCNN"](
+        mods["FASTER_RCNN_TORCHVISION_PARITY"], dev), args.seed + 33)
+    pstate = mods["create_train_state"](pdet, exp_t)
+    nms_log = []
+    step(pstate, batches[0], gen)                  # warm-up
+    reset_counts(mods)
+    with calls_to(k5, "box_nms_topk", nms_log):
+        pm = step(pstate, batches[1], gen)
+    torch.cuda.synchronize()
+    launches["detector_training_parity"] = launch_counts(mods)
+    pm = {k: float(v) for k, v in pm.items()}
+    m_parity = [int(a[0].shape[1]) for a, _, _ in nms_log]
+    if m_parity != [sum(PARITY_LEVELS)] or not np.isfinite(pm["loss"]) \
+            or launches["detector_training_parity"]["box_nms_topk"] != 1:
+        fail(f"parity train step: NMS candidates {m_parity}, metrics {pm}")
+    parity_ms = elapsed_ms(torch, lambda: step(pstate, b, gen), 3)
+    del pdet, pstate
+
+    times = {"train": [], "valid": [], "start": []}
+    scripts = mods["scripts"]
+    with engine_environment(mods, tmp), \
+            environment(STLPOSE_DETECTOR_CONFIG=DET_CONFIG,
+                        STLPOSE_DETECTOR_PRETRAINED=""), \
+            detection_canvases_in_memory(mods, canvases), \
+            detector_epoch_clock(torch, mods["DetectorTrainer"], times):
+        exp_path = scripts["01_create_experiment"].main(
+            ["-d", "detector_cli", "--dataset_name", "coco", "--batch_size",
+             str(DET_B), "--num_epochs", "2", "--save_frequency", "1"])
+        reset_counts(mods)
+        trainer = scripts["02_train_faster_rcnn"].main(
+            ["-d", exp_path, "--data_path", data])
+        launches["detector_cli"] = launch_counts(mods)
+        with open(os.path.join(exp_path, "detector_logs.json")) as f:
+            logs = json.load(f)
+        ckpts = sorted(mods["list_checkpoints"](exp_path, detector=True))
+        sim = mods["PlateauScheduler"](
+            factor=float(trainer.exp_data["training"]
+                         ["learning_rate_factor"]),
+            patience=int(trainer.exp_data["training"]["patience"]))
+        lr = float(trainer.exp_data["training"]["learning_rate"])
+        for ap in logs["valid_ap"]:
+            lr = sim.step(ap, lr)
+        held = {
+            "2 finite train losses": len(logs["train_loss"]) == 2 and
+            all(np.isfinite(logs["train_loss"])),
+            "2 valid APs": len(logs["valid_ap"]) == 2 and
+            all(-1.0 <= v <= 1.0 for v in logs["valid_ap"]),
+            "checkpoints 0, 1, final": ckpts == ["0", "1", "final"],
+            "plateau stepped on AP": trainer.scheduler.best ==
+            max(logs["valid_ap"]) and
+            mods["get_current_lr"](trainer.state.optimizer) == lr,
+            "K3, K3b, K5 launched": all(launches["detector_cli"][k] for k in
+                                        ("roi_align", "roi_align_backward",
+                                         "box_nms_topk"))}
+        del trainer
+        resumed = scripts["02_train_faster_rcnn"].main(
+            ["-d", exp_path, "--checkpoint", "1", "--resume_training",
+             "true", "--data_path", data])
+        held["resume from checkpoint 1"] = (
+            times["start"][-1]["epoch"] == 1 and
+            times["start"][-1]["step"] == 2 * DET_TRAIN_IMAGES // DET_B and
+            resumed.state.step == 3 * DET_TRAIN_IMAGES // DET_B)
+        del resumed
+        stats = scripts["03_evaluate_faster_rcnn"].main(
+            ["-d", exp_path, "--checkpoint", "final", "--data_path", data])
+        held["12 stats, finite or -1"] = len(stats) == 12 and all(
+            s == -1.0 or 0.0 <= s <= 1.0 for s in stats)
+    if not all(held.values()):
+        fail(f"detector CLI: logs {logs}, checkpoints {ckpts}, not held: "
+             f"{[k for k, v in held.items() if not v]}")
+    summary = {
+        "config": "faster_rcnn (ResNet-50-FPN, C = 256, 400x400)",
+        "batch": DET_B, "train_step_metrics": metrics,
+        "launches_per_step": {k: v for k, v in
+                              launches["detector_training"].items() if v},
+        "kernels_vs_plain": vs_plain, "ms_per_step": step_ms,
+        "samples_per_s": DET_B / step_ms * 1e3,
+        "forward_loss_ms": fwd_ms, "backward_update_ms": step_ms - fwd_ms,
+        "parity": {"nms_candidates": m_parity, "loss": pm["loss"],
+                   "ms_per_step": parity_ms, "nms_check": parity_nms},
+        "cli": {"logs": logs, "ms_per_train_epoch": times["train"],
+                "ms_per_valid_epoch": times["valid"],
+                "starts": times["start"], "stats_03": list(stats)}}
+    print("detector training:", json.dumps(summary), flush=True)
+    return launches, summary, ((lambda: step(state, b, gen)), step_ms)
+
+
 def forbidden_ops(prof, ops, shapes):
     """[(op, input shapes)] of the profiled ops named in ``ops`` that took
     an input of one of ``shapes`` (the profile must record shapes)."""
@@ -3347,6 +3813,8 @@ def main():
     from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
     from stlpose_tpu_torch.data.pose_dataset import (AugmentationParams,
                                                      PoseRecord, _xywh_to_cs)
+    from stlpose_tpu_torch.config import FASTER_RCNN_TORCHVISION_PARITY
+    from stlpose_tpu_torch.engines import detector_trainer
     from stlpose_tpu_torch.engines.evaluator import (PoseEvaluator,
                                                      device_batch)
     from stlpose_tpu_torch.engines.trainer import PoseTrainer
@@ -3373,15 +3841,19 @@ def main():
     from stlpose_tpu_torch.ops.nms import box_nms_topk
     from stlpose_tpu_torch.ops.warp import affine_warp, two_pass_params
     from stlpose_tpu_torch.parallel import steps
+    from stlpose_tpu_torch.parallel.detector_steps import \
+        make_detector_train_step
     from stlpose_tpu_torch.parallel.steps import (MetricAccumulator,
                                                   make_eval_decode_step,
                                                   make_eval_step,
                                                   make_train_step)
-    from stlpose_tpu_torch.train.optim import (build_scheduler,
+    from stlpose_tpu_torch.train.optim import (PlateauScheduler,
+                                               build_scheduler,
                                                get_current_lr,
                                                set_current_lr)
     from stlpose_tpu_torch.train.state import create_train_state
     from stlpose_tpu_torch.utils.checkpoint import (checkpoint_path,
+                                                    list_checkpoints,
                                                     save_checkpoint)
     from stlpose_tpu_torch.utils.experiment import (
         create_experiment, load_experiment_parameters,
@@ -3390,7 +3862,8 @@ def main():
         f"stlpose_tpu_torch.scripts.{name}") for name in
         ("01_create_experiment", "02_train", "03_evaluate",
          "aux_train_adain_decoder", "aux_styled_coco_preload",
-         "aux_create_offline_perceptual_loss")}
+         "aux_create_offline_perceptual_loss", "02_train_faster_rcnn",
+         "03_evaluate_faster_rcnn")}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3405,7 +3878,7 @@ def main():
 
     t0 = time.time()
     logs = _build.build(["decode", "warp", "roi_align", "quantize",
-                         "warp_two_pass", "nms"])
+                         "warp_two_pass", "nms", "roi_align_backward"])
     print(f"built {sorted(logs) or 'nothing (cached)'} in "
           f"{time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
@@ -3449,7 +3922,13 @@ def main():
                 convert=convert,
                 AdaINStylizer=adain.AdaINStylizer,
                 get_detection_dataset=get_detection_dataset,
-                default_experiment_args=default_experiment_args)
+                default_experiment_args=default_experiment_args,
+                FASTER_RCNN_TORCHVISION_PARITY=FASTER_RCNN_TORCHVISION_PARITY,
+                make_detector_train_step=make_detector_train_step,
+                DetectorTrainer=detector_trainer.DetectorTrainer,
+                detector_device_batch=detector_trainer._device_batch,
+                list_checkpoints=list_checkpoints,
+                PlateauScheduler=PlateauScheduler)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
     checks = [check_decode(torch, k1, dev, rng),
               check_warp(torch, k2, affine, affine_warp, dev, rng)]
@@ -3459,6 +3938,8 @@ def main():
     checks += [check_roi_variant(torch, k3, k3q, roi_ops, scene, odd,
                                  variant)
                for variant in ROI_RECORDS]
+    checks.append(check_roi_backward(torch, k3, roi_ops, scene, odd, dev,
+                                     rng))
     checks.append(check_warp_two_pass(torch, k4, mods, dev, args.seed + 5))
     checks.append(check_nms(torch, k5, dev, args.seed + 11))
     for k, _ in checks:
@@ -3483,6 +3964,12 @@ def main():
         style_launches, style, style_state = style_path(torch, mods, dev,
                                                         args, tmp)
     style["card"] = card
+    with tempfile.TemporaryDirectory() as tmp:
+        det_launches, det_train, (det_step, det_step_ms) = \
+            detector_train_path(torch, mods, dev, args, tmp)
+    det_train["card"] = card
+    next(k for k, _ in checks if k["name"] == "box_nms_topk")["shapes"][
+        "train_parity"] = det_train["parity"]["nms_check"]
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
@@ -3495,7 +3982,8 @@ def main():
                    "training": train_launches[k["name"]],
                    "eval": eval_launches[k["name"]],
                    "trainer": trainer_launches[k["name"]],
-                   "style": style_launches[k["name"]]}
+                   "style": style_launches[k["name"]],
+                   **{p: n[k["name"]] for p, n in det_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         kernels.append(k)
@@ -3550,6 +4038,13 @@ def main():
                             f"one vase engine call ({label}, VaseEvaluator)")
     del ev1, ev8
 
+    det_train["profile"] = profile_program(
+        torch, det_step, det_step_ms, args.out,
+        f"one detector train step (B = {DET_B}, ResNet-50-FPN, f32)",
+        expect=("roi_align_kernel", "roi_align_backward_kernel",
+                "nms_kernel"))
+    del det_step
+
     fns, devb, forms = eval_state
     for form, fn in fns.items():
         evaluation["profile" if form == "nhwc_view" else
@@ -3563,7 +4058,7 @@ def main():
                       "serving_bf16_roi8": quant, "vase": vase,
                       "training": train,
                       "eval": evaluation, "trainer": trainer,
-                      "style": style}))
+                      "style": style, "detector_training": det_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

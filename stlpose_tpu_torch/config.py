@@ -147,7 +147,8 @@ def get_hrnet_config(name: str = "w32_256x192") -> HRNetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FasterRCNNConfig:
-    """Faster R-CNN ResNet-FPN serving configuration."""
+    """Faster R-CNN ResNet-FPN configuration: serving (test-time) and
+    training budgets, the RPN's and the RoI head's matching and sampling."""
     num_classes: int = 2                   # background + person
     image_size: int = 400                  # square canvas side
     stage_sizes: tuple = (3, 4, 6, 3)
@@ -156,22 +157,36 @@ class FasterRCNNConfig:
     anchor_sizes: tuple = (32, 64, 128, 256, 512)
     anchor_ratios: tuple = (0.5, 1.0, 2.0)
     strides: tuple = (4, 8, 16, 32, 64)
+    # RPN
+    pre_nms_top_n_train: int = 1000
     pre_nms_top_n_test: int = 500
+    post_nms_top_n_train: int = 512
     post_nms_top_n_test: int = 256
     rpn_nms_thresh: float = 0.7
+    rpn_fg_iou: float = 0.7
+    rpn_bg_iou: float = 0.3
+    rpn_batch_per_image: int = 256
+    rpn_positive_fraction: float = 0.5
+    # RoI head
+    roi_fg_iou: float = 0.5
+    roi_batch_per_image: int = 256
+    roi_positive_fraction: float = 0.25
     box_weights: tuple = (10.0, 10.0, 5.0, 5.0)
     score_thresh: float = 0.05
     nms_thresh: float = 0.5
     detections_per_img: int = 64
 
 
-# torchvision's fasterrcnn_resnet50_fpn test-time budgets (pre/post NMS
-# 1000/1000, 100 detections an image), for AP-parity evaluation; the
-# default above keeps the tighter serving budgets
+# torchvision's fasterrcnn_resnet50_fpn budgets (pre/post NMS 2000/2000
+# at train, 1000/1000 at test, 100 detections an image), for AP-parity
+# runs; the default above keeps the tighter serving budgets
 FASTER_RCNN_TORCHVISION_PARITY = FasterRCNNConfig(
-    pre_nms_top_n_test=1000, post_nms_top_n_test=1000,
+    pre_nms_top_n_train=2000, pre_nms_top_n_test=1000,
+    post_nms_top_n_train=2000, post_nms_top_n_test=1000,
     detections_per_img=100)
 
 FASTER_RCNN_TINY = FasterRCNNConfig(
     stage_sizes=(1, 1, 1, 1), width=8, fpn_channels=32, image_size=128,
-    pre_nms_top_n_test=64, post_nms_top_n_test=32, detections_per_img=8)
+    pre_nms_top_n_train=64, pre_nms_top_n_test=64,
+    post_nms_top_n_train=32, post_nms_top_n_test=32,
+    roi_batch_per_image=32, detections_per_img=8)

@@ -31,7 +31,9 @@
 //   a double-buffered slot in shared memory, one barrier, and the same two
 //   redux.sync in every warp: one barrier per pick;
 // - the pick's box is read from a copy of all boxes in shared memory.
-// The block leaves the loop once no candidate is alive.
+// The block leaves the loop once no candidate is alive. Above 5,120
+// candidates a simple branch keeps them in global memory
+// (nms_global_kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -199,7 +201,78 @@ cudaError_t launch(const float* boxes, const S* scores, const uint8_t* valid,
   return cudaGetLastError();
 }
 
-// The design's sizes: the smallest of three that holds M.
+// Above 5,120 candidates (the torchvision-parity training budget, 6,529):
+// a simple branch whose candidates live in global memory. One block of T
+// threads per image, thread tid owning candidates tid, tid + T, ... (any
+// M); the keep mask itself holds each candidate's state (2 alive, 1 kept,
+// 0 removed), read and written only by its owner; boxes and scores are
+// read from the inputs at each pass (L1), areas and keys recomputed. The
+// same picks, IoU arithmetic and argmax as nms_kernel, so the same mask.
+template <int T, typename S>
+__global__ void __launch_bounds__(T)
+nms_global_kernel(const float* __restrict__ boxes, const S* __restrict__ scores,
+                  const uint8_t* __restrict__ valid, int M, int max_keep,
+                  float thr, uint8_t* __restrict__ keep) {
+  __shared__ uint2 s_red[2][T / 32];
+  const int tid = threadIdx.x;
+  const long long row = (long long)blockIdx.x * M;
+  boxes += row * 4;
+  scores += row;
+  keep += row;
+  if (valid != nullptr) valid += row;
+  for (int j = tid; j < M; j += T) {
+    const float s = load_score(scores + j);
+    keep[j] = ((valid == nullptr || valid[j] != 0) &&
+               s > __uint_as_float(0xff800000u))  // -inf
+                  ? 2
+                  : 0;
+  }
+
+  uint32_t prev = kNone;
+  float4 pb = make_float4(0.f, 0.f, 0.f, 0.f);
+  float parea = 0.f;
+  for (int p = 0; p < max_keep; ++p) {
+    uint32_t bk = 0u, bi = kNone;
+    for (int j = tid; j < M; j += T) {
+      if (keep[j] != 2) continue;
+      if (prev != kNone) {
+        const float4 b = make_float4(boxes[4 * j], boxes[4 * j + 1],
+                                     boxes[4 * j + 2], boxes[4 * j + 3]);
+        const float area = box_area(b);
+        const float iw = max_nan(min_nan(b.z, pb.z) - max_nan(b.x, pb.x), 0.f);
+        const float ih = max_nan(min_nan(b.w, pb.w) - max_nan(b.y, pb.y), 0.f);
+        const float inter = iw * ih;
+        const float denom = max_nan((area + parea) - inter, 1e-9f);
+        bool over;
+        if (inter == 0.f && denom == denom)
+          over = 0.f > thr;
+        else
+          over = inter / denom > thr;
+        if (over) {
+          keep[j] = 0;
+          continue;
+        }
+      }
+      const uint32_t key = score_key(load_score(scores + j));
+      if (key > bk) {  // candidates in increasing index: ties keep the first
+        bk = key;
+        bi = (uint32_t)j;
+      }
+    }
+    const uint2 pick = block_argmax<T>(bk, bi, s_red, p & 1);
+    if (pick.x == 0u) break;  // nothing alive: the mask is final
+    prev = pick.y;
+    if (prev % T == (uint32_t)tid) keep[prev] = 1;  // kept, and removed
+    pb = make_float4(boxes[4 * prev], boxes[4 * prev + 1],
+                     boxes[4 * prev + 2], boxes[4 * prev + 3]);
+    parea = box_area(pb);
+  }
+  for (int j = tid; j < M; j += T)
+    if (keep[j] != 1) keep[j] = 0;  // alive but never picked
+}
+
+// The design's sizes: the smallest of three that holds M, else the global
+// branch.
 template <typename S>
 int dispatch(const float* boxes, const S* scores, const uint8_t* valid, int B,
              int M, int max_keep, float thr, uint8_t* keep, void* stream) {
@@ -215,6 +288,11 @@ int dispatch(const float* boxes, const S* scores, const uint8_t* valid, int B,
   else if (M <= 5120)  // proposals at training budgets
     e = launch<1024, 5, true>(boxes, scores, valid, B, M, max_keep, thr,
                               keep, s);
+  else {  // the torchvision-parity training budget and above
+    nms_global_kernel<1024><<<B, 1024, 0, s>>>(boxes, scores, valid, M,
+                                               max_keep, thr, keep);
+    e = cudaGetLastError();
+  }
   return (int)e;
 }
 
@@ -236,8 +314,7 @@ __global__ void __launch_bounds__(T) argmax_rounds_kernel(int rounds,
 }  // namespace
 
 // Keep mask (B, M) uint8 of greedy NMS; boxes (B, M, 4) f32, scores (B, M)
-// f32 or bf16, valid (B, M) uint8 or null. Returns a cudaError_t
-// (cudaErrorInvalidValue for M > 5120).
+// f32 or bf16, valid (B, M) uint8 or null. Returns a cudaError_t.
 extern "C" int nms_f32_launch(const float* boxes, const float* scores,
                               const uint8_t* valid, int B, int M,
                               int max_keep, float thr, uint8_t* keep,

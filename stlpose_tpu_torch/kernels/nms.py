@@ -7,7 +7,9 @@ In plain PyTorch each pick is ~27 small ops, so the serving paths' two
 NMS calls launched thousands of kernels. Bound on the H100: latency, not
 bytes; the picks are serial. Design: the whole loop in one launch, one
 block per image, a thread's candidates in registers (shared memory above
-3 * 1024), each pick one pass that fuses the previous pick's suppression
+3 * 1024, global memory above ``SMEM_CANDIDATES``: a simple branch whose
+state lives in the keep mask, for the torchvision-parity training budget
+of 6,529), each pick one pass that fuses the previous pick's suppression
 with the next argmax, then a block-wide argmax of two ``redux.sync`` per
 warp around one barrier; the block stops once nothing is alive.
 
@@ -24,7 +26,9 @@ from stlpose_tpu_torch.kernels import _build
 from stlpose_tpu_torch.kernels._build import F32, I32, P
 
 LAUNCHES = 0
-MAX_CANDIDATES = 5 * 1024   # 1024 threads x 5 candidates (csrc/nms.cu)
+# 1024 threads x 5 candidates in shared memory (csrc/nms.cu); above, the
+# global-memory branch
+SMEM_CANDIDATES = 5 * 1024
 SYMBOLS = {torch.float32: "nms_f32_launch", torch.bfloat16: "nms_bf16_launch"}
 
 
@@ -72,8 +76,8 @@ def box_nms_topk(boxes, scores, iou_threshold: float, valid_mask,
                  max_keep: int):
     """Greedy NMS keep mask; see ``box_nms_topk_plain``. On the card:
     boxes contiguous float32 (B, M, 4), scores contiguous float32 or
-    bfloat16 (B, M), valid_mask contiguous bool (B, M) or None, M at most
-    ``MAX_CANDIDATES``; one launch per call."""
+    bfloat16 (B, M), valid_mask contiguous bool (B, M) or None; one
+    launch per call."""
     if boxes.device.type == "cpu":
         return box_nms_topk_plain(boxes, scores, iou_threshold, valid_mask,
                                   max_keep)
@@ -91,9 +95,6 @@ def box_nms_topk(boxes, scores, iou_threshold: float, valid_mask,
                          "boxes (B, M, 4), float32 or bfloat16 scores "
                          "(B, M) and bool valid_mask (B, M) or None, all "
                          "on one device")
-    if M > MAX_CANDIDATES:
-        raise ValueError(f"box_nms_topk: M = {M} candidates, the kernel "
-                         f"holds at most {MAX_CANDIDATES}")
     if B == 0 or M == 0:
         return torch.zeros((B, M), dtype=torch.bool, device=dev)
     keep = torch.empty((B, M), dtype=torch.bool, device=dev)

@@ -23,6 +23,17 @@ kernel launches, ``LAUNCHES_BY_TYPE`` the launches of each instantiation.
 The level of each box is an input: the caller computes it once
 (``ops/roi_align.py::_assign_levels``) and hands the same vector to either
 version, since a level flip is a large error, not a rounding one.
+
+K3b (``csrc/roi_align_backward.cu``) is the gradient of the f32
+instantiation with respect to the maps, for detector training. It has no
+Pallas original: the JAX package differentiates XLA's
+``stlpose_tpu/ops/roi_align.py::multilevel_roi_align`` by autodiff.
+``roi_align_backward`` launches it for CUDA tensors (f32 only) and runs
+``roi_align_backward_plain``, the autograd of ``roi_align_plain``, for CPU
+tensors; ``BACKWARD_LAUNCHES`` counts its launches. Its f32 atomic adds
+sum each map pixel's contributions in an order that changes from run to
+run. ``RoIAlignFunction`` ties the two into autograd: forward K3
+``f32_f32``, backward K3b; boxes and levels get no gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from stlpose_tpu_torch.kernels import _build
 from stlpose_tpu_torch.kernels._build import F32, I32, P
 
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 OUTPUT_SIZE = 7
 SAMPLING_RATIO = 2
 MAX_LEVELS = 4
@@ -185,3 +197,99 @@ def roi_align(feature_levels, boxes, levels, strides, scales=None,
     LAUNCHES += 1
     LAUNCHES_BY_TYPE[variant] += 1
     return out
+
+
+def roi_align_backward_plain(grad, level_shapes, boxes, levels, strides):
+    """Plain PyTorch version of K3b: the gradient of
+    ``roi_align_plain(maps, boxes, levels, strides)`` (f32 maps, f32 out)
+    with respect to the maps, by autograd. grad (B, P, 7, 7, C) f32;
+    level_shapes: the (B, h_l, w_l, C) of each level. Returns one f32 map
+    per level. The function is linear in the maps, so its gradient does
+    not depend on their values."""
+    if grad.dtype != torch.float32:
+        raise ValueError(f"roi_align_backward: float32 gradients only, got "
+                         f"{grad.dtype}")
+    with torch.enable_grad():
+        maps = [torch.zeros(tuple(s), dtype=torch.float32,
+                            device=grad.device, requires_grad=True)
+                for s in level_shapes]
+        out = roi_align_plain(maps, boxes, levels, strides)
+        grads = torch.autograd.grad(out, maps, grad, allow_unused=True)
+    # a level that no box reads has no gradient: zeros
+    return [torch.zeros_like(m) if g is None else g
+            for m, g in zip(maps, grads)]
+
+
+def roi_align_backward(grad, level_shapes, boxes, levels, strides):
+    """K3b: the gradient of K3's f32 pooling with respect to the maps; see
+    ``roi_align_backward_plain`` for the contract. On the card: float32
+    CUDA grad (B, P, 7, 7, C), boxes (B, P, 4) and levels (B, P) on the
+    same device, 1-4 levels; one zero fill per level and one launch."""
+    if boxes.device.type == "cpu":
+        return roi_align_backward_plain(grad, level_shapes, boxes, levels,
+                                        strides)
+    global BACKWARD_LAUNCHES
+    B, NB = boxes.shape[:2]
+    L = len(level_shapes)
+    C = level_shapes[0][-1] if L else 0
+    dev = boxes.device
+    if (dev.type != "cuda" or boxes.dtype != torch.float32
+            or boxes.shape != (B, NB, 4) or levels.shape != (B, NB)
+            or levels.device != dev or grad.device != dev
+            or grad.shape != (B, NB, OUTPUT_SIZE, OUTPUT_SIZE, C)):
+        raise ValueError("roi_align_backward: expected float32 CUDA boxes "
+                         "(B, P, 4), levels (B, P) and grad (B, P, 7, 7, C) "
+                         "on one device")
+    if grad.dtype != torch.float32:
+        raise ValueError(f"roi_align_backward: float32 gradients only, got "
+                         f"{grad.dtype}")
+    if not 1 <= L <= MAX_LEVELS or len(strides) < L or any(
+            len(s) != 4 or s[0] != B or s[-1] != C for s in level_shapes):
+        raise ValueError(f"roi_align_backward: 1..{MAX_LEVELS} levels of "
+                         f"(B={B}, h, w, C={C}) with strides expected")
+    grad = grad.contiguous()
+    boxes = boxes.contiguous()
+    lv32 = levels.to(torch.int32).contiguous()
+    maps = [torch.zeros(tuple(s), dtype=torch.float32, device=dev)
+            for s in level_shapes]
+    ptrs = [m.data_ptr() for m in maps] + [None] * (MAX_LEVELS - L)
+    hw = []
+    for i in range(MAX_LEVELS):
+        hw += ([level_shapes[i][1], level_shapes[i][2]] if i < L else [0, 0])
+    inv = [1.0 / s for s in strides[:L]] + [0.0] * (MAX_LEVELS - L)
+    launch = _build.launcher(
+        "roi_align_backward", "roi_align_backward_f32",
+        [P] * MAX_LEVELS + [I32] * (2 * MAX_LEVELS) + [F32] * MAX_LEVELS +
+        [I32] * 2 + [P] * 2 + [I32] * 2 + [P] * 2)
+    with torch.cuda.device(dev):
+        launch(*ptrs, *hw, *inv, L, C, boxes.data_ptr(), lv32.data_ptr(),
+               B, NB, grad.data_ptr(),
+               torch.cuda.current_stream().cuda_stream)
+    BACKWARD_LAUNCHES += 1
+    return maps
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """Multilevel RoIAlign of f32 maps with a gradient for the maps:
+    forward K3 ``f32_f32`` (``roi_align``), backward K3b
+    (``roi_align_backward``); each takes its plain version for CPU
+    tensors. ``apply(boxes, levels, strides, *maps)``; boxes and levels
+    get no gradient (the detector's proposals and ground truth are
+    constants of the loss)."""
+
+    @staticmethod
+    def forward(ctx, boxes, levels, strides, *feature_levels):
+        if any(f.dtype != torch.float32 for f in feature_levels):
+            raise ValueError("RoIAlignFunction: float32 maps only, got "
+                             f"{sorted({str(f.dtype) for f in feature_levels})}")
+        ctx.save_for_backward(boxes, levels)
+        ctx.strides = tuple(strides)
+        ctx.level_shapes = [tuple(f.shape) for f in feature_levels]
+        return roi_align(list(feature_levels), boxes, levels, strides)
+
+    @staticmethod
+    def backward(ctx, grad):
+        boxes, levels = ctx.saved_tensors
+        maps = roi_align_backward(grad, ctx.level_shapes, boxes, levels,
+                                  ctx.strides)
+        return (None, None, None, *maps)

@@ -1,8 +1,9 @@
 """ResNet backbone (NCHW) of the detector: returns C2..C5.
 
-Port of ``stlpose_tpu/models/resnet.py`` (live eval BatchNorm, or
-``folded``: ``stem_conv`` with a bias and no ``stem_bn``, every ConvBN
-folded). Its bottleneck is HRNet's (same layers, same names). Submodule
+Port of ``stlpose_tpu/models/resnet.py`` (live BatchNorm with flax's
+train-mode update, ``FlaxBatchNorm2d``, or ``folded``: ``stem_conv`` with
+a bias and no ``stem_bn``, every ConvBN folded). Its bottleneck is
+HRNet's (same layers, same names). Submodule
 names repeat the Flax module tree (``stem_conv``, ``stem_bn``,
 ``layer{s}_{b}.cb{q}``, ``.down``). The input is cast to the dtype of the
 convolutions (``models/hrnet.py::compute_in``), as flax's ``dtype`` does.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stlpose_tpu_torch.models.hrnet import Bottleneck
+from stlpose_tpu_torch.models.hrnet import Bottleneck, FlaxBatchNorm2d
 
 
 class ResNet(nn.Module):
@@ -24,7 +25,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.stem_conv = nn.Conv2d(3, width, 7, 2, 3, bias=folded)
-        self.stem_bn = None if folded else nn.BatchNorm2d(width)
+        self.stem_bn = None if folded else FlaxBatchNorm2d(width)
         cin, planes = width, width
         for s, n_blocks in enumerate(self.stage_sizes):
             for b in range(n_blocks):

@@ -5,7 +5,9 @@ Port of ``stlpose_tpu/ops/roi_align.py`` (``_assign_levels``,
 ``patch_quant`` option of ``stlpose_tpu/ops/pallas_roi.py::
 multilevel_roi_align_pallas_batched``: each box reads only its canonically
 assigned level. Sampling runs in the K3 kernel (``kernels/roi_align.py``),
-the int8 quantization in the K3q kernels (``kernels/quantize.py``).
+the int8 quantization in the K3q kernels (``kernels/quantize.py``). Under
+autograd (detector training) the f32 maps get their gradient from K3b,
+through ``kernels/roi_align.py::RoIAlignFunction``.
 """
 
 from __future__ import annotations
@@ -41,10 +43,20 @@ def multilevel_roi_align(feature_levels, boxes, strides,
     (B, P, 4) xyxy image pixels. Returns (B, P, 7, 7, C) in the maps'
     dtype. ``patch_quant`` pools from the int8 pyramid of
     ``quantize_levels`` and dequantizes each box exactly after pooling
-    (RoIAlign is linear per channel and a box reads one level)."""
+    (RoIAlign is linear per channel and a box reads one level). When
+    autograd records and a map requires grad, the f32 maps are pooled
+    through ``RoIAlignFunction`` (K3 forward, K3b backward; any other
+    dtype or ``patch_quant`` raises); inference takes the bare K3 call."""
     levels = _assign_levels(boxes, len(feature_levels))
     strides = strides[:len(feature_levels)]
     out_dtype = feature_levels[0].dtype
+    if torch.is_grad_enabled() and any(f.requires_grad
+                                       for f in feature_levels):
+        if patch_quant:
+            raise ValueError("multilevel_roi_align: no gradient through the "
+                             "int8 patch pyramid")
+        return _k3.RoIAlignFunction.apply(boxes, levels, strides,
+                                          *feature_levels)
     if patch_quant:
         q, scales = quantize_levels(feature_levels)
         return _k3.roi_align(q, boxes, levels, strides, scales, out_dtype)

@@ -312,13 +312,14 @@ def test_qualitative_comparison_renders_like_jax(engines, monkeypatch):
 @pytest.mark.parametrize("name", ["faster_rcnn", "faster_rcnn_tiny",
                                   "faster_rcnn_torchvision_parity"])
 def test_build_detector_configs_match_jax(workspace, name):
-    """Every field of the port's detector config equals the JAX one's
-    (the JAX config also holds the train-time fields, which come with
-    detector training)."""
+    """The port's detector config has the JAX one's fields, the training
+    budgets and sampling included, each equal."""
     exp = load_experiment_parameters(workspace["port_exp"])
     exp["model"]["detector_name"] = name
     _, ref = jax_detector_trainer.build_detector(exp)
     got = DETECTOR_CONFIGS[name]
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(ref)]
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
     if name == "faster_rcnn_tiny":
