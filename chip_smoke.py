@@ -26,13 +26,17 @@ Phases, each fatal on failure:
      uint8 and f32 canvases; K5 (greedy NMS) exactly, at the proposal,
      detection and training-budget shapes (``NMS_SHAPES``, ``nms_scene``:
      level-offset boxes, ties, zero-area boxes on top, dead images) with
-     f32 and bf16 scores, with and without a valid mask; its latency
-     floor from an empty block-wide argmax round; K3b (RoIAlign's
+     f32 and bf16 scores, with and without a valid mask, and on the
+     edges of its sorted-bitmask design (``nms_edge_cases``: M = 37 and
+     M = 130, max_keep above the alive count, NaN scores and boxes,
+     M = 20,000 and M = 40,000, whose sort runs in global memory); the
+     pick-argmax latency floor from an empty block-wide argmax round,
+     and the design's own floor (``nms_design_floor``); K3b (RoIAlign's
      gradient for the maps) within 1e-5 of the plain maps' max abs at the
      training shape (B = 8, 256 boxes, C = 256, ``roi_scene``), on a
      planted scene (``roi_backward_scene``: every level, past every
      border, under one pixel, tall, wide) and at C = 36, each run twice
-     (the run-to-run difference of its atomic sums printed);
+     and the two runs equal bit for bit;
   4. drive the fused two-stage serving path end to end at full width
      (Faster R-CNN ResNet50-FPN 400x400 + HRNet-W32 256x192, float32,
      B = 8, seeded random weights) with every launch counter set to 0
@@ -62,7 +66,7 @@ Phases, each fatal on failure:
      keypoints 1e-3) and against itself on the plain versions; the
      quantized bf16 flavor (K3q and K3 int8 -> bf16 launched, kernels vs
      plain, tied scores counted); the torchvision-parity detector (K5 on
-     3,654 proposal candidates, its shared-memory branch, and K3 on
+     3,654 proposal candidates and K3 on
      8 x 1000 boxes, each against its plain version on the call's
      inputs); engine ms per image at B = 1, per batch at B = 8 in turns
      with phase 4's bare fused call and split into upload, fused program
@@ -136,16 +140,22 @@ Phases, each fatal on failure:
      C = 256, 400x400, train budgets pre 1000 / post 512, 256 RPN anchors
      and 256 RoIs an image; B = 8, f32, Adam, seeded weights and
      BatchNorm; 32 train and 16 valid seeded canvases with 1-4 people
-     each, read from memory through the detection pipeline): K5's
-     global-memory branch at the torchvision-parity budget (M = 6,529,
-     2000 picks) exactly against its plain loop; counters set to 0, one
+     each, read from memory through the detection pipeline): K5 at the
+     torchvision-parity budget (M = 6,529, 2000 picks) exactly against
+     its plain loop; counters set to 0, one
      train step (finite loss terms, every parameter and running statistic
      moved, stem_bn's included; K3 f32, K3b and K5 launched); the loss
      and its gradient on the kernels against the plain versions (cuDNN
      deterministic; terms 1e-5 relative, every gradient 1e-4 of its max
-     abs); ms per step and samples/s, split into forward + loss and
-     backward + update; one step of the torchvision-parity detector
-     through K5's global-memory branch; then the detector CLI in-process:
+     abs), and on the kernels twice (the gradients' run-to-run
+     difference; where it is not 0.0, the first op of the step whose
+     output differs between two runs on equal inputs is named); K3b on
+     the inputs it got in the measured step (``roi_backward_on_step``:
+     the sampled RoIs, clustered around the people), against its plain
+     version and itself, timed warm and cold; ms per
+     step and samples/s, split into forward + loss and backward + update;
+     one step of the torchvision-parity detector (K5 at M = 6,529); then
+     the detector CLI in-process:
      01 -> 02_train_faster_rcnn (2 epochs: 2 finite losses and 2 APs in
      detector_logs.json, checkpoints 0, 1 and final, the plateau
      scheduler stepped on AP) -> a resume from checkpoint 1 ->
@@ -952,14 +962,88 @@ def argmax_round_ms(torch, dev, threads, blocks=B):
     return (t[1100] - t[100]) / 1000
 
 
+def nms_edge_cases(torch, dev, g):
+    """(label, boxes, scores, valid, max_keep, threshold) at the edges of
+    K5's sorted-bitmask design: M = 37 (one partial chunk of 64) and
+    M = 130 (a partial third chunk); max_keep above the alive count (130
+    candidates, a third of them invalid, 200 picks: the scan runs out of
+    candidates first); NaN scores (dead) and NaN box coordinates (IoU NaN:
+    neither suppressing nor suppressed) among 300 candidates; M = 20,000
+    (the block radix sort at 32 keys a thread) and M = 40,000 (above
+    32,768: the bitonic sort in the workspace), B = 2."""
+    def scene(n_img, M, extent=200.0, size=60.0):
+        xy = torch.rand((n_img, M, 2), generator=g) * extent
+        wh = torch.rand((n_img, M, 2), generator=g) * size
+        return (torch.cat([xy, xy + wh], -1),
+                torch.randn((n_img, M), generator=g))
+
+    cases = []
+    for M, keep in ((37, 16), (130, 40)):
+        boxes, scores = scene(B, M)
+        cases.append((f"m{M}", boxes, scores, None, keep, 0.5))
+    boxes, scores = scene(B, 130)
+    valid = torch.rand((B, 130), generator=g) > 0.33
+    cases.append(("keep_above_alive", boxes, scores, valid, 200, 0.5))
+    boxes, scores = scene(B, 300)
+    boxes[:, 3::11, 0] = torch.nan
+    boxes[:, 5::13, 3] = torch.nan
+    scores[:, 3::11] = 9.0                      # NaN boxes picked first
+    scores[:, ::7] = torch.nan
+    cases.append(("nan_scores_boxes", boxes, scores, None, 64, 0.5))
+    for M in (20000, 40000):
+        boxes, scores = scene(2, M, extent=2000.0)
+        cases.append((f"m{M}", boxes, scores, None, 300, 0.7))
+    return [(label, b.to(dev), s.to(dev), None if v is None else v.to(dev),
+             keep, thr) for label, b, s, v, keep, thr in cases]
+
+
+def nms_design_floor(torch, boxes, scores, valid, keep_mask, max_keep,
+                     rounds):
+    """The least time of K5's sorted-bitmask design on these inputs, what
+    its three kernels serialize: the block radix sort's 8 passes (4 bits
+    of the 32-bit keys each), each at least one block-wide round (256
+    threads up to 4,096 candidates, else 1024); two rounds of 256
+    threads (the resolve, then the reduction of the removed word) per
+    64-candidate chunk that the longest image's scan visits (to its
+    max_keep-th keep, else to its last alive candidate); and the
+    bitmask's words (the upper triangle of the alive candidates' 64 x 64
+    blocks) written once at 3.35 TB/s. ``rounds``: threads -> ms of one
+    empty block-wide argmax round. Returns (ms, chunks visited)."""
+    Bn, M = scores.shape
+    alive = scores.float() > -torch.inf
+    if valid is not None:
+        alive &= valid
+    key = torch.where(alive, scores.float() + 0.0, -torch.inf)
+    order = torch.sort(key, dim=1, descending=True, stable=True).indices
+    kept_sorted = torch.gather(keep_mask, 1, order).int()
+    n_alive = alive.sum(1)
+    chunks = 0
+    for b in range(Bn):
+        kept = kept_sorted[b].cumsum(0)
+        if int(kept[-1]) >= max_keep > 0:
+            last = int((kept >= max_keep).nonzero()[0, 0])
+        else:
+            last = int(n_alive[b]) - 1
+        chunks = max(chunks, last // 64 + 1 if last >= 0 else 0)
+    words = sum(((int(n) + 63) // 64) * ((int(n) + 63) // 64 + 1) // 2 * 64
+                for n in n_alive)
+    return (8 * rounds[256 if M <= 4096 else 1024] +
+            2 * chunks * rounds[256] +
+            words * 8 / HBM_BYTES_PER_S * 1e3), chunks
+
+
 def check_nms(torch, k5, dev, seed):
     """K5 at the three NMS shapes (``NMS_SHAPES``) on ``nms_scene``, with
-    f32 and bf16 scores, with ``valid`` and with None: keep masks equal to
+    f32 and bf16 scores, with ``valid`` and with None, and on
+    ``nms_edge_cases`` likewise: keep masks equal to
     ``box_nms_topk_plain``'s, and the planted cases as greedy NMS must
     give them. Timed warm and cold at each shape (f32 scores:
     ``detection_ms``, ...), the record's ``ms`` at the proposal shape;
-    bound from bytes, and beside it the latency floor: the picks of the
-    longest image times one empty block-wide argmax round on the card."""
+    bound from bytes, and beside it two floors: the pick-argmax form's
+    latency floor (the picks of the longest image times one empty
+    block-wide argmax round on the card: the earlier design's measure,
+    kept so records stay comparable) and this design's
+    (``nms_design_floor``)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     scenes, errs, extra = {}, {}, {}
     for label, levels, keep, thr in NMS_SHAPES:
@@ -991,10 +1075,35 @@ def check_nms(torch, k5, dev, seed):
                         "picks_longest_image": int(
                             k5.box_nms_topk(boxes, scores, thr, valid,
                                             keep).sum(1).max())}
+    for label, boxes, scores, valid, keep, thr in nms_edge_cases(
+            torch, dev, g):
+        for dtype in (torch.float32, torch.bfloat16):
+            sc = scores.to(dtype)
+            for v in ((valid, None) if valid is not None else (None,)):
+                got = k5.box_nms_topk(boxes, sc, thr, v, keep)
+                ref = k5.box_nms_topk_plain(boxes, sc, thr, v, keep)
+                case = (f"{label}_{str(dtype)[6:]}_"
+                        f"{'valid' if v is not None else 'no_valid'}")
+                errs[case] = float((got != ref).sum())
+                if errs[case]:
+                    fail(f"K5 {case}: keep mask differs from the plain "
+                         f"version at {int(errs[case])} candidates")
+                if label == "keep_above_alive" and not bool(
+                        (got.sum(1) < keep).all()):
+                    fail(f"K5 {case}: {got.sum(1).tolist()} picks")
+                if label == "nan_scores_boxes" and (
+                        bool(got[:, ::7].any()) or not bool(
+                            (got | sc.isnan())[:, 3::11].all())):
+                    fail(f"K5 {case}: a NaN score kept or a NaN box "
+                         f"suppressed")
     rounds = {t: argmax_round_ms(torch, dev, t) for t in (256, 1024)}
-    for e in extra.values():
+    for label, e in extra.items():
         e["latency_floor_ms"] = e["picks_longest_image"] * rounds[
             256 if e["candidates"] <= 256 else 1024]
+        boxes, scores, valid, keep, thr = scenes[label]
+        e["design_floor_ms"], e["scan_chunks_longest_image"] = \
+            nms_design_floor(torch, boxes, scores, valid, k5.box_nms_topk(
+                boxes, scores, thr, valid, keep), keep, rounds)
     boxes, scores, valid, keep, thr = scenes["proposal"]
     M = boxes.shape[1]
     # boxes, scores and valid read once, the keep mask written
@@ -1014,6 +1123,7 @@ def check_nms(torch, k5, dev, seed):
                 max_abs_err=max(errs.values()), tolerance=0.0,
                 case_errs=errs, bound_ms=b, bound_by=by, bytes=n_bytes,
                 latency_floor_ms=extra["proposal"]["latency_floor_ms"],
+                design_floor_ms=extra["proposal"]["design_floor_ms"],
                 argmax_round_ms=rounds, shapes=extra,
                 library="none (torchvision is not installed)",
                 shape=[B, M, 4, keep],
@@ -1340,7 +1450,6 @@ VASE_PARITY = "faster_rcnn_torchvision_parity"
 VASE_POSE = "w32_256x192"
 VASE_CLI_IMAGES, VASE_BATCH_IMAGES = 11, 13
 VASE_SOURCE = (240, 640)            # source sides before the letterbox
-NMS_REGISTER_CANDIDATES = 3 * 1024  # K5 keeps more in shared memory (nms.cu)
 
 
 def vase_canvas(seed, image_id, S):
@@ -1668,7 +1777,7 @@ def vase_path(torch, mods, dev, args, tmp, state):
             {"launches": paths["vase_tv_parity"], **shapes}), flush=True)
         if shapes != {"nms": [(B, M), (B, cfg.post_nms_top_n_test)],
                       "roi_boxes": [(B, cfg.post_nms_top_n_test, 4)]} or \
-                M <= NMS_REGISTER_CANDIDATES or not results_ok(outp, B):
+                not results_ok(outp, B):
             fail(f"vase torchvision parity: {shapes}, M = {M}")
         k5, k3 = mods["k5"], mods["k3"]
         parity = {"proposal_candidates": M,
@@ -3207,11 +3316,11 @@ def style_path(torch, mods, dev, args, tmp):
 DET_B, DET_SIDE, DET_LR = 8, 400, 1e-4
 DET_TRAIN_IMAGES, DET_VALID_IMAGES = 32, 16
 DET_CONFIG = "faster_rcnn"          # the CLI's STLPOSE_DETECTOR_CONFIG
-# K3b against its plain version: f32 atomic adds sum each pixel's
-# contributions in an order that changes from run to run
+# K3b against its plain version: autograd's scatter sums each pixel's
+# contributions in another order than the kernel's fixed one
 K3B_REL_TOL = 1e-5                  # of the plain gradient maps' max abs
 # the train step on the kernels against the plain versions (same weights,
-# draws, cuDNN deterministic): only K3b's sums differ
+# draws, cuDNN deterministic): only the plain scatter's order differs
 STEP_LOSS_REL_TOL, STEP_GRAD_TOL = 1e-5, 1e-4   # grads: of each max abs
 # the torchvision-parity training budget's proposal NMS: per level the top
 # 2000 of 30,000 / 7,500 / 1,875 / 507 / 147 anchors, 2000 picks
@@ -3270,8 +3379,9 @@ def check_roi_backward(torch, k3, roi_ops, scene, odd, dev, rng):
     C = 256, on a seeded upstream gradient), on the planted
     ``roi_backward_scene`` and on ``odd_roi_scene`` (C = 36): within
     K3B_REL_TOL of the plain maps' max abs; every level of the planted
-    scene reached; each case run twice, the run-to-run difference
-    recorded. Timed warm and cold at the training shape."""
+    scene reached; each case run twice, the two runs equal bit for bit
+    (the kernel sums in a fixed order). Timed warm and cold at the
+    training shape."""
     planted = roi_backward_scene(torch, roi_ops, dev, rng)
     errs, rel, rerun = {}, {}, {}
     for case, (feats, boxes, levels) in (("planted", planted),
@@ -3295,11 +3405,13 @@ def check_roi_backward(torch, k3, roi_ops, scene, odd, dev, rng):
     if not max(rel.values()) <= K3B_REL_TOL:
         fail(f"K3b differs from its plain version: {rel} of the maps' max "
              f"abs (tolerance {K3B_REL_TOL})")
+    if any(rerun.values()):
+        fail(f"K3b differs from itself run to run: {rerun}")
     feats, boxes, levels = scene
     n_bytes = (g.numel() + sum(f.numel() for f in feats) + boxes.numel() +
                levels.numel()) * 4
     # per inside sample and channel: the 0.25 scale, 4 weight products
-    # and 4 adds
+    # and 4 adds (the weights themselves, per sample, are not counted)
     n_in = inside_samples(torch, boxes, levels, ROI_SIZES)
     b, by = bound_ms(n_bytes, flops=9.0 * n_in * ROI_C)
     fns = {"": lambda: k3.roi_align_backward(*args),
@@ -3317,7 +3429,7 @@ def check_roi_backward(torch, k3, roi_ops, scene, odd, dev, rng):
                rel_tolerance=K3B_REL_TOL, case_errs=errs, case_rel_errs=rel,
                run_to_run_max_abs=rerun, bound_ms=b, bound_by=by,
                bytes=n_bytes, inside_samples=n_in,
-               atomic_adds=4 * n_in * ROI_C,
+               products=4 * n_in * ROI_C,
                library="none (torchvision is not on the card's machine)",
                shape=[B, ROI_P, ROI_C, *ROI_SIZES],
                **event_times(torch, fns, cold=True))
@@ -3327,10 +3439,11 @@ def check_roi_backward(torch, k3, roi_ops, scene, odd, dev, rng):
 
 
 def check_nms_parity(torch, k5, dev, seed):
-    """K5's global-memory branch at the torchvision-parity training budget
-    (M = 6,529 candidates, 2000 picks) on ``nms_scene``, f32 scores with
-    ``valid`` and bf16 scores without: keep masks equal to the plain
-    loop's, the planted cases as greedy NMS gives them; CUDA-event ms."""
+    """K5 at the torchvision-parity training budget (M = 6,529 candidates,
+    2000 picks) on ``nms_scene``, f32 scores with ``valid`` and bf16
+    scores without: keep masks equal to the plain loop's, the planted
+    cases as greedy NMS gives them; CUDA-event ms warm and cold (L2
+    flushed), beside the pick-argmax latency floor and the design's."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     boxes, scores, valid = nms_scene(torch, dev, g, PARITY_LEVELS)
     errs = {}
@@ -3349,10 +3462,17 @@ def check_nms_parity(torch, k5, dev, seed):
             and int(picks[2]) == 0 and 0 < int(picks[3]) <= 10):
         fail(f"K5 at M = {boxes.shape[1]}: planted cases wrong (picks "
              f"{picks.tolist()})")
+    rounds = {t: argmax_round_ms(torch, dev, t) for t in (256, 1024)}
+    floor, chunks = nms_design_floor(torch, boxes, scores, valid, keep,
+                                     PARITY_KEEP, rounds)
+    fn = lambda: k5.box_nms_topk(boxes, scores, 0.7, valid, PARITY_KEEP)
     return {"candidates": int(boxes.shape[1]), "picks": PARITY_KEEP,
             "picks_longest_image": int(picks.max()), "mismatches": errs,
-            "events_ms": elapsed_ms(torch, lambda: k5.box_nms_topk(
-                boxes, scores, 0.7, valid, PARITY_KEEP), 5)}
+            "latency_floor_ms": int(picks.max()) * rounds[1024],
+            "design_floor_ms": floor, "scan_chunks_longest_image": chunks,
+            "events_ms": elapsed_ms(torch, fn, 5),
+            "cold_events_ms": cold_elapsed_ms(torch, fn, l2_flush(torch),
+                                              5)}
 
 
 def detection_people(rng, ids, S=DET_SIDE):
@@ -3436,29 +3556,121 @@ def detector_epoch_clock(torch, trainer_cls, times):
             setattr(trainer_cls, n, fn)
 
 
+def first_varying_op(torch, fn):
+    """Run ``fn(mode)`` twice, ``fn`` entering ``mode`` around the work to
+    search: a dispatch mode that logs every ATen op (backward included)
+    with checksums of its tensor inputs and outputs. Return the first op
+    whose inputs are equal in both runs and whose outputs are not (the op
+    that sums in a varying order), as "name (op k of n)", or a note of why
+    none was found. Ops that allocate or re-point storage without writing
+    it (``empty``, ``set_``) are left out."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    def checksums(values):
+        out = []
+        for t in tree_flatten(values)[0]:
+            if not isinstance(t, torch.Tensor) or t.numel() == 0:
+                continue
+            b = t.detach().contiguous().view(-1).view(torch.uint8)
+            w = (b.view(torch.int32) if b.numel() % 4 == 0 else b) \
+                .to(torch.int64)
+            pos = torch.arange(w.numel(), device=w.device) % 8191 + 1
+            out.append(torch.stack([w.sum(), (w * pos).sum()]))
+        return out
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if "empty" in str(func) or "set_" in str(func):
+                return func(*args, **kwargs)
+            ins = checksums((args, kwargs))
+            res = func(*args, **kwargs)
+            self.ops.append((str(func), ins, checksums(res)))
+            return res
+
+    logs = []
+    for _ in range(2):
+        log = Log()
+        fn(log)
+        logs.append([(name, [x.tolist() for x in ins],
+                      [x.tolist() for x in outs])
+                     for name, ins, outs in log.ops])
+    a, b = logs
+    for k, (oa, ob) in enumerate(zip(a, b)):
+        if oa[0] != ob[0]:
+            return f"none: the two runs' ops diverge at op {k} ({oa[0]}, " \
+                   f"{ob[0]})"
+        if oa[1] == ob[1] and oa[2] != ob[2]:
+            return f"{oa[0]} (op {k} of {len(a)})"
+    return (f"none among {len(a)} ATen ops: the difference enters outside "
+            f"them (a kernel of the port)")
+
+
+def roi_backward_on_step(torch, k3, log):
+    """K3b on the inputs it got in a detector train step (``log``: one
+    ``calls_to`` record): the RoIs the step sampled, clustered around the
+    people, unlike ``roi_scene``'s spread boxes. Against its plain version
+    (within K3B_REL_TOL of the plain maps' max abs) and against itself (0.0
+    run to run); CUDA-event ms warm and cold, the plain version's warm."""
+    (args, kw, _), = log
+    args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+    got = k3.roi_align_backward(*args, **kw)
+    again = k3.roi_align_backward(*args, **kw)
+    ref = k3.roi_align_backward_plain(*args, **kw)
+    rel = max(float((a - r).abs().max()) for a, r in zip(got, ref)) / max(
+        float(r.abs().max()) for r in ref)
+    rerun = max(float((a - b).abs().max()) for a, b in zip(got, again))
+    if rel > K3B_REL_TOL or rerun:
+        fail(f"K3b on the train step's inputs: {rel} of the maps' max abs "
+             f"from its plain version, {rerun} from itself run to run")
+    levels = args[3]
+    return {"boxes_by_level": torch.bincount(
+        levels.flatten().long() + 1, minlength=5).tolist()[1:],
+            "rel_err": rel, "run_to_run_max_abs": rerun,
+            "inside_samples": inside_samples(
+                torch, args[2], levels, [s[1] for s in args[1]], args[4]),
+            **event_times(torch, {
+                "": lambda: k3.roi_align_backward(*args, **kw),
+                "plain_": lambda: k3.roi_align_backward_plain(*args, **kw)},
+                cold=True)}
+
+
 def detector_step_vs_plain(torch, mods, base, batch, seed):
     """FasterRCNN.loss_fn and its backward from the weights of ``base``
     and the same draws, on the kernels and on the plain versions (cuDNN
     deterministic): loss terms within STEP_LOSS_REL_TOL relative, every
     parameter's gradient within STEP_GRAD_TOL of its max abs. The kernels
-    run twice: their gradients' run-to-run difference (K3b's atomic sums
-    in another order) is recorded beside."""
+    run twice: their gradients' run-to-run difference is recorded beside
+    and, where it is not 0.0, the op that sums in a varying order
+    (``first_varying_op``)."""
     import copy
     runs = {}
+
+    def run(mode=contextlib.nullcontext()):
+        model = copy.deepcopy(base)
+        gen = torch.Generator(device=batch["image"].device).manual_seed(seed)
+        with mode:
+            total, terms = model.loss_fn(batch, gen)
+            total.backward()
+        return ({"total": float(total.detach()), **{
+            k: float(v) for k, v in terms.items()}},
+            {n: p.grad for n, p in model.named_parameters()})
+
     torch.backends.cudnn.deterministic = True
     try:
         for label in ("kernels", "kernels_again", "plain"):
-            model = copy.deepcopy(base)
-            gen = torch.Generator(device=batch["image"].device) \
-                .manual_seed(seed)
             with (plain_versions(mods) if label == "plain"
                   else contextlib.nullcontext()):
-                total, terms = model.loss_fn(batch, gen)
-                total.backward()
-            runs[label] = ({"total": float(total.detach()), **{
-                k: float(v) for k, v in terms.items()}},
-                {n: p.grad for n, p in model.named_parameters()})
-            del model
+                runs[label] = run()
+        varying = None
+        if any(not torch.equal(runs["kernels_again"][1][n], g)
+               for n, g in runs["kernels"][1].items()):
+            varying = first_varying_op(torch, run)
     finally:
         torch.backends.cudnn.deterministic = False
     (tk, gk), (tp, gp) = runs["kernels"], runs["plain"]
@@ -3474,7 +3686,8 @@ def detector_step_vs_plain(torch, mods, base, batch, seed):
     again, again_err = worst_grad(runs["kernels_again"][1], gk)
     rec = {"loss_rel_errs": loss_rel, "grad_max_err_of_max_abs": err,
            "grad_worst": worst, "kernels_run_to_run_grad_of_max_abs":
-           again_err, "run_to_run_worst": again, "losses": tk}
+           again_err, "run_to_run_worst": again,
+           "run_to_run_varying_op": varying, "losses": tk}
     if max(loss_rel.values()) > STEP_LOSS_REL_TOL or err > STEP_GRAD_TOL:
         fail(f"detector train step, kernels vs plain: {rec}")
     return rec
@@ -3485,9 +3698,10 @@ def detector_train_path(torch, mods, dev, args, tmp):
     budget; one train step (seeded weights and non-trivial BatchNorm,
     Adam) with every counter set to 0 first: finite loss terms, every
     parameter and running statistic moved, K3 f32, K3b and K5 launched;
-    the step on the kernels against the plain versions; ms per step and
+    the step on the kernels against the plain versions; K3b on the
+    step's own inputs (``roi_backward_on_step``); ms per step and
     samples/s, split into forward + loss and backward + update; one step
-    of the torchvision-parity detector through K5's global-memory branch;
+    of the torchvision-parity detector (K5 at M = 6,529);
     then the detector CLI in-process (01 -> 02 -> resume -> 03) with its
     epochs timed. Returns (launches by path, summary, (step, ms))."""
     import copy
@@ -3523,7 +3737,9 @@ def detector_train_path(torch, mods, dev, args, tmp):
     before = {k: v.detach().clone() for k, v in det.state_dict().items()
               if not k.endswith("num_batches_tracked")}
     reset_counts(mods)
-    metrics = step(state, batches[1], gen)
+    k3b_log = []
+    with calls_to(k3, "roi_align_backward", k3b_log):
+        metrics = step(state, batches[1], gen)
     torch.cuda.synchronize()
     launches = {"detector_training": launch_counts(mods)}
     metrics = {k: float(v) for k, v in metrics.items()}
@@ -3540,6 +3756,8 @@ def detector_train_path(torch, mods, dev, args, tmp):
              f"{still[:8]}, launches {n}")
     vs_plain = detector_step_vs_plain(torch, mods, base, batches[2],
                                       args.seed + 36)
+    k3b_step = roi_backward_on_step(torch, k3, k3b_log)
+    del k3b_log
     del base
 
     b = batches[3]
@@ -3621,7 +3839,8 @@ def detector_train_path(torch, mods, dev, args, tmp):
         "batch": DET_B, "train_step_metrics": metrics,
         "launches_per_step": {k: v for k, v in
                               launches["detector_training"].items() if v},
-        "kernels_vs_plain": vs_plain, "ms_per_step": step_ms,
+        "kernels_vs_plain": vs_plain, "roi_backward_on_step": k3b_step,
+        "ms_per_step": step_ms,
         "samples_per_s": DET_B / step_ms * 1e3,
         "forward_loss_ms": fwd_ms, "backward_update_ms": step_ms - fwd_ms,
         "parity": {"nms_candidates": m_parity, "loss": pm["loss"],
@@ -3970,6 +4189,8 @@ def main():
     det_train["card"] = card
     next(k for k, _ in checks if k["name"] == "box_nms_topk")["shapes"][
         "train_parity"] = det_train["parity"]["nms_check"]
+    next(k for k, _ in checks if k["name"] == "roi_align_backward")[
+        "detector_step_inputs"] = det_train["roi_backward_on_step"]
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
@@ -4041,8 +4262,9 @@ def main():
     det_train["profile"] = profile_program(
         torch, det_step, det_step_ms, args.out,
         f"one detector train step (B = {DET_B}, ResNet-50-FPN, f32)",
-        expect=("roi_align_kernel", "roi_align_backward_kernel",
-                "nms_kernel"))
+        expect=("roi_align_kernel", "roi_backward_footprint_kernel",
+                "roi_backward_gather_kernel", "nms_sort_kernel",
+                "nms_mask_kernel", "nms_scan_kernel"))
     del det_step
 
     fns, devb, forms = eval_state

@@ -77,6 +77,30 @@ def build(names) -> dict[str, str]:
     return logs
 
 
+def library(name: str) -> ctypes.CDLL:
+    """Kernel ``name``'s shared library, built and loaded on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(_target(name)[1])
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        _loaded[name] = lib
+    return lib
+
+
+def function(name: str, symbol: str, argtypes, restype):
+    """The host-side C function ``symbol`` of kernel ``name`` (a size
+    query, no launch), bound once per process."""
+    key = (name, symbol)
+    if key not in _launchers:
+        fn = getattr(library(name), symbol)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+        _launchers[key] = fn
+    return _launchers[key]
+
+
 def launcher(name: str, symbol: str, argtypes):
     """The C entry ``symbol`` of kernel ``name`` (built and loaded on first
     use) as a callable that raises on a non-zero ``cudaError_t``. Pointer
@@ -85,13 +109,7 @@ def launcher(name: str, symbol: str, argtypes):
     key = (name, symbol)
     if key in _launchers:
         return _launchers[key]
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(_target(name)[1])
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        _loaded[name] = lib
+    lib = library(name)
     fn = getattr(lib, symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = list(argtypes)

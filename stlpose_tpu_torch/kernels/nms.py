@@ -1,24 +1,33 @@
-"""K5: pick-argmax greedy NMS (CUDA kernel ``csrc/nms.cu``).
+"""K5: greedy NMS as a score-sorted IoU bitmask plus one scan (CUDA
+kernels ``csrc/nms.cu``).
 
 Has no Pallas original: it replaces ``stlpose_tpu/ops/nms.py::
 _box_nms_topk`` (``box_nms_jax`` with ``max_keep``), a
 ``jax.lax.fori_loop`` that XLA runs on the TPU as one on-device loop.
 In plain PyTorch each pick is ~27 small ops, so the serving paths' two
 NMS calls launched thousands of kernels. Bound on the H100: latency, not
-bytes; the picks are serial. Design: the whole loop in one launch, one
-block per image, a thread's candidates in registers (shared memory above
-3 * 1024, global memory above ``SMEM_CANDIDATES``: a simple branch whose
-state lives in the keep mask, for the torchvision-parity training budget
-of 6,529), each pick one pass that fuses the previous pick's suppression
-with the next argmax, then a block-wide argmax of two ``redux.sync`` per
-warp around one barrier; the block stops once nothing is alive.
+bytes; greedy NMS is serial. Design: the JAX package's full formulation
+(``box_nms_jax`` without ``max_keep``: a stable sort by score, then a
+suppression matrix) cut at ``max_keep`` survivors, which gives the same
+mask as the pick-argmax loop. One wrapper call launches three kernels:
+a block per image sorts the score keys (CUB's stable block radix sort up
+to 32,768 candidates, a bitonic network in the workspace above); blocks
+over the whole card write the upper triangle of the sorted candidates'
+"IoU > thr" bitmask, 64 bits a word; a block per image scans it in
+chunks of 64 candidates (warp 0 resolves a chunk in rounds of one ballot,
+while the other warps OR the kept rows' words for the next chunk), then
+scatters the keep bits back to candidate order. The workspace (order,
+sorted boxes, alive counts, kept rows, B x M x ceil(M / 64) words of
+mask) is one ``torch.empty`` per call.
 
-``box_nms_topk`` launches the kernel for CUDA tensors and runs
-``box_nms_topk_plain`` for CPU tensors. ``LAUNCHES`` counts kernel
-launches.
+``box_nms_topk`` launches the kernels for CUDA tensors and runs
+``box_nms_topk_plain`` for CPU tensors. ``LAUNCHES`` counts wrapper
+calls (three kernel launches each).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -26,9 +35,6 @@ from stlpose_tpu_torch.kernels import _build
 from stlpose_tpu_torch.kernels._build import F32, I32, P
 
 LAUNCHES = 0
-# 1024 threads x 5 candidates in shared memory (csrc/nms.cu); above, the
-# global-memory branch
-SMEM_CANDIDATES = 5 * 1024
 SYMBOLS = {torch.float32: "nms_f32_launch", torch.bfloat16: "nms_bf16_launch"}
 
 
@@ -76,8 +82,8 @@ def box_nms_topk(boxes, scores, iou_threshold: float, valid_mask,
                  max_keep: int):
     """Greedy NMS keep mask; see ``box_nms_topk_plain``. On the card:
     boxes contiguous float32 (B, M, 4), scores contiguous float32 or
-    bfloat16 (B, M), valid_mask contiguous bool (B, M) or None; one
-    launch per call."""
+    bfloat16 (B, M), valid_mask contiguous bool (B, M) or None; three
+    kernel launches per call."""
     if boxes.device.type == "cpu":
         return box_nms_topk_plain(boxes, scores, iou_threshold, valid_mask,
                                   max_keep)
@@ -97,13 +103,19 @@ def box_nms_topk(boxes, scores, iou_threshold: float, valid_mask,
                          "on one device")
     if B == 0 or M == 0:
         return torch.zeros((B, M), dtype=torch.bool, device=dev)
+    if B > 65535:
+        raise ValueError(f"box_nms_topk: at most 65535 images, got {B}")
     keep = torch.empty((B, M), dtype=torch.bool, device=dev)
+    workspace_bytes = _build.function("nms", "nms_workspace_bytes",
+                                      [I32, I32], ctypes.c_longlong)
+    workspace = torch.empty(workspace_bytes(B, M), dtype=torch.uint8,
+                            device=dev)
     launch = _build.launcher("nms", SYMBOLS[scores.dtype],
-                             [P] * 3 + [I32] * 3 + [F32] + [P] * 2)
+                             [P] * 3 + [I32] * 3 + [F32] + [P] * 3)
     with torch.cuda.device(dev):
         launch(boxes.data_ptr(), scores.data_ptr(),
                None if valid_mask is None else valid_mask.data_ptr(), B, M,
                min(max_keep, M), iou_threshold, keep.data_ptr(),
-               torch.cuda.current_stream().cuda_stream)
+               workspace.data_ptr(), torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return keep

@@ -30,13 +30,20 @@ Pallas original: the JAX package differentiates XLA's
 ``stlpose_tpu/ops/roi_align.py::multilevel_roi_align`` by autodiff.
 ``roi_align_backward`` launches it for CUDA tensors (f32 only) and runs
 ``roi_align_backward_plain``, the autograd of ``roi_align_plain``, for CPU
-tensors; ``BACKWARD_LAUNCHES`` counts its launches. Its f32 atomic adds
-sum each map pixel's contributions in an order that changes from run to
-run. ``RoIAlignFunction`` ties the two into autograd: forward K3
-``f32_f32``, backward K3b; boxes and levels get no gradient.
+tensors; ``BACKWARD_LAUNCHES`` counts its wrapper calls. It is a
+deterministic gather with no atomics, two launches a call: a pre-pass
+gives each box the pixel range of its taps on its level (its taps fall
+on at most 28 columns and 28 rows), then a block per (image, level, 8
+pixels of a row) keeps the boxes whose range reaches them, and a warp
+per pixel sums the pixel's contributions in registers (8 channels a
+lane) in a fixed order (box index, bin, sample, tap) and writes each
+element once: the same bits on every run, and no zero fill. ``RoIAlignFunction`` ties the two into autograd:
+forward K3 ``f32_f32``, backward K3b; boxes and levels get no gradient.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -224,7 +231,8 @@ def roi_align_backward(grad, level_shapes, boxes, levels, strides):
     """K3b: the gradient of K3's f32 pooling with respect to the maps; see
     ``roi_align_backward_plain`` for the contract. On the card: float32
     CUDA grad (B, P, 7, 7, C), boxes (B, P, 4) and levels (B, P) on the
-    same device, 1-4 levels; one zero fill per level and one launch."""
+    same device, 1-4 levels; two kernel launches, every map element
+    written by the second."""
     if boxes.device.type == "cpu":
         return roi_align_backward_plain(grad, level_shapes, boxes, levels,
                                         strides)
@@ -250,8 +258,13 @@ def roi_align_backward(grad, level_shapes, boxes, levels, strides):
     grad = grad.contiguous()
     boxes = boxes.contiguous()
     lv32 = levels.to(torch.int32).contiguous()
-    maps = [torch.zeros(tuple(s), dtype=torch.float32, device=dev)
+    maps = [torch.empty(tuple(s), dtype=torch.float32, device=dev)
             for s in level_shapes]
+    scratch_bytes = _build.function(
+        "roi_align_backward", "roi_align_backward_scratch_bytes", [I32],
+        ctypes.c_longlong)
+    scratch = torch.empty(scratch_bytes(B * NB), dtype=torch.uint8,
+                          device=dev)
     ptrs = [m.data_ptr() for m in maps] + [None] * (MAX_LEVELS - L)
     hw = []
     for i in range(MAX_LEVELS):
@@ -260,10 +273,10 @@ def roi_align_backward(grad, level_shapes, boxes, levels, strides):
     launch = _build.launcher(
         "roi_align_backward", "roi_align_backward_f32",
         [P] * MAX_LEVELS + [I32] * (2 * MAX_LEVELS) + [F32] * MAX_LEVELS +
-        [I32] * 2 + [P] * 2 + [I32] * 2 + [P] * 2)
+        [I32] * 2 + [P] * 2 + [I32] * 2 + [P] * 3)
     with torch.cuda.device(dev):
         launch(*ptrs, *hw, *inv, L, C, boxes.data_ptr(), lv32.data_ptr(),
-               B, NB, grad.data_ptr(),
+               B, NB, grad.data_ptr(), scratch.data_ptr(),
                torch.cuda.current_stream().cuda_stream)
     BACKWARD_LAUNCHES += 1
     return maps

@@ -148,3 +148,69 @@ def test_backward_refuses_bf16_and_int8(scene):
             torch.empty((1, 5, 7, 7, 4), device=meta), [(1, 8, 8, 4)],
             torch.empty((1, 5, 4), device=meta),
             torch.empty((1, 5), dtype=torch.int32, device=meta), (4,))
+
+
+
+def footprint(box, level, size, stride):
+    """K3b's pre-pass (``kernels/csrc/roi_align_backward.cu::
+    roi_backward_footprint_kernel``) in plain torch, for one box on one
+    level: per axis, the pixel range (lo, hi) of its inside samples' taps,
+    min i0 to max i1, and the set of those taps; None where no sample
+    lies inside. K3's sample positions (``roi_align_single_level``): 14
+    per axis, inside when within [-1, size]."""
+    n, sr = 7, 2
+    s = torch.arange(n * sr)
+    pos = (s // sr).to(torch.float32) + ((s % sr).to(torch.float32) + 0.5) / sr
+    b = box * (1.0 / stride)
+    axes = []
+    for lo, hi in ((b[0], b[2]), (b[1], b[3])):
+        g = lo + pos * (torch.clamp(hi - lo, min=1.0) /
+                        torch.tensor(float(n)))
+        inside = (g >= -1.0) & (g <= size)
+        if not inside.any():
+            return None
+        i0 = torch.floor(torch.clamp(g, 0.0, size - 1)).to(torch.int64)
+        i1 = (i0 + 1).clamp(max=size - 1)
+        taps = set(i0[inside].tolist()) | set(i1[inside].tolist())
+        axes.append((int(i0[inside].min()), int(i1[inside].max()), taps))
+    return axes
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_gradient_support_within_footprint(seed):
+    """The footprint rule K3b's gather relies on: each box's gradient (the
+    plain version's, that box alone on its level) is zero outside the
+    pixel range of its inside samples' taps, on every level and image,
+    and falls on at most 28 columns and 28 rows (two taps of 14 samples
+    an axis), whatever the box's size; a box without an inside sample has
+    no gradient."""
+    feats, boxes, levels = planted_scene(seed)
+    shapes = [f.shape for f in feats]
+    grad = torch.from_numpy(np.random.RandomState(seed + 10).randn(
+        *boxes.shape[:2], 7, 7, C).astype(np.float32))
+    bt = torch.from_numpy(boxes)
+    spans = []
+    for b in range(boxes.shape[0]):
+        for p in range(boxes.shape[1]):
+            alone = torch.full_like(levels, -1)
+            alone[b, p] = levels[b, p]
+            maps = _k3.roi_align_backward_plain(grad, shapes, bt, alone,
+                                                STRIDES)
+            li = int(levels[b, p])
+            fp = footprint(bt[b, p], li, SIZES[li], STRIDES[li])
+            for lj, m in enumerate(maps):
+                support = m.abs().sum(-1) > 0               # (B, h, w)
+                if lj != li or fp is None:
+                    assert not support.any(), (b, p, lj)
+                    continue
+                (x_lo, x_hi, x_taps), (y_lo, y_hi, y_taps) = fp
+                inside = torch.zeros_like(support)
+                inside[b, y_lo:y_hi + 1, x_lo:x_hi + 1] = True
+                assert support.any() and not (support & ~inside).any(), \
+                    (b, p, fp)
+                cols = set(support[b].any(0).nonzero()[:, 0].tolist())
+                rows = set(support[b].any(1).nonzero()[:, 0].tolist())
+                assert cols <= x_taps and rows <= y_taps, (b, p)
+                assert len(x_taps) <= 28 and len(y_taps) <= 28, fp
+                spans.append(max(len(cols), len(rows)))
+    assert max(spans) == 28                    # the bound is reached
