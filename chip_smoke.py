@@ -6,8 +6,9 @@
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name, power limit); TF32 off;
   2. build the seven CUDA kernel sources from
-     stlpose_tpu_torch/kernels/csrc (one nvcc per source, in parallel) and
-     print the build time;
+     stlpose_tpu_torch/kernels/csrc (one nvcc per source, in parallel),
+     and the host HNSW library (stlpose_tpu_torch/native/hnsw.cpp, g++)
+     alongside them, and print the build time;
   3. per kernel, at its main path's shapes, compare the kernel with its
      plain PyTorch version on the card; bound = the bytes the function
      must move at 3.35 TB/s (or its f32 operations at 67 TFLOP/s, if
@@ -161,6 +162,28 @@ Phases, each fatal on failure:
      scheduler stepped on AP) -> a resume from checkpoint 1 ->
      03_evaluate_faster_rcnn on "final" (12 stats, finite or -1), with ms
      per train and per validation epoch;
+  5f. pose retrieval at full width: an arch_data experiment through 01,
+     phase 4's seeded HRNet-W32 as its checkpoint "final", 1,024 seeded
+     640x320 figure images read from memory (one figure and one of 12
+     characters in 4 narratives each; device warp, the card's machine
+     having no cv2), the narrative maps through
+     aux_map_characters_to_narratives; counters set to 0, 05 (f32,
+     flip-TTA, B = 32, so 64 crops a forward and 32 batches: K1 once a
+     batch, through its bulk kernel, and K4 once a batch; 1,024 entries
+     of numpy joints inside the 192x256 crop frame); the extraction on
+     the kernels against the plain versions with cuDNN deterministic
+     (joints, visibility and maxima equal bit for bit, K1 0.0 from its
+     plain version on every batch's heatmaps); 06 (full_body, euclidean,
+     normalised: features (1024, 26)) -> 07 knn, query-all (two results
+     JSONs, finite, general scores in [0, 1]) -> 06 and 07 on the first
+     256 entries with knn and with euclidean_distance, no penalisation
+     (their character p@1 side by side); 07_retrieval_test and
+     07_display_database_skeletons need matplotlib and run in the CPU
+     tests only; the HNSW index at 50,000 x 34 on the host (recall@10
+     >= 0.95 against the exact top 10, a save/load round trip); one
+     extraction batch split into flip-TTA forward, K1 (CUDA events) and
+     host fetch + entries, the whole extraction, the scripts' main in
+     host seconds;
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
      same function, over 20 repeats with the inputs warm in L2, and for
@@ -180,7 +203,8 @@ Phases, each fatal on failure:
      likewise, in f32 and in bf16; one vase engine call at B = 1 and one
      at B = 8 likewise; one stylizer call at B = 32 on 256x192 crops and
      one style engine iteration (host warp, crops stylized) likewise; one
-     detector train step likewise (K3, K3b and K5 in its trace).
+     detector train step likewise (K3, K3b and K5 in its trace); one
+     retrieval extraction batch likewise (K1's bulk kernel in its trace).
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -191,9 +215,11 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -3852,6 +3878,368 @@ def detector_train_path(torch, mods, dev, args, tmp):
     return launches, summary, ((lambda: step(state, b, gen)), step_ms)
 
 
+# ---------------------------------------------------------- retrieval (5f)
+# Pose retrieval at full width: 1,024 ClassArch-layout figure images (one
+# figure and one character each; a standing figure's 640 x 320 canvas,
+# which the device-warp pipeline letterboxes to 640 x 640 as a copy), 12
+# characters in 4 narratives, HRNet-W32 256x192 f32 with flip-TTA at the
+# config's batch of 32 (64 crops a forward, 32 batches); the HNSW index at
+# the 50,000 x 34 scale of tests/test_retrieval_scale.py
+RETRIEVAL_IMAGES, RETRIEVAL_B = 1024, 32
+RETRIEVAL_HW = (640, 320)
+RETRIEVAL_NARRATIVES = {
+    "labours of Heracles": ["Heracles", "Iolaos", "Athena"],
+    "Dionysian thiasos": ["Dionysos", "satyr", "maenad"],
+    "Trojan war": ["Achilles", "Hector", "Ajax"],
+    "Theseus cycle": ["Theseus", "Minotaur", "Ariadne"]}
+RETRIEVAL_EXHAUSTIVE = 256          # entries of the O(N^2) 07 run
+HNSW_N, HNSW_DIM, HNSW_K, HNSW_QUERIES = 50_000, 34, 10, 200
+RECALL_MIN = 0.95                   # tests/test_retrieval_scale.py's gate
+
+
+def archdata_dataset(root, seed):
+    """``root``/annotations_arch_data/arch_data_keypoints.json from
+    ``seed``: RETRIEVAL_IMAGES images of RETRIEVAL_HW, one figure each (a box of
+    160-280 x 400-600 px, 17 keypoints inside, all visible) and a
+    character of RETRIEVAL_NARRATIVES. Returns {image_id: uint8 canvas},
+    the decoded images."""
+    rng = np.random.RandomState(seed)
+    H, W = RETRIEVAL_HW
+    n = RETRIEVAL_IMAGES
+    chars = [c for cs in RETRIEVAL_NARRATIVES.values() for c in cs]
+    pixels = np.random.default_rng(seed).integers(0, 256, (n, H, W, 3),
+                                                  dtype=np.uint8)
+    images, anns = [], []
+    for i in range(1, n + 1):
+        w, h = rng.uniform(160, 280), rng.uniform(400, 600)
+        x, y = rng.uniform(0, W - w), rng.uniform(0, H - h)
+        kp = np.stack([x + rng.rand(17) * w, y + rng.rand(17) * h,
+                       np.full(17, 2.0)], -1)
+        images.append({"id": i, "height": H, "width": W,
+                       "file_name": f"arch_{i:05d}.jpg",
+                       "full_name": f"vase_{i:05d}.jpg"})
+        anns.append({"id": i, "image_id": i, "category_id": 1,
+                     "bbox": [x, y, w, h], "area": w * h, "iscrowd": 0,
+                     "keypoints": kp.reshape(-1).tolist(),
+                     "num_keypoints": 17,
+                     "character_name": chars[rng.randint(len(chars))]})
+    os.makedirs(os.path.join(root, "annotations_arch_data"), exist_ok=True)
+    with open(os.path.join(root, "annotations_arch_data",
+                           "arch_data_keypoints.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return dict(zip(range(1, n + 1), pixels))
+
+
+def db_ok(db, records):
+    """The 05 database: img_0.. in record order, numpy joints (17, 3) f32
+    inside the 192x256 crop frame with a 0/1 visibility, the records'
+    characters and image names."""
+    if list(db) != [f"img_{i}" for i in range(len(records))]:
+        return False
+    for item, rec in zip(db.values(), records):
+        j = item["joints"]
+        if not (isinstance(j, np.ndarray) and j.shape == (17, 3)
+                and j.dtype == np.float32 and np.isfinite(j).all()
+                and (j[:, 0] >= 0).all() and (j[:, 0] <= 191).all()
+                and (j[:, 1] >= 0).all() and (j[:, 1] <= 255).all()
+                and set(np.unique(j[:, 2])) <= {0.0, 1.0}
+                and item["character_name"] == rec.character_name
+                and item["img"] == os.path.basename(rec.image)):
+            return False
+    return True
+
+
+def db_diff(a, b):
+    """Entries whose joints (x, y and visibility) differ between two
+    databases of the same keys, and the largest difference."""
+    d = [float(np.abs(a[k]["joints"] - b[k]["joints"]).max()) for k in a]
+    return {"entries_differing": int(sum(v > 0 for v in d)),
+            "max_abs_diff": max(d)}
+
+
+def results_in_range(results):
+    """Both levels' result dicts: every value finite, every ``general``
+    score in [0, 1]."""
+    ok = True
+    for res in results.values():
+        for label, scores in res["results"].items():
+            vals = np.asarray(list(scores.values()), np.float64)
+            ok &= bool(np.isfinite(vals).all())
+            if label == "general":
+                ok &= bool(((vals >= 0) & (vals <= 1)).all())
+    return ok
+
+
+def hnsw_scale(torch, mods, dev, tmp):
+    """The 50,000 x 34 corpus of tests/test_retrieval_scale.py (seed 13,
+    clustered, L2-normalised, 200 noisy queries) through the port's
+    Index (M = 8, ef_construction 200, ef 1000) on the host: build
+    seconds, query ms, recall@10 against the exact top 10 (squared
+    distances on the card, a check only) and a save/load round trip."""
+    rng = np.random.RandomState(13)
+    centers = rng.randn(300, HNSW_DIM).astype(np.float32)
+    assign = rng.randint(0, 300, HNSW_N)
+    data = centers[assign] + 0.15 * rng.randn(HNSW_N, HNSW_DIM).astype(
+        np.float32)
+    data /= np.linalg.norm(data, axis=1, keepdims=True) + 1e-9
+    queries = data[rng.permutation(HNSW_N)[:HNSW_QUERIES]] + \
+        0.02 * rng.randn(HNSW_QUERIES, HNSW_DIM).astype(np.float32)
+    Index = mods["hnsw"].Index
+    t = time.perf_counter()
+    index = Index("l2", HNSW_DIM)
+    index.init_index(HNSW_N, ef_construction=200, M=8)
+    index.add_items(data, np.arange(HNSW_N))
+    build_s = time.perf_counter() - t
+    index.set_ef(1000)
+    t = time.perf_counter()
+    labels, dists = index.knn_query(queries, k=HNSW_K)
+    query_ms = (time.perf_counter() - t) * 1e3 / HNSW_QUERIES
+    d = torch.cdist(torch.from_numpy(queries).to(dev),
+                    torch.from_numpy(data).to(dev),
+                    compute_mode="donot_use_mm_for_euclid_dist")
+    exact = d.topk(HNSW_K, largest=False).indices.cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / HNSW_K for a, b in
+                            zip(labels.tolist(), exact.tolist())]))
+    path = os.path.join(tmp, "hnsw_50k.bin")
+    index.save_index(path)
+    loaded = Index("l2", HNSW_DIM)
+    loaded.load_index(path)
+    loaded.set_ef(1000)
+    round_trip = bool(np.array_equal(loaded.knn_query(queries, k=HNSW_K)[0],
+                                     labels))
+    out = {"n": HNSW_N, "dim": HNSW_DIM, "M": 8, "ef_construction": 200,
+           "ef": 1000, "build_s": build_s, "query_ms": query_ms,
+           "recall_at_10": recall, "save_load_labels_equal": round_trip,
+           "count": loaded.get_current_count(),
+           "sorted": bool(np.all(np.diff(dists, axis=1) >= -1e-6))}
+    if not (recall >= RECALL_MIN and round_trip and out["sorted"]
+            and out["count"] == HNSW_N):
+        fail(f"HNSW at scale: {out}")
+    return out
+
+
+def timed_main(torch, fn, argv, host, key):
+    """``fn(argv)`` on the host clock (synchronised), into host[key]."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    host[key] = time.perf_counter() - t
+    return out
+
+
+def retrieval_path(torch, mods, dev, args, tmp, state):
+    """Pose retrieval at full width (phase 5f): an arch_data experiment
+    through 01 with phase 4's seeded HRNet-W32 as its checkpoint "final",
+    1,024 figure images from memory (``archdata_dataset``; device warp,
+    the card's machine having no cv2), the narrative maps through
+    aux_map_characters_to_narratives. Counters set to 0, then 05 (f32,
+    flip-TTA, B = 32: K1 once a batch, through its bulk kernel; K4 crops
+    each batch); the database checked (``db_ok``); the same extraction on
+    the kernels and on the plain versions with cuDNN deterministic
+    (joints, visibility and maxima equal bit for bit, K1 on every batch's
+    heatmaps 0.0 from its plain version). 06 (full_body, euclidean,
+    normalised: features (1024, 26)) -> 07 knn, query-all (both results
+    JSONs, finite, general scores in [0, 1]) -> 06 and 07 on the first
+    256 entries, knn and euclidean_distance without penalisation (their
+    character p@1 recorded side by side). 07_retrieval_test and
+    07_display_database_skeletons draw with matplotlib, which the card's
+    machine lacks: they run in the CPU tests only. The HNSW index at
+    50,000 x 34 on the host (``hnsw_scale``). Times: one extraction batch
+    split into flip-TTA forward and K1 (CUDA events) and the host fetch
+    and entries (host clock), the whole extraction, the scripts' main
+    (host seconds). Returns (launches, summary, profile state)."""
+    k1, scripts = mods["k1"], mods["scripts"]
+    t0 = time.time()
+    data = os.path.join(tmp, "data")
+    dicts, knn = os.path.join(tmp, "dicts"), os.path.join(tmp, "knn")
+    canvases = archdata_dataset(data, args.seed + 60)
+    host = {}
+    with engine_environment(mods, tmp), canvases_in_memory(mods, canvases):
+        mods["CONFIG"]["paths"]["database_path"] = os.path.join(tmp, "dbs")
+        exp_path = scripts["01_create_experiment"].main(
+            ["-d", "chip_smoke_retrieval", "--dataset_name", "arch_data"])
+        exp = mods["load_experiment_parameters"](exp_path)
+        if exp["training"]["batch_size"] != RETRIEVAL_B:
+            fail(f"retrieval: the experiment's batch is "
+                 f"{exp['training']['batch_size']}, not {RETRIEVAL_B}")
+        exp["dataset"]["device_warp"] = True
+        mods["save_experiment_parameters"](exp_path, exp)
+        mods["save_checkpoint"](mods["create_train_state"](state[1], exp),
+                                exp_path, "final")
+        narratives = os.path.join(tmp, "narratives.json")
+        with open(narratives, "w") as f:
+            json.dump(RETRIEVAL_NARRATIVES, f)
+        c2n, _ = scripts["aux_map_characters_to_narratives"].main(
+            ["--narratives_json", narratives, "--dict_path", dicts])
+        print(f"retrieval set-up in {time.time() - t0:.1f} s", flush=True)
+
+        reset_counts(mods)
+        db_path = timed_main(torch, scripts[
+            "05_create_archdata_retrieval_db"].main,
+            ["-d", exp_path, "--checkpoint", "final", "--data_path", data],
+            host, "05_s")
+        launches = launch_counts(mods)
+        print("retrieval-path launches:", json.dumps(launches))
+        k1_took_bulk(mods, "retrieval")
+        ex = mods["ArchDataExtractor"](
+            exp_path, checkpoint="final", dataset_name="arch_data",
+            data_path=data, device=dev)
+        ex.setup(config_name=ENGINE_CONFIG)
+        pipe = ex.pipe
+        n_batches = -(-RETRIEVAL_IMAGES // RETRIEVAL_B)
+        with open(db_path, "rb") as f:
+            db05 = pickle.load(f)
+        if len(pipe) != n_batches or len(db05) != RETRIEVAL_IMAGES or \
+                not db_ok(db05, pipe.records):
+            fail(f"retrieval: 05 wrote {len(db05)} entries in "
+                 f"{len(pipe)} batches, or an entry is malformed")
+        if launches["heatmap_peaks"] != n_batches or \
+                launches["warp_two_pass"] != n_batches:
+            fail(f"retrieval: K1 or K4 not launched once a batch "
+                 f"({n_batches}): {launches}")
+
+        # the extraction on the kernels and on the plain versions
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = []
+            for plain in (False, True):
+                peaks, ex.retrieval_db = [], {}
+                with (plain_versions(mods) if plain
+                      else contextlib.nullcontext()), recording(k1, peaks):
+                    runs.append((ex.extract_retrieval_dataset(), peaks))
+                torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        (dbk, pk), (dbp, pp) = runs
+        k1_exact = [all(torch.equal(g, r) for g, r in
+                        zip(out, k1.heatmap_peaks_plain(hm)))
+                    for hm, out in pk]
+        vs_plain = {"db": db_diff(dbk, dbp),
+                    "maxvals_max_abs_diff": max(
+                        float((a[1][1] - b[1][1]).abs().max())
+                        for a, b in zip(pk, pp)),
+                    "k1_calls": len(k1_exact),
+                    "k1_calls_equal_to_plain": sum(k1_exact),
+                    "db_05_vs_deterministic_kernels": db_diff(db05, dbk)}
+        print("retrieval, kernels vs plain versions:", json.dumps(vs_plain))
+        if not (vs_plain["db"]["max_abs_diff"] == 0.0
+                and vs_plain["maxvals_max_abs_diff"] == 0.0
+                and len(k1_exact) == n_batches and all(k1_exact)
+                and len(pp) == n_batches):
+            fail(f"retrieval disagrees with its plain-version run: "
+                 f"{vs_plain}")
+
+        # one batch, split; then the whole extraction
+        recs = pipe.records[:RETRIEVAL_B]
+        batch = pipe._collate_device_warp(
+            [pipe._load_one_raw(r) for r in recs], recs)
+        images, n = batch["image"], batch["n_valid"]
+        fwd_ms = elapsed_ms(torch, lambda: ex.infer(images), 5)
+        hm = ex.infer(images)
+        k1_ms = elapsed_ms(torch, lambda: mods["heatmap_argmax"](hm[:n]), 20)
+        peaks, hw = ex.batch_peaks(images, n)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            ex.retrieval_db = {}
+            ex.add_batch(peaks.cpu().numpy(), hw, batch, recs)
+        host_ms = (time.perf_counter() - t) * 1e3 / 5
+
+        def one_batch():
+            ex.retrieval_db = {}
+            p, s = ex.batch_peaks(images, n)
+            ex.add_batch(p.cpu().numpy(), s, batch, recs)
+
+        batch_ms = elapsed_ms(torch, one_batch, 5)
+        ex.retrieval_db = {}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ex.extract_retrieval_dataset()
+        end.record()
+        end.synchronize()
+        whole_ms = start.elapsed_time(end)
+        ex.retrieval_db = {}
+        extraction = {
+            "batch": RETRIEVAL_B, "crops_per_forward": 2 * RETRIEVAL_B,
+            "batches": n_batches, "one_batch_ms": batch_ms,
+            "flip_tta_forward_ms": fwd_ms, "k1_decode_ms": k1_ms,
+            "host_fetch_and_entries_ms": host_ms,
+            "whole_extraction_ms": whole_ms,
+            "ms_per_batch": whole_ms / n_batches,
+            "poses_per_s": RETRIEVAL_IMAGES / whole_ms * 1e3,
+            "crops_through_hrnet_per_s":
+                2 * RETRIEVAL_IMAGES / whole_ms * 1e3}
+        print("retrieval, extraction:", json.dumps(extraction), flush=True)
+
+        # 06 -> 07 on the whole database, then on its first 256 entries
+        name = timed_main(torch, scripts["06_fit_knn_tree"].main,
+                          ["--database_file", os.path.basename(db_path),
+                           "--knn_path", knn], host, "06_s")
+        with open(os.path.join(knn, f"features_{name}"), "rb") as f:
+            features = pickle.load(f)
+        res = timed_main(torch, scripts["07_retrieval_experiments"].main,
+                         ["-d", os.path.join(tmp, "results"),
+                          "--database_file", f"data_{name}", "--knn_path",
+                          knn, "--dict_path", dicts], host, "07_knn_s")
+        small = {k: db05[k] for k in list(db05)[:RETRIEVAL_EXHAUSTIVE]}
+        small_path = os.path.join(
+            os.path.dirname(db_path),
+            f"database_arch_first{RETRIEVAL_EXHAUSTIVE}_eval.pkl")
+        with open(small_path, "wb") as f:
+            pickle.dump(small, f)
+        small_name = scripts["06_fit_knn_tree"].main(
+            ["--database_file", os.path.basename(small_path),
+             "--knn_path", knn])
+        small_res = {}
+        for method in ("knn", "euclidean_distance"):
+            small_res[method] = timed_main(
+                torch, scripts["07_retrieval_experiments"].main,
+                ["-d", os.path.join(tmp, f"results_small_{method}"),
+                 "--database_file", f"data_{small_name}", "--knn_path",
+                 knn, "--dict_path", dicts, "--retrieval_method", method,
+                 "--penalization", "none"], host,
+                f"07_{RETRIEVAL_EXHAUSTIVE}_{method}_s")
+        jsons = [f for f in os.listdir(os.path.join(tmp, "results"))
+                 if f.startswith("retrieval_results")]
+        held = {"features (N, 26)": features.shape == (
+                    RETRIEVAL_IMAGES, 26),
+                "two results JSONs": len(jsons) == 2,
+                "in range": results_in_range(res),
+                "first entries in range": all(
+                    results_in_range(r) for r in small_res.values()),
+                "12 characters mapped": len(c2n) == 12}
+        if not all(held.values()):
+            fail(f"retrieval 06/07: not held "
+                 f"{[k for k, v in held.items() if not v]}")
+        runs = {f"knn_{RETRIEVAL_IMAGES}": res,
+                **{f"{m}_{RETRIEVAL_EXHAUSTIVE}": r
+                   for m, r in small_res.items()}}
+        p1 = {m: {lvl: r[lvl]["results"]["general"]["p@1"]
+                  for lvl in ("character", "narrative")}
+              for m, r in runs.items()}
+        p1[f"character_p@1_knn_minus_euclidean_{RETRIEVAL_EXHAUSTIVE}"] = (
+            p1[f"knn_{RETRIEVAL_EXHAUSTIVE}"]["character"] -
+            p1[f"euclidean_distance_{RETRIEVAL_EXHAUSTIVE}"]["character"])
+        print("retrieval, general p@1:", json.dumps(p1), flush=True)
+    del canvases
+    scale = hnsw_scale(torch, mods, dev, tmp)
+    print("retrieval, HNSW at scale:", json.dumps(scale), flush=True)
+    summary = {"images": RETRIEVAL_IMAGES, "config": ENGINE_CONFIG,
+               "launches": {k: v for k, v in launches.items() if v},
+               "k1_kernels": dict(k1.LAUNCHES_BY_KERNEL),
+               "kernels_vs_plain": vs_plain, "extraction": extraction,
+               "host_s": host, "general_p@1": p1,
+               "general_1024": {lvl: res[lvl]["results"]["general"]
+                                for lvl in res},
+               "hnsw_50k": scale}
+    print("retrieval:", json.dumps({k: v for k, v in summary.items()
+                                    if k != "general_1024"}), flush=True)
+    return launches, summary, (one_batch, batch_ms)
+
+
 def forbidden_ops(prof, ops, shapes):
     """[(op, input shapes)] of the profiled ops named in ``ops`` that took
     an input of one of ``shapes`` (the profile must record shapes)."""
@@ -4036,6 +4424,7 @@ def main():
     from stlpose_tpu_torch.engines import detector_trainer
     from stlpose_tpu_torch.engines.evaluator import (PoseEvaluator,
                                                      device_batch)
+    from stlpose_tpu_torch.engines.retrieval_db import ArchDataExtractor
     from stlpose_tpu_torch.engines.trainer import PoseTrainer
     from stlpose_tpu_torch.engines.vase_evaluator import (
         VaseEvaluator, build_fused_two_stage)
@@ -4055,13 +4444,14 @@ def main():
                                                    fold_batchnorms)
     from stlpose_tpu_torch.ops import affine
     from stlpose_tpu_torch.ops import roi_align as roi_ops
-    from stlpose_tpu_torch.ops.decode import decode_heatmaps
+    from stlpose_tpu_torch.ops.decode import decode_heatmaps, heatmap_argmax
     from stlpose_tpu_torch.ops.flip import average_flip_tta
     from stlpose_tpu_torch.ops.nms import box_nms_topk
     from stlpose_tpu_torch.ops.warp import affine_warp, two_pass_params
     from stlpose_tpu_torch.parallel import steps
     from stlpose_tpu_torch.parallel.detector_steps import \
         make_detector_train_step
+    from stlpose_tpu_torch.retrieval import hnsw
     from stlpose_tpu_torch.parallel.steps import (MetricAccumulator,
                                                   make_eval_decode_step,
                                                   make_eval_step,
@@ -4082,7 +4472,9 @@ def main():
         ("01_create_experiment", "02_train", "03_evaluate",
          "aux_train_adain_decoder", "aux_styled_coco_preload",
          "aux_create_offline_perceptual_loss", "02_train_faster_rcnn",
-         "03_evaluate_faster_rcnn")}
+         "03_evaluate_faster_rcnn", "aux_map_characters_to_narratives",
+         "05_create_archdata_retrieval_db", "06_fit_knn_tree",
+         "07_retrieval_experiments")}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4096,10 +4488,15 @@ def main():
     dev = torch.device("cuda")
 
     t0 = time.time()
-    logs = _build.build(["decode", "warp", "roi_align", "quantize",
-                         "warp_two_pass", "nms", "roi_align_backward"])
-    print(f"built {sorted(logs) or 'nothing (cached)'} in "
-          f"{time.time() - t0:.1f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the host HNSW library (g++) alongside the nvcc builds
+        hnsw_lib = pool.submit(hnsw.build)
+        logs = _build.build(["decode", "warp", "roi_align", "quantize",
+                             "warp_two_pass", "nms", "roi_align_backward"])
+        hnsw_lib = hnsw_lib.result()
+    print(f"built {sorted(logs) or 'nothing (cached)'} and "
+          f"{os.path.basename(hnsw_lib)} in {time.time() - t0:.1f} s",
+          flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -4147,7 +4544,9 @@ def main():
                 DetectorTrainer=detector_trainer.DetectorTrainer,
                 detector_device_batch=detector_trainer._device_batch,
                 list_checkpoints=list_checkpoints,
-                PlateauScheduler=PlateauScheduler)
+                PlateauScheduler=PlateauScheduler,
+                ArchDataExtractor=ArchDataExtractor, hnsw=hnsw,
+                heatmap_argmax=heatmap_argmax)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
     checks = [check_decode(torch, k1, dev, rng),
               check_warp(torch, k2, affine, affine_warp, dev, rng)]
@@ -4191,6 +4590,16 @@ def main():
         "train_parity"] = det_train["parity"]["nms_check"]
     next(k for k, _ in checks if k["name"] == "roi_align_backward")[
         "detector_step_inputs"] = det_train["roi_backward_on_step"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ret_launches, retrieval, (ret_batch, ret_batch_ms) = retrieval_path(
+            torch, mods, dev, args, tmp, state)
+    retrieval["card"] = card
+    next(k for k, _ in checks if k["name"] == "heatmap_peaks")[
+        "retrieval_heatmaps"] = {
+            "shape": [RETRIEVAL_B, 17, 64, 48],
+            "calls": retrieval["kernels_vs_plain"]["k1_calls"],
+            "calls_equal_to_plain":
+                retrieval["kernels_vs_plain"]["k1_calls_equal_to_plain"]}
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
@@ -4204,7 +4613,8 @@ def main():
                    "eval": eval_launches[k["name"]],
                    "trainer": trainer_launches[k["name"]],
                    "style": style_launches[k["name"]],
-                   **{p: n[k["name"]] for p, n in det_launches.items()}}
+                   **{p: n[k["name"]] for p, n in det_launches.items()},
+                   "retrieval": ret_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         kernels.append(k)
@@ -4267,6 +4677,12 @@ def main():
                 "nms_mask_kernel", "nms_scan_kernel"))
     del det_step
 
+    retrieval["profile"] = profile_program(
+        torch, ret_batch, ret_batch_ms, args.out,
+        f"one extraction batch (ArchDataExtractor, B = {RETRIEVAL_B}, "
+        "flip-TTA, HRNet-W32 f32)", expect=("peaks_bulk_kernel",))
+    del ret_batch
+
     fns, devb, forms = eval_state
     for form, fn in fns.items():
         evaluation["profile" if form == "nhwc_view" else
@@ -4280,7 +4696,8 @@ def main():
                       "serving_bf16_roi8": quant, "vase": vase,
                       "training": train,
                       "eval": evaluation, "trainer": trainer,
-                      "style": style, "detector_training": det_train}))
+                      "style": style, "detector_training": det_train,
+                      "retrieval": retrieval}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -164,7 +164,16 @@ def test_port_imports_nothing_of_jax():
         "scripts/aux_styled_coco_preload.py",
         "scripts/02_train_faster_rcnn.py",
         "scripts/03_evaluate_faster_rcnn.py",
-        "parallel/detector_steps.py", "models/convert_detector.py")} <= names
+        "parallel/detector_steps.py", "models/convert_detector.py",
+        "retrieval/__init__.py", "retrieval/hnsw.py", "retrieval/pose_db.py",
+        "retrieval/metrics.py", "engines/retrieval_db.py",
+        "data/legacy_openpose.py",
+        "scripts/aux_map_characters_to_narratives.py",
+        "scripts/05_create_archdata_retrieval_db.py",
+        "scripts/06_fit_knn_tree.py", "scripts/07_retrieval_experiments.py",
+        "scripts/07_retrieval_test.py",
+        "scripts/07_display_database_skeletons.py")} <= names
+    assert (ROOT / "stlpose_tpu_torch" / "native" / "hnsw.cpp").exists()
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "stlpose_tpu"}
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & banned)
            for f in files}
@@ -179,7 +188,9 @@ def test_port_imports_nothing_of_jax():
         "utils/visualization.py", "data/detection_dataset.py",
         "models/adain.py", "scripts/aux_train_adain_decoder.py",
         "scripts/aux_create_offline_perceptual_loss.py",
-        "scripts/aux_styled_coco_preload.py")} <= inside
+        "scripts/aux_styled_coco_preload.py",
+        "scripts/07_retrieval_test.py",
+        "scripts/07_display_database_skeletons.py")} <= inside
 
 
 def test_kernel_wrappers_take_plain_versions_only_on_cpu():
