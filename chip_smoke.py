@@ -184,6 +184,27 @@ Phases, each fatal on failure:
      extraction batch split into flip-TTA forward, K1 (CUDA events) and
      host fetch + entries, the whole extraction, the scripts' main in
      host seconds;
+  5g. EfficientDet at full width (EFFICIENTDET_D0: b0 trunk, 64 BiFPN
+     channels, 3 BiFPN and 3 head repeats, 512x512, 3.88 M parameters and
+     statistics): seeded weights, BatchNorm statistics from a seeded
+     calibration batch and a classifier bias that lets EFFDET_SHARE of
+     the anchors clear score_thresh (the share on the serving images
+     printed); counters set to 0, one fused call with phase 4's HRNet-W32
+     (f32, B = 8, 512x512 uint8, max_dets 8, budget 64): K5 (once a
+     call), K2 and K1 launched, the call against its plain-version run
+     (valid masks and image indices exact, boxes and keypoints 1e-3 px,
+     maxima 1e-4), images/s and crops/s; K5 on the inputs it got there
+     ((8, 256) f32, max_keep 64, -inf and masked-out rows) against its
+     plain version, timed warm and cold beside the Faster R-CNN
+     detection shape; the bf16 flavor once (drift recorded, not gated);
+     the vase engine on an experiment with detector_name efficientdet
+     (04's traffic at B = 1, then fused against host path at B = 8 and
+     B = 1: boxes 1e-4, scores 1e-5, keypoints 1e-3); one train step's
+     loss terms and gradients on the kernels against the plain versions
+     (1e-5 relative, 1e-4 of each max abs), its ms and samples/s; the
+     detector CLI 01 --detector_name efficientdet -> 02_train_faster_rcnn
+     (2 epochs, B = 8) -> resume -> 03 on phase 5e's canvases from
+     memory; one EFFICIENTDET_D3 predict (896x896, B = 2);
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
      same function, over 20 repeats with the inputs warm in L2, and for
@@ -204,7 +225,9 @@ Phases, each fatal on failure:
      at B = 8 likewise; one stylizer call at B = 32 on 256x192 crops and
      one style engine iteration (host warp, crops stylized) likewise; one
      detector train step likewise (K3, K3b and K5 in its trace); one
-     retrieval extraction batch likewise (K1's bulk kernel in its trace).
+     EfficientDet-D0 fused call likewise (K5's, K2's and K1's kernels in
+     its trace); one retrieval extraction batch likewise (K1's bulk
+     kernel in its trace).
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -1260,9 +1283,12 @@ def recording(k1, log):
         k1.heatmap_peaks = fn
 
 
-def drive_fused(torch, mods, fused, images, required, label, iters):
+def drive_fused(torch, mods, fused, images, required, label, iters,
+                nms_calls=2):
     """Warm up, set every counter to 0, run one fused call and read the
-    counters (each kernel in ``required`` must have launched); check
+    counters (each kernel in ``required`` must have launched, K5
+    ``nms_calls`` times: Faster R-CNN's proposals and detections, or
+    EfficientDet's detections); check
     shapes and finite keypoints; compare with the same program on the
     plain versions (``sel_valid``, ``picked_valid``, ``img_idx`` exact,
     keypoints and boxes to 1e-3 px, heatmap peaks to 1e-4); time it.
@@ -1276,9 +1302,9 @@ def drive_fused(torch, mods, fused, images, required, label, iters):
     print(f"{label}: launches per fused call:", json.dumps(launches))
     if min(launches[k] for k in required) < 1:
         fail(f"a kernel of the {label} path was not launched: {launches}")
-    if launches["box_nms_topk"] != 2:
+    if launches["box_nms_topk"] != nms_calls:
         fail(f"{label}: K5 launched {launches['box_nms_topk']} times in one "
-             f"detector_predict, not 2 (proposals, detections)")
+             f"detector predict, not {nms_calls}")
     k1_took_bulk(mods, label)
 
     shapes = {"sel_boxes": (B, MAX_DETS, 4), "sel_scores": (B, MAX_DETS),
@@ -1424,25 +1450,7 @@ def quant_path(torch, mods, dev, args):
     ref = mods["build_fused_two_stage"](det, pose, bbox_thr=BBOX_THR,
                                         max_dets=MAX_DETS, budget=BUDGET,
                                         device=dev)(images)
-    sv = out["sel_valid"] & ref["sel_valid"]
-    same = out["picked_valid"] & ref["picked_valid"] & \
-        (out["img_idx"] == ref["img_idx"])
-    kd = (out["img_kpts"][same][..., :2] - ref["img_kpts"][same][..., :2]) \
-        .abs()
-
-    def largest(t):
-        return float(t.max()) if t.numel() else None
-    drift = {"sel_valid_equal": bool(torch.equal(out["sel_valid"],
-                                                 ref["sel_valid"])),
-             "img_idx_equal": bool(torch.equal(out["img_idx"],
-                                               ref["img_idx"])),
-             "sel_boxes_max_abs_px": largest((out["sel_boxes"][sv] -
-                                              ref["sel_boxes"][sv]).abs()),
-             "sel_scores_max_abs": largest((out["sel_scores"][sv].float() -
-                                            ref["sel_scores"][sv]).abs()),
-             "img_kpts_max_abs_px": largest(kd),
-             "img_kpts_median_abs_px": float(kd.median()) if kd.numel()
-             else None}
+    drift = flavor_drift(torch, out, ref)
     print("quantized bf16 vs f32 flavor, same weights (record):",
           json.dumps(drift), flush=True)
     tput["drift_from_f32"] = drift
@@ -3703,7 +3711,10 @@ def detector_step_vs_plain(torch, mods, base, batch, seed):
     loss_rel = {k: abs(tk[k] - tp[k]) / abs(tp[k]) for k in tp}
 
     def worst_grad(ga, gb):
+        # a gradient that is exactly 0 (EfficientDet's regressor
+        # BatchNorms of levels with no positive anchor) has no scale
         err = {n: float((ga[n] - gb[n]).abs().max() / gb[n].abs().max())
+               if bool(gb[n].any()) else float((ga[n] - gb[n]).abs().max())
                for n in gb}
         worst = max(err, key=err.get)
         return worst, err[worst]
@@ -3808,23 +3819,7 @@ def detector_train_path(torch, mods, dev, args, tmp):
     parity_ms = elapsed_ms(torch, lambda: step(pstate, b, gen), 3)
     del pdet, pstate
 
-    times = {"train": [], "valid": [], "start": []}
-    scripts = mods["scripts"]
-    with engine_environment(mods, tmp), \
-            environment(STLPOSE_DETECTOR_CONFIG=DET_CONFIG,
-                        STLPOSE_DETECTOR_PRETRAINED=""), \
-            detection_canvases_in_memory(mods, canvases), \
-            detector_epoch_clock(torch, mods["DetectorTrainer"], times):
-        exp_path = scripts["01_create_experiment"].main(
-            ["-d", "detector_cli", "--dataset_name", "coco", "--batch_size",
-             str(DET_B), "--num_epochs", "2", "--save_frequency", "1"])
-        reset_counts(mods)
-        trainer = scripts["02_train_faster_rcnn"].main(
-            ["-d", exp_path, "--data_path", data])
-        launches["detector_cli"] = launch_counts(mods)
-        with open(os.path.join(exp_path, "detector_logs.json")) as f:
-            logs = json.load(f)
-        ckpts = sorted(mods["list_checkpoints"](exp_path, detector=True))
+    def plateau(trainer, logs):
         sim = mods["PlateauScheduler"](
             factor=float(trainer.exp_data["training"]
                          ["learning_rate_factor"]),
@@ -3832,34 +3827,13 @@ def detector_train_path(torch, mods, dev, args, tmp):
         lr = float(trainer.exp_data["training"]["learning_rate"])
         for ap in logs["valid_ap"]:
             lr = sim.step(ap, lr)
-        held = {
-            "2 finite train losses": len(logs["train_loss"]) == 2 and
-            all(np.isfinite(logs["train_loss"])),
-            "2 valid APs": len(logs["valid_ap"]) == 2 and
-            all(-1.0 <= v <= 1.0 for v in logs["valid_ap"]),
-            "checkpoints 0, 1, final": ckpts == ["0", "1", "final"],
-            "plateau stepped on AP": trainer.scheduler.best ==
-            max(logs["valid_ap"]) and
-            mods["get_current_lr"](trainer.state.optimizer) == lr,
-            "K3, K3b, K5 launched": all(launches["detector_cli"][k] for k in
-                                        ("roi_align", "roi_align_backward",
-                                         "box_nms_topk"))}
-        del trainer
-        resumed = scripts["02_train_faster_rcnn"].main(
-            ["-d", exp_path, "--checkpoint", "1", "--resume_training",
-             "true", "--data_path", data])
-        held["resume from checkpoint 1"] = (
-            times["start"][-1]["epoch"] == 1 and
-            times["start"][-1]["step"] == 2 * DET_TRAIN_IMAGES // DET_B and
-            resumed.state.step == 3 * DET_TRAIN_IMAGES // DET_B)
-        del resumed
-        stats = scripts["03_evaluate_faster_rcnn"].main(
-            ["-d", exp_path, "--checkpoint", "final", "--data_path", data])
-        held["12 stats, finite or -1"] = len(stats) == 12 and all(
-            s == -1.0 or 0.0 <= s <= 1.0 for s in stats)
-    if not all(held.values()):
-        fail(f"detector CLI: logs {logs}, checkpoints {ckpts}, not held: "
-             f"{[k for k, v in held.items() if not v]}")
+        return {"plateau stepped on AP": trainer.scheduler.best ==
+                max(logs["valid_ap"]) and
+                mods["get_current_lr"](trainer.state.optimizer) == lr}
+
+    launches["detector_cli"], cli = detector_cli(
+        torch, mods, tmp, "detector_cli", canvases, data, DET_CONFIG, [],
+        ("roi_align", "roi_align_backward", "box_nms_topk"), plateau)
     summary = {
         "config": "faster_rcnn (ResNet-50-FPN, C = 256, 400x400)",
         "batch": DET_B, "train_step_metrics": metrics,
@@ -3871,11 +3845,427 @@ def detector_train_path(torch, mods, dev, args, tmp):
         "forward_loss_ms": fwd_ms, "backward_update_ms": step_ms - fwd_ms,
         "parity": {"nms_candidates": m_parity, "loss": pm["loss"],
                    "ms_per_step": parity_ms, "nms_check": parity_nms},
-        "cli": {"logs": logs, "ms_per_train_epoch": times["train"],
-                "ms_per_valid_epoch": times["valid"],
-                "starts": times["start"], "stats_03": list(stats)}}
+        "cli": cli}
     print("detector training:", json.dumps(summary), flush=True)
     return launches, summary, ((lambda: step(state, b, gen)), step_ms)
+
+
+def detector_cli(torch, mods, tmp, name, canvases, data, detector_config,
+                 create_args, must_launch, check, start=None):
+    """The detector CLI in-process on ``canvases`` from memory, its epochs
+    timed: 01_create_experiment (``create_args`` added) ->
+    02_train_faster_rcnn (2 epochs, a checkpoint each) -> a resume from
+    checkpoint 1 -> 03_evaluate_faster_rcnn, with STLPOSE_DETECTOR_CONFIG
+    at ``detector_config``. With a ``start`` detector, 02 begins from it
+    (saved as the experiment's checkpoint "seeded"), and every valid AP
+    and 03's AP must score detections (lie in [0, 1]). Holds: 2 finite
+    train losses and 2 valid APs, the checkpoints, the resume's epoch and
+    step, 03's 12 stats (each -1 or in [0, 1]), the counters
+    ``must_launch`` risen in 02's first run, and what ``check(trainer,
+    logs)`` adds. Returns (02's launches, summary)."""
+    times = {"train": [], "valid": [], "start": []}
+    scripts = mods["scripts"]
+    low = 0.0 if start is not None else -1.0
+    with engine_environment(mods, tmp), \
+            environment(STLPOSE_DETECTOR_CONFIG=detector_config,
+                        STLPOSE_DETECTOR_PRETRAINED=""), \
+            detection_canvases_in_memory(mods, canvases), \
+            detector_epoch_clock(torch, mods["DetectorTrainer"], times):
+        exp_path = scripts["01_create_experiment"].main(
+            ["-d", name, "--dataset_name", "coco", "--batch_size",
+             str(DET_B), "--num_epochs", "2", "--save_frequency", "1",
+             *create_args])
+        from_start = []
+        if start is not None:
+            mods["save_checkpoint"](mods["create_train_state"](start, {
+                "training": {"learning_rate": DET_LR, "optimizer": "adam"},
+                "dataset": {"dataset_name": "coco"}}),
+                exp_path, "seeded", detector=True)
+            from_start = ["--checkpoint", "seeded"]
+        reset_counts(mods)
+        trainer = scripts["02_train_faster_rcnn"].main(
+            ["-d", exp_path, "--data_path", data, *from_start])
+        launches = launch_counts(mods)
+        with open(os.path.join(exp_path, "detector_logs.json")) as f:
+            logs = json.load(f)
+        ckpts = sorted(mods["list_checkpoints"](exp_path, detector=True))
+        held = {
+            "2 finite train losses": len(logs["train_loss"]) == 2 and
+            all(np.isfinite(logs["train_loss"])),
+            "2 valid APs": len(logs["valid_ap"]) == 2 and
+            all(low <= v <= 1.0 for v in logs["valid_ap"]),
+            "checkpoints 0, 1, final": ckpts == sorted(
+                ["0", "1", "final"] + (["seeded"] if from_start else [])),
+            "launched: " + ", ".join(must_launch): all(
+                launches[k] for k in must_launch),
+            **check(trainer, logs)}
+        del trainer
+        resumed = scripts["02_train_faster_rcnn"].main(
+            ["-d", exp_path, "--checkpoint", "1", "--resume_training",
+             "true", "--data_path", data])
+        held["resume from checkpoint 1"] = (
+            times["start"][-1]["epoch"] == 1 and
+            times["start"][-1]["step"] == 2 * DET_TRAIN_IMAGES // DET_B and
+            resumed.state.step == 3 * DET_TRAIN_IMAGES // DET_B)
+        del resumed
+        stats = scripts["03_evaluate_faster_rcnn"].main(
+            ["-d", exp_path, "--checkpoint", "final", "--data_path", data])
+        held["12 stats, each -1 or in [0, 1]"] = len(stats) == 12 and all(
+            s == -1.0 or 0.0 <= s <= 1.0 for s in stats)
+        held["03's AP in [%g, 1]" % low] = low <= stats[0] <= 1.0
+    if not all(held.values()):
+        fail(f"{name}: logs {logs}, checkpoints {ckpts}, 03 {list(stats)}, "
+             f"not held: {[k for k, v in held.items() if not v]}")
+    return launches, {"logs": logs, "ms_per_train_epoch": times["train"],
+                      "ms_per_valid_epoch": times["valid"],
+                      "starts": times["start"], "stats_03": list(stats)}
+
+
+# ------------------------------------------------------ EfficientDet (5g)
+# EfficientDet-D0 at full width (EFFICIENTDET_D0: the b0 trunk, 64 BiFPN
+# channels, 3 BiFPN and 3 head repeats, 512 x 512; 3.88 M parameters and
+# statistics): seeded weights, each BatchNorm's statistics taken from a
+# seeded calibration batch (one train-mode pass at momentum 1), so that
+# the eval-mode trunk keeps its images' signal, and the classifier's bias
+# set so that EFFDET_SHARE of the calibration batch's anchors clear
+# score_thresh (the prior -4.59 alone leaves none: K5 would see only
+# invalid rows and HRNet no crop); the fused program with phase 4's
+# HRNet-W32 at B = 8; the detector CLI on phase 5e's canvases
+EFFDET_SHARE = 0.004
+EFFDET_D3_B = 2
+EFFDET_VASE_IMAGES = 3
+
+
+def calibrate_batchnorm(torch, model, images01):
+    """Every BatchNorm's running statistics set to the batch statistics of
+    ``images01`` (flax's biased variance): one train-mode forward with
+    momentum 1, the momenta restored after."""
+    norms = [m for m in model.modules()
+             if isinstance(m, torch.nn.BatchNorm2d)]
+    saved = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(images01)
+    for m, momentum in zip(norms, saved):
+        m.momentum = momentum
+    model.eval()
+
+
+def seeded_efficientdet(torch, mods, cfg, dev, seed, batch=B):
+    """An EfficientDet of ``cfg`` with seeded weights, its prior set
+    (``set_prior``) on a seeded batch of uniform noise images."""
+    det = seeded_weights(torch, mods["EfficientDet"](cfg, dev), seed)
+    S = cfg.image_size
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    calib = torch.randint(0, 256, (batch, S, S, 3), generator=g,
+                          dtype=torch.uint8).to(dev).float() / 255.0
+    set_prior(torch, det, calib)
+    return det
+
+
+def set_prior(torch, det, images01):
+    """Calibrate ``det``'s statistics on ``images01`` and set the
+    classifier's bias at the logit that EFFDET_SHARE of their anchors
+    exceed by score_thresh."""
+    calibrate_batchnorm(torch, det, images01)
+    bias = det.classifier.head.pw.bias
+    with torch.no_grad():
+        bias.zero_()
+        cls, _, _ = det(images01)
+        q = torch.quantile(cls.float().flatten(), 1.0 - EFFDET_SHARE)
+        thr = float(np.log(det.config.score_thresh /
+                           (1.0 - det.config.score_thresh)))
+        bias.fill_(thr - float(q))
+
+
+def flavor_drift(torch, out, ref):
+    """How far a fused call's outputs lie from the f32 flavor's on the
+    same weights and images (a record, not a gate)."""
+    sv = out["sel_valid"] & ref["sel_valid"]
+    same = out["picked_valid"] & ref["picked_valid"] & \
+        (out["img_idx"] == ref["img_idx"])
+    kd = (out["img_kpts"][same][..., :2] - ref["img_kpts"][same][..., :2]) \
+        .abs()
+
+    def largest(t):
+        return float(t.max()) if t.numel() else None
+    return {"sel_valid_equal": bool(torch.equal(out["sel_valid"],
+                                                ref["sel_valid"])),
+            "img_idx_equal": bool(torch.equal(out["img_idx"],
+                                              ref["img_idx"])),
+            "sel_boxes_max_abs_px": largest((out["sel_boxes"][sv] -
+                                             ref["sel_boxes"][sv]).abs()),
+            "sel_scores_max_abs": largest((out["sel_scores"][sv].float() -
+                                           ref["sel_scores"][sv]).abs()),
+            "img_kpts_max_abs_px": largest(kd),
+            "img_kpts_median_abs_px": float(kd.median()) if kd.numel()
+            else None}
+
+
+def check_effdet_nms(torch, k5, call):
+    """K5 on the inputs it got in one EfficientDet predict (``call``: the
+    logged args, kwargs and keep mask): the keep mask equal to the plain
+    version's, -inf rows and masked-out rows included. Returns the record
+    and the timed function."""
+    a, kw, keep = call
+    boxes, scores, thr, valid, max_keep = a
+    ref = k5.box_nms_topk_plain(*a, **kw)
+    rec = {"shape": [int(boxes.shape[0]), int(boxes.shape[1])],
+           "max_keep": int(max_keep), "scores_dtype": str(scores.dtype),
+           "mismatches": int((keep != ref).sum()),
+           "neg_inf_rows": int((scores == -float("inf")).sum()),
+           "masked_rows": int((~valid).sum()),
+           "kept": int(keep.sum()),
+           "valid_not_kept": int((valid & ~keep).sum())}
+    # boxes, scores and valid read once, the keep mask written
+    rec["bytes"] = int(boxes.shape[0] * boxes.shape[1] * (16 + 4 + 1 + 1))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(rec["bytes"])
+    if rec["mismatches"] or not (rec["neg_inf_rows"] and rec["masked_rows"]
+                                 and rec["valid_not_kept"]):
+        fail(f"K5 at EfficientDet's inputs: {rec}")
+    return rec, lambda: k5.box_nms_topk(*a, **kw)
+
+
+def effdet_vase(torch, mods, dev, args, tmp, det, pose):
+    """The vase engine on an experiment with ``detector_name:
+    efficientdet`` (D0 at its 512 x 512 canvas), ``det`` and ``pose``
+    saved as its checkpoints "final": 04's traffic at B = 1 over
+    EFFDET_VASE_IMAGES records, then at a threshold that makes the
+    per-image counts vary the fused path against the host path at B = 8
+    and at B = 1 on the image with the most detections (boxes 1e-4,
+    scores 1e-5, keypoints 1e-3). Returns (launches, summary)."""
+    data = os.path.join(tmp, "effdet_data")
+    vase_folder(data, "vases_cli", EFFDET_VASE_IMAGES)
+    exp_path = mods["create_experiment"](
+        "chip_smoke_effdet_vase", {"detector_name": "efficientdet"},
+        root=os.path.join(tmp, "effdet_exp"))
+    exp = mods["load_experiment_parameters"](exp_path)
+    mods["save_checkpoint"](mods["create_train_state"](pose, exp), exp_path,
+                            "final")
+    mods["save_checkpoint"](mods["create_train_state"](det, exp), exp_path,
+                            "final", detector=True)
+    summary = {}
+    with vase_canvases_in_memory(mods, args.seed + 60):
+        ev = vase_engine(mods, exp_path, data, dev, detector_config=None)
+        if not isinstance(ev.detector, mods["EfficientDet"]) or \
+                ev.det_cfg != mods["EFFICIENTDET_D0"]:
+            fail(f"vase on EfficientDet: built {type(ev.detector)} at "
+                 f"{ev.det_cfg.image_size}")
+        S, m = ev.det_cfg.image_size, ev.max_dets
+        canvases = np.stack([vase_canvas(args.seed + 61, i, S)[0]
+                             for i in range(B)])
+        for b in (1, B):                                    # cuDNN plans
+            ev.process_images(canvases[:b])
+        torch.cuda.synchronize()
+        reset_counts(mods)
+        n_cli = ev.qualitative_comparison(limit=EFFDET_VASE_IMAGES)
+        torch.cuda.synchronize()
+        launches = launch_counts(mods)
+        if n_cli != EFFDET_VASE_IMAGES or launches["box_nms_topk"] != \
+                EFFDET_VASE_IMAGES or not (launches["affine_crop"] and
+                                           launches["heatmap_peaks"]):
+            fail(f"vase on EfficientDet: {n_cli} images, launches "
+                 f"{launches}")
+        with torch.inference_mode():
+            d = ev.detector.predict(torch.from_numpy(canvases).to(dev))
+        ps = torch.where(d["valid"] & (d["labels"] == 1), d["scores"],
+                         -torch.inf).float()
+        top = ps.topk(m, dim=1).values
+        thr = float(top[top > -torch.inf].median())
+        ev_thr = vase_engine(mods, exp_path, data, dev, detector_config=None,
+                             bbox_thr=thr)
+        batch = canvases
+        for b in (B, 1):
+            fused = ev_thr.process_images(batch)
+            host = ev_thr.process_images(batch, use_fused=False)
+            counts = [len(r["boxes"]) for r in host]
+            if b == B:
+                i = int(np.argmax(counts))
+                batch = canvases[i:i + 1]
+            diffs = result_diffs(fused, host)
+            summary[f"b{b}"] = {"detections_per_image": counts,
+                                "fused_vs_host": diffs}
+            print(f"vase on EfficientDet, B = {b}: bbox_thr {thr:.6f}, "
+                  f"detections {counts}; fused vs host:", json.dumps(diffs),
+                  flush=True)
+            if (b == B and len(set(counts)) < 2) or not sum(counts) or \
+                    not results_ok(fused, b) or diffs is None or not (
+                        diffs["boxes"] <= 1e-4 and diffs["scores"] <= 1e-5
+                        and max(diffs["crop_xy"], diffs["image_xy"],
+                                diffs["kpt_scores"]) <= 1e-3):
+                fail(f"vase on EfficientDet, B = {b}: counts {counts}, "
+                     f"fused vs host {diffs}")
+        summary["ms_b1"] = host_ms(torch, lambda: ev.process_images(
+            canvases[:1]), 5)
+        summary["ms_b8"] = host_ms(torch, lambda: ev.process_images(
+            canvases), 5)
+        summary["bbox_thr"] = thr
+    return launches, summary
+
+
+def effdet_cli(torch, mods, dev, args, tmp, base):
+    """The detector CLI on EfficientDet-D0 (``detector_cli`` with
+    --detector_name efficientdet and --learning_rate DET_LR), on phase
+    5e's seeded canvases letterboxed to 512 x 512, starting from a copy of
+    the calibrated ``base`` whose statistics and classifier bias are set
+    anew on the first training batch (``set_prior``): it scores
+    detections, so the validation epochs, 03 and K5 in them see valid
+    rows; DET_LR keeps the 12 Adam steps from moving its scores far.
+    Before it, one train step on ``base`` (its loss terms and gradients
+    on the kernels against the plain versions, its ms and samples/s).
+    Returns (launches, summary)."""
+    import copy
+    cfg = base.config
+    data = os.path.join(tmp, "effdet_detection_data")
+    canvases = detection_dataset(data, args.seed + 62)
+    exp = mods["default_experiment_args"]()
+    exp["training"]["batch_size"] = DET_B
+    exp["dataset"]["image_size"] = cfg.image_size
+    with detection_canvases_in_memory(mods, canvases):
+        pipe = mods["get_detection_dataset"](exp, "train", data_path=data,
+                                             num_workers=4, device=dev)
+        batches = [mods["detector_device_batch"](b, dev) for b in pipe]
+    vs_plain = detector_step_vs_plain(torch, mods, base, batches[0],
+                                      args.seed + 63)
+    det = copy.deepcopy(base)
+    state = mods["create_train_state"](det, {
+        "training": {"learning_rate": DET_LR, "optimizer": "adam"},
+        "dataset": {"dataset_name": "coco"}})
+    step = mods["make_detector_train_step"]()
+    step(state, batches[1])                          # warm-up (cuDNN plans)
+    metrics = {k: float(v) for k, v in step(state, batches[2]).items()}
+    if not all(np.isfinite(v) for v in metrics.values()) or \
+            metrics["finite"] != 1.0:
+        fail(f"EfficientDet train step: {metrics}")
+    step_ms = elapsed_ms(torch, lambda: step(state, batches[3]), 5)
+    del det, state
+    start = copy.deepcopy(base)
+    set_prior(torch, start, batches[0]["image"])
+
+    def is_d0(trainer, logs):
+        return {"EfficientDet-D0": isinstance(trainer.detector,
+                                              mods["EfficientDet"]) and
+                trainer.det_cfg == mods["EFFICIENTDET_D0"]}
+
+    launches, cli = detector_cli(
+        torch, mods, tmp, "effdet_cli", canvases, data, "",
+        ["--detector_name", "efficientdet", "--learning_rate", str(DET_LR)],
+        ("box_nms_topk",), is_d0, start=start)
+    del start
+    return {"efficientdet_cli": launches}, {
+        "train_step_metrics": metrics, "kernels_vs_plain": vs_plain,
+        "ms_per_step": step_ms, "samples_per_s": DET_B / step_ms * 1e3,
+        "cli": cli}
+
+
+def efficientdet_path(torch, mods, dev, args, tmp, state):
+    """EfficientDet at full width (phase 5g): the fused program on
+    EfficientDet-D0 and phase 4's HRNet-W32 at B = 8 on 512 x 512 uint8
+    images, with every counter set to 0 first (K5, K2 and K1 launched,
+    K5 once a call), held against its plain-version run and timed; K5 on
+    the inputs it got there, against its plain version; the bf16 flavor
+    once (its drift from f32 recorded); the vase engine on an
+    ``efficientdet`` experiment; the detector CLI; one D3 predict (896 x
+    896, B = EFFDET_D3_B). Returns (launches by path, summary, (fused
+    call, ms, K5 record, K5 function))."""
+    _, pose, _, _, _ = state
+    t0 = time.time()
+    cfg = mods["EFFICIENTDET_D0"]
+    det = seeded_efficientdet(torch, mods, cfg, dev, args.seed + 50)
+    n_weights = sum(p.numel() for p in det.parameters()) + sum(
+        b.numel() for n, b in det.named_buffers()
+        if not n.endswith("num_batches_tracked"))
+    g = torch.Generator(device="cpu").manual_seed(args.seed + 51)
+    images = torch.randint(0, 256, (B, cfg.image_size, cfg.image_size, 3),
+                           generator=g, dtype=torch.uint8).to(dev)
+    with torch.inference_mode():
+        cls, _, _ = det(images.float() / 255.0)
+        share = float((torch.sigmoid(cls) > cfg.score_thresh).float().mean())
+    print(f"EfficientDet-D0 built in {time.time() - t0:.1f} s "
+          f"({n_weights} parameters and statistics); share of the serving "
+          f"images' anchors above score_thresh: {share:.5f}", flush=True)
+    fused = mods["build_fused_two_stage"](det, pose, bbox_thr=BBOX_THR,
+                                          max_dets=MAX_DETS, budget=BUDGET,
+                                          device=dev)
+    launches = {}
+    launches["efficientdet_serving"], tput, out, n_valid = drive_fused(
+        torch, mods, fused, images,
+        ("heatmap_peaks", "affine_crop", "box_nms_topk"),
+        "EfficientDet-D0 serving", args.iters, nms_calls=1)
+    x01 = images.float() / 255.0
+    predict_ms = elapsed_ms(torch, lambda: det.predict(x01), 5)
+    print(f"EfficientDet-D0 predict alone (B = {B}): {predict_ms:.3f} ms",
+          flush=True)
+    log = []
+    with calls_to(mods["k5"], "box_nms_topk", log):
+        fused(images)
+    nms_rec, nms_fn = check_effdet_nms(torch, mods["k5"], log[0])
+    del log
+    nms_rec["events_ms"] = elapsed_ms(torch, nms_fn, 20)
+    nms_rec["cold_events_ms"] = cold_elapsed_ms(torch, nms_fn,
+                                                l2_flush(torch), 20)
+    print("K5 at EfficientDet-D0's inputs:", json.dumps(nms_rec), flush=True)
+
+    det_bf = mods["EfficientDet"](cfg, dev, dtype=torch.bfloat16)
+    det_bf.load_state_dict(det.state_dict())
+    pose_bf = mods["PoseHighResolutionNet"](pose.config, device=dev,
+                                            dtype=torch.bfloat16)
+    pose_bf.load_state_dict(pose.state_dict())
+    fused_bf = mods["build_fused_two_stage"](
+        det_bf, pose_bf, bbox_thr=BBOX_THR, max_dets=MAX_DETS,
+        budget=BUDGET, device=dev)
+    out_bf = fused_bf(images)
+    drift = flavor_drift(torch, out_bf, out)
+    bf16 = throughput(torch, fused_bf, images,
+                      int(out_bf["picked_valid"].sum()), args.iters)
+    bf16["drift_from_f32"] = drift
+    print("EfficientDet-D0 bf16 flavor (drift a record):", json.dumps(bf16),
+          flush=True)
+    del det_bf, pose_bf, fused_bf
+
+    launches["efficientdet_vase"], vase = effdet_vase(torch, mods, dev, args,
+                                                      tmp, det, pose)
+    cli_launches, cli = effdet_cli(torch, mods, dev, args, tmp, det)
+    launches.update(cli_launches)
+
+    d3 = seeded_efficientdet(torch, mods, mods["EFFICIENTDET_D3"], dev,
+                             args.seed + 52, batch=EFFDET_D3_B)
+    S3 = d3.config.image_size
+    x3 = torch.rand((EFFDET_D3_B, S3, S3, 3), generator=torch.Generator(
+        device="cpu").manual_seed(args.seed + 53)).to(dev)
+    reset_counts(mods)
+    p3 = d3.predict(x3)
+    torch.cuda.synchronize()
+    launches["efficientdet_d3"] = launch_counts(mods)
+    D = d3.config.detections_per_img
+    if tuple(p3["boxes"].shape) != (EFFDET_D3_B, D, 4) or \
+            not bool(torch.isfinite(p3["boxes"]).all()) or \
+            not bool(p3["valid"].any()) or \
+            launches["efficientdet_d3"]["box_nms_topk"] != 1:
+        fail(f"EfficientDet-D3 predict: valid {p3['valid'].sum(1).tolist()},"
+             f" launches {launches['efficientdet_d3']}")
+    d3_ms = host_ms(torch, lambda: d3.predict(x3), 3)
+    del d3
+    summary = {
+        "config": "EFFICIENTDET_D0 (b0 trunk, 64 BiFPN channels, 3 + 3 "
+                  "repeats, 512x512) + HRNet-W32 256x192, f32",
+        "parameters_and_statistics": n_weights,
+        "anchor_share_above_score_thresh": share, "batch": B,
+        "launches_per_fused_call": {k: v for k, v in
+                                    launches["efficientdet_serving"].items()
+                                    if v},
+        "end_to_end": tput, "detector_predict_ms": predict_ms,
+        "bf16": bf16, "k5_at_effdet_inputs": nms_rec,
+        "vase": vase, "detector_training": cli,
+        "d3_predict": {"batch": EFFDET_D3_B, "image_size": S3,
+                       "valid_per_image": p3["valid"].sum(1).tolist(),
+                       "ms": d3_ms},
+        "phase_s": time.time() - t0}
+    print("EfficientDet:", json.dumps(summary), flush=True)
+    return launches, summary, ((lambda: fused(images)),
+                               tput["ms_per_call"], nms_rec, nms_fn)
 
 
 # ---------------------------------------------------------- retrieval (5f)
@@ -4420,7 +4810,8 @@ def main():
     from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
     from stlpose_tpu_torch.data.pose_dataset import (AugmentationParams,
                                                      PoseRecord, _xywh_to_cs)
-    from stlpose_tpu_torch.config import FASTER_RCNN_TORCHVISION_PARITY
+    from stlpose_tpu_torch.config import (EFFICIENTDET_D0, EFFICIENTDET_D3,
+                                          FASTER_RCNN_TORCHVISION_PARITY)
     from stlpose_tpu_torch.engines import detector_trainer
     from stlpose_tpu_torch.engines.evaluator import (PoseEvaluator,
                                                      device_batch)
@@ -4438,6 +4829,7 @@ def main():
     from stlpose_tpu_torch.kernels import warp as k2
     from stlpose_tpu_torch.kernels import warp_two_pass as k4
     from stlpose_tpu_torch.models import adain, convert, vgg
+    from stlpose_tpu_torch.models.efficientdet import EfficientDet
     from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
     from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
     from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
@@ -4546,7 +4938,9 @@ def main():
                 list_checkpoints=list_checkpoints,
                 PlateauScheduler=PlateauScheduler,
                 ArchDataExtractor=ArchDataExtractor, hnsw=hnsw,
-                heatmap_argmax=heatmap_argmax)
+                heatmap_argmax=heatmap_argmax, EfficientDet=EfficientDet,
+                EFFICIENTDET_D0=EFFICIENTDET_D0,
+                EFFICIENTDET_D3=EFFICIENTDET_D3)
     rng = torch.Generator(device=dev).manual_seed(args.seed)
     checks = [check_decode(torch, k1, dev, rng),
               check_warp(torch, k2, affine, affine_warp, dev, rng)]
@@ -4600,6 +4994,19 @@ def main():
             "calls": retrieval["kernels_vs_plain"]["k1_calls"],
             "calls_equal_to_plain":
                 retrieval["kernels_vs_plain"]["k1_calls_equal_to_plain"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        effdet_launches, effdet, (effdet_call, effdet_ms, effdet_nms,
+                                  effdet_nms_fn) = efficientdet_path(
+            torch, mods, dev, args, tmp, state)
+    effdet["card"] = card
+    # K5 at EfficientDet's detection NMS beside its other shapes: timed
+    # under the profiler with the rest of its record
+    nms_k, nms_fns = next((k, f) for k, f in checks
+                          if k["name"] == "box_nms_topk")
+    nms_k["shapes"]["efficientdet_detection"] = effdet_nms
+    nms_k["efficientdet_events_ms"] = effdet_nms["events_ms"]
+    nms_k["efficientdet_cold_events_ms"] = effdet_nms["cold_events_ms"]
+    nms_fns["efficientdet_"] = effdet_nms_fn
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
@@ -4614,7 +5021,8 @@ def main():
                    "trainer": trainer_launches[k["name"]],
                    "style": style_launches[k["name"]],
                    **{p: n[k["name"]] for p, n in det_launches.items()},
-                   "retrieval": ret_launches[k["name"]]}
+                   "retrieval": ret_launches[k["name"]],
+                   **{p: n[k["name"]] for p, n in effdet_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         kernels.append(k)
@@ -4625,6 +5033,12 @@ def main():
         if "cold_ms" in k:
             print(f"  {k['name']} cold L2: kernel {k['cold_ms']} ms, "
                   f"library {k.get('library_cold_ms')} ms", flush=True)
+        if "efficientdet_cold_ms" in k:
+            print(f"  K5 cold L2 at EfficientDet-D0's detection NMS "
+                  f"{effdet_nms['shape']}, max_keep "
+                  f"{effdet_nms['max_keep']}: {k['efficientdet_cold_ms']} "
+                  f"ms; at Faster R-CNN's detection shape: "
+                  f"{k.get('detection_cold_ms')} ms", flush=True)
     prof = profile_main_path(torch, mods, state, tput["ms_per_call"],
                              args.out)
     q_fused, q_images, _ = q_state
@@ -4677,6 +5091,13 @@ def main():
                 "nms_mask_kernel", "nms_scan_kernel"))
     del det_step
 
+    effdet["profile"] = profile_program(
+        torch, effdet_call, effdet_ms, args.out,
+        f"one EfficientDet-D0 fused call (B = {B}, with HRNet-W32, f32)",
+        expect=("nms_sort_kernel", "nms_mask_kernel", "nms_scan_kernel",
+                "affine_crop_kernel", "peaks_bulk_kernel"))
+    del effdet_call
+
     retrieval["profile"] = profile_program(
         torch, ret_batch, ret_batch_ms, args.out,
         f"one extraction batch (ArchDataExtractor, B = {RETRIEVAL_B}, "
@@ -4697,7 +5118,7 @@ def main():
                       "training": train,
                       "eval": evaluation, "trainer": trainer,
                       "style": style, "detector_training": det_train,
-                      "retrieval": retrieval}))
+                      "retrieval": retrieval, "efficientdet": effdet}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

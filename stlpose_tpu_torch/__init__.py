@@ -12,8 +12,9 @@ make_train_step``, f32 or bf16 on f32 weights), flip-TTA COCO evaluation
 (``engines.vase_evaluator.VaseEvaluator``), style transfer
 (``models.vgg``, ``models.adain``: the perceptual loss and the AdaIN
 stylizer, inline in the host-warp pose pipeline and the detection
-pipeline), detector training (``engines.detector_trainer``), pose
-retrieval (``engines.retrieval_db.ArchDataExtractor``, decoding on K1,
+pipeline), detector training (``engines.detector_trainer``), the
+EfficientDet detector family (``models.efficientdet``, in serving, the
+vase engine and detector training), pose retrieval (``engines.retrieval_db.ArchDataExtractor``, decoding on K1,
 and the host-side ``retrieval`` package with its HNSW index, built from
 ``native/hnsw.cpp`` with g++ at first use) and the CLI scripts 01-07 and
 ``aux_*`` that drive them (``scripts/``). The TPU kernels of these paths

@@ -4,9 +4,11 @@ the JAX package).
 Counterparts in ``stlpose_tpu/config.py``: the path table ``CONFIG`` (the
 same ``STLPOSE_*`` environment names, which give paths, not switches),
 the experiment defaults ``DEFAULT_ARGS`` and the HRNet configs; plus
-``FasterRCNNConfig`` of ``stlpose_tpu/models/faster_rcnn.py`` and the
-ImageNet normalisation of ``stlpose_tpu/engines/vase_evaluator.py``. Only
-the model fields that the port reads are copied.
+``FasterRCNNConfig`` of ``stlpose_tpu/models/faster_rcnn.py``,
+``EfficientDetConfig`` and its presets (every field) of
+``stlpose_tpu/models/efficientdet.py``, and the ImageNet normalisation of
+``stlpose_tpu/engines/vase_evaluator.py``. Elsewhere only the model
+fields that the port reads are copied.
 """
 
 from __future__ import annotations
@@ -190,3 +192,45 @@ FASTER_RCNN_TINY = FasterRCNNConfig(
     pre_nms_top_n_train=64, pre_nms_top_n_test=64,
     post_nms_top_n_train=32, post_nms_top_n_test=32,
     roi_batch_per_image=32, detections_per_img=8)
+
+
+@dataclasses.dataclass(frozen=True)
+class EfficientDetConfig:
+    """EfficientDet (EfficientNet + BiFPN) configuration, every field of
+    the JAX package's: one sigmoid class (person), the P3-P7 anchor grid,
+    the focal-loss matching and the serving budgets."""
+    num_classes: int = 1                    # person (no background class)
+    compound: str = "d0"
+    image_size: int = 512
+    fpn_channels: int = 64
+    fpn_repeats: int = 3
+    head_repeats: int = 3
+    strides: tuple = (8, 16, 32, 64, 128)   # P3..P7
+    anchor_scale: float = 4.0
+    # (w_mult, h_mult) pairs, octave-major then ratio: the head weights'
+    # channel layout follows this order
+    anchor_ratios: tuple = ((1.0, 1.0), (1.4, 0.7), (0.7, 1.4))
+    anchor_octaves: tuple = (0.0, 1.0 / 3.0, 2.0 / 3.0)
+    # training
+    fg_iou: float = 0.5
+    bg_iou: float = 0.4
+    focal_alpha: float = 0.25
+    focal_gamma: float = 1.5
+    box_loss_weight: float = 50.0
+    # inference
+    score_thresh: float = 0.05
+    nms_thresh: float = 0.5
+    detections_per_img: int = 64
+    pre_nms_top_n: int = 256
+    width_mult: float = 1.0
+    depth_mult: float = 1.0
+
+
+EFFICIENTDET_D0 = EfficientDetConfig()
+EFFICIENTDET_D3 = EfficientDetConfig(
+    compound="d3", image_size=896, fpn_channels=160, fpn_repeats=6,
+    head_repeats=4, width_mult=1.2, depth_mult=1.4)
+EFFICIENTDET_TINY = EfficientDetConfig(
+    image_size=128, fpn_channels=16, fpn_repeats=1, head_repeats=1,
+    width_mult=0.35, depth_mult=0.35, pre_nms_top_n=64,
+    detections_per_img=8)

@@ -18,8 +18,10 @@ serving flavors are arguments, where the JAX factory and detector read
 ``STLPOSE_PALLAS_ROI_INT8``; the scripts read those names and pass them
 on. Training runs the live trunk in f32. ``DetectorEvaluator`` serves the
 live and the folded trunk (``apply_trunk_flavor`` of the int8 flavors
-waits for them). The EfficientDet names are refused until EfficientDet is
-ported.
+waits for them). Both reference families build here: Faster R-CNN and
+EfficientDet (``efficientdet`` with ``model.detector_type`` d0 or d3,
+``efficientdet_d0``, ``efficientdet_d3``, ``efficientdet_tiny``), whose
+only serving flavor is ``dtype``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ import numpy as np
 import torch
 
 from stlpose_tpu_torch import resolve_device
-from stlpose_tpu_torch.config import (CONFIG, FASTER_RCNN_TINY,
+from stlpose_tpu_torch.config import (CONFIG, EFFICIENTDET_D0,
+                                      EFFICIENTDET_D3, EFFICIENTDET_TINY,
+                                      FASTER_RCNN_TINY,
                                       FASTER_RCNN_TORCHVISION_PARITY,
                                       FasterRCNNConfig)
 from stlpose_tpu_torch.data.coco_api import coco_from_dataset
@@ -38,8 +42,9 @@ from stlpose_tpu_torch.data.loaders import get_detection_dataset
 from stlpose_tpu_torch.eval.submission import compute_detection_ap
 from stlpose_tpu_torch.models.convert import (load_strict,
                                               load_torch_statedict)
-from stlpose_tpu_torch.models.convert_detector import \
-    torch_fasterrcnn_to_port
+from stlpose_tpu_torch.models.convert_detector import (
+    torch_efficientdet_to_port, torch_fasterrcnn_to_port)
+from stlpose_tpu_torch.models.efficientdet import EfficientDet
 from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
 from stlpose_tpu_torch.models.quantize import apply_trunk_flavor
 from stlpose_tpu_torch.parallel.detector_steps import (
@@ -65,9 +70,12 @@ DETECTOR_CONFIGS = {
     "faster_rcnn_tiny": FASTER_RCNN_TINY,
     # torchvision's budgets, for AP-parity runs
     "faster_rcnn_torchvision_parity": FASTER_RCNN_TORCHVISION_PARITY,
+    # the reference's second family: d0 by default, d3 by detector_type
+    "efficientdet": EFFICIENTDET_D0,
+    "efficientdet_d0": EFFICIENTDET_D0,
+    "efficientdet_d3": EFFICIENTDET_D3,
+    "efficientdet_tiny": EFFICIENTDET_TINY,
 }
-EFFICIENTDET_NAMES = ("efficientdet", "efficientdet_d0", "efficientdet_d3",
-                      "efficientdet_tiny")
 
 
 def build_detector(exp_data: dict, config_name: str | None = None, *,
@@ -76,21 +84,27 @@ def build_detector(exp_data: dict, config_name: str | None = None, *,
     """(detector, config) for ``config_name``, or the experiment's
     ``model.detector_name`` (with ``model.detector_type`` d0/d3 naming an
     EfficientDet), built on ``device`` in the given flavor with the
-    default initialisation of its modules."""
+    default initialisation of its modules. ``trunk_quant`` and
+    ``roi_patch_quant`` are Faster R-CNN flavors: EfficientDet has no
+    ResNet trunk and no RoIAlign, and refuses them."""
     name = config_name or exp_data["model"].get("detector_name",
                                                 "faster_rcnn")
     det_type = exp_data["model"].get("detector_type", "")
     if name == "efficientdet" and det_type in ("d0", "d3"):
         name = f"efficientdet_{det_type}"
-    if name in EFFICIENTDET_NAMES:
-        raise NotImplementedError(
-            f"Detector '{name}': EfficientDet is not ported yet; it comes "
-            "with ROADMAP Queue 1 item 6")
     if name not in DETECTOR_CONFIGS:
         raise ValueError(f"Detector '{name}' not supported; available: "
-                         f"{list(DETECTOR_CONFIGS) + list(EFFICIENTDET_NAMES)}")
+                         f"{list(DETECTOR_CONFIGS)}")
     cfg = DETECTOR_CONFIGS[name]
-    return FasterRCNN(cfg, device, dtype, roi_patch_quant, trunk_quant), cfg
+    if isinstance(cfg, FasterRCNNConfig):
+        return FasterRCNN(cfg, device, dtype, roi_patch_quant,
+                          trunk_quant), cfg
+    if trunk_quant != "none" or roi_patch_quant:
+        raise ValueError(
+            f"Detector '{name}': trunk_quant={trunk_quant!r} and "
+            f"roi_patch_quant={roi_patch_quant!r} are Faster R-CNN flavors; "
+            "EfficientDet serves only in its dtype")
+    return EfficientDet(cfg, device, dtype), cfg
 
 
 def live_template_detector(exp_data: dict, detector_config=None,
@@ -243,14 +257,21 @@ class DetectorTrainer:
 
 
 def load_detector_pretrained(detector, pth_path: str | None):
-    """Load a torchvision fasterrcnn_resnet50_fpn ``.pth`` (the reference
-    seeds from torchvision's COCO-pretrained detector) into ``detector``
-    in place and return the state dict in the port's names; None when no
-    file is at ``pth_path``."""
+    """Load a pretrained detector ``.pth`` into ``detector`` in place, by
+    family: a torchvision fasterrcnn_resnet50_fpn state dict (the
+    reference seeds from torchvision's COCO-pretrained detector) or a
+    zylo117-layout efficientdet-d{0,3} one (its multiclass header sliced
+    to the person class). Returns the state dict in the port's names;
+    None when no file is at ``pth_path``."""
     if not pth_path or not os.path.isfile(pth_path):
         return None
-    sd = torch_fasterrcnn_to_port(load_torch_statedict(pth_path),
-                                  roi_channels=detector.config.fpn_channels)
+    state = load_torch_statedict(pth_path)
+    if isinstance(detector, EfficientDet):
+        sd = torch_efficientdet_to_port(
+            state, num_classes=detector.config.num_classes)
+    else:
+        sd = torch_fasterrcnn_to_port(
+            state, roi_channels=detector.config.fpn_channels)
     load_strict(detector, sd)
     return sd
 

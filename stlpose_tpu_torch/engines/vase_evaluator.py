@@ -7,8 +7,10 @@ the engine behind ``04_evaluate_vases_qualitatively.py``.
 
 The fused program: detector predict -> on-device class/score/
 top-``max_dets`` filter -> cross-batch crop compaction -> affine crops
-(K2) -> HRNet -> per-crop and full-image decode (K1). The detector's
-RoIAlign is K3 (after K3q in the int8 patch flavor) and its NMS K5. The
+(K2) -> HRNet -> per-crop and full-image decode (K1). The detector is
+either family: Faster R-CNN (RoIAlign on K3, after K3q in the int8 patch
+flavor; proposal and detection NMS on K5) or EfficientDet (detection NMS
+on K5). The
 program takes its flavor from its models: a bf16 detector returns bf16
 scores, and the score filter and the compaction key then run in bf16 as
 in the JAX package's bf16 program (the key rounds to bf16, so its ties
@@ -97,9 +99,10 @@ def build_fused_two_stage(detector, pose_model, *, bbox_thr: float,
                           max_dets: int, budget: int, device="cuda"):
     """The whole two-stage pass as one function ``fused(images) -> dict``.
 
-    ``detector`` is a ``models.faster_rcnn.FasterRCNN`` and ``pose_model``
-    a ``models.hrnet.PoseHighResolutionNet``, both on ``device``, in any
-    of their flavors. ``images`` is (B, S, S, 3), uint8 0-255 or float in
+    ``detector`` is a ``models.faster_rcnn.FasterRCNN`` or a
+    ``models.efficientdet.EfficientDet`` and ``pose_model`` a
+    ``models.hrnet.PoseHighResolutionNet``, both on ``device``, in any of
+    their flavors. ``images`` is (B, S, S, 3), uint8 0-255 or float in
     [0, 1]; it is moved to ``device``. Outputs: sel_boxes (B, m, 4),
     sel_scores (B, m) in the detector's dtype, sel_valid (B, m), img_idx
     (budget,), picked_valid (budget,), crop_kpts / img_kpts (budget, J, 3)

@@ -22,6 +22,8 @@ across, so a run continues a JAX run step for step. ``hrnet_from_jax``
 and ``faster_rcnn_from_jax`` also build the serving flavors: they take
 live-BatchNorm variables (folded here by ``models/quantize.py``) or
 variables the JAX package already folded (no ``batch_stats``).
+``efficientdet_from_jax`` carries the EfficientDet tree across (its
+BiFPN fusion weights are plain parameters, not Flax leaves of a layer).
 ``vgg_from_jax`` and ``adain_decoder_from_jax`` carry the style-transfer
 networks across; ``adain_decoder_to_flax_params`` goes the other way, for
 the decoder npz that both packages read.
@@ -35,8 +37,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from stlpose_tpu_torch.config import FasterRCNNConfig, HRNetConfig
+from stlpose_tpu_torch.config import (EfficientDetConfig, FasterRCNNConfig,
+                                      HRNetConfig)
 from stlpose_tpu_torch.models.adain import AdaINDecoder
+from stlpose_tpu_torch.models.efficientdet import EfficientDet
 from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
 from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
@@ -225,6 +229,29 @@ def faster_rcnn_from_jax(variables_np, config: FasterRCNNConfig,
         sd = apply_trunk_flavor(sd, trunk_quant)
     return load_strict(FasterRCNN(config, device, dtype, roi_patch_quant,
                                   trunk_quant), sd)
+
+
+def efficientdet_from_jax(variables_np, config: EfficientDetConfig,
+                          device="cuda", dtype=torch.float32):
+    """A fresh ``EfficientDet`` holding the JAX detector's parameters and
+    BatchNorm statistics, strictly (no key missing, none left over). The
+    BiFPN fusion weights (``bifpn_{l}/w_td_{i}``, ``w_bu_{i}``) are
+    vectors held by the layer itself and go across as they are."""
+    params, fusion = {}, {}
+    for name, sub in variables_np["params"].items():
+        if name.startswith("bifpn_"):
+            params[name] = {k: v for k, v in sub.items()
+                            if not k.startswith("w_")}
+            fusion.update({f"{name}.{k}": torch.from_numpy(
+                np.array(v, np.float32)) for k, v in sub.items()
+                if k.startswith("w_")})
+        else:
+            params[name] = sub
+    sd = jax_variables_to_state_dict(
+        {"params": params,
+         "batch_stats": variables_np.get("batch_stats", {})})
+    sd.update(fusion)
+    return load_strict(EfficientDet(config, device, dtype), sd)
 
 
 def vgg_from_jax(variables_np, taps=(1, 3, 6, 9),

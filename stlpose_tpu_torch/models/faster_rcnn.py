@@ -131,7 +131,7 @@ def softmax(x):
     return e / e.float().sum(dim=-1, keepdim=True).to(e.dtype)
 
 
-def _gather_rows(x, idx):
+def gather_rows(x, idx):
     """x (B, N, ...) rows at idx (B, K) -> (B, K, ...)."""
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
@@ -223,7 +223,9 @@ def select_proposals(cfg, anchors_per_level, logits, deltas,
     return torch.gather(boxes, 1, top_i[..., None].expand(-1, -1, 4)), top_s
 
 
-def _bce_logits(logits, targets):
+def bce_logits(logits, targets):
+    """Binary cross-entropy of sigmoid ``logits``, elementwise, in the
+    stable form max(x, 0) - x t + log(1 + exp(-|x|))."""
     return torch.clamp(logits, min=0.0) - logits * targets + \
         torch.log1p(torch.exp(-torch.abs(logits)))
 
@@ -244,10 +246,10 @@ def rpn_loss(cfg, anchors, logits_flat, deltas_flat, gt_boxes, gt_mask,
     sampled = pos_sel | neg_sel
     n_sampled = torch.clamp(sampled.sum(-1), min=1)
 
-    obj = _bce_logits(logits_flat, pos_sel.to(logits_flat.dtype))
+    obj = bce_logits(logits_flat, pos_sel.to(logits_flat.dtype))
     loss_obj = torch.where(sampled, obj, 0.0).sum(-1) / n_sampled
 
-    target_deltas = encode_boxes(_gather_rows(gt_boxes, matched), anchors)
+    target_deltas = encode_boxes(gather_rows(gt_boxes, matched), anchors)
     reg = smooth_l1(deltas_flat, target_deltas).sum(-1)
     loss_reg = torch.where(pos_sel, reg, 0.0).sum(-1) / n_sampled
     return loss_obj, loss_reg
@@ -274,11 +276,11 @@ def roi_targets(cfg, proposals, gt_boxes, gt_labels, gt_mask, uniforms=None,
     # compact the sampled rows to a fixed R by a ranked top-k
     priority = sampled.to(torch.float32) * 2 + pos_sel.to(torch.float32)
     _, idx = top_k(priority + best * 1e-3, cfg.roi_batch_per_image)
-    boxes = _gather_rows(pool, idx)
+    boxes = gather_rows(pool, idx)
     sampled_r = torch.gather(sampled, 1, idx)
     out_labels = torch.where(sampled_r, torch.gather(labels, 1, idx), 0)
     reg_targets = encode_boxes(
-        _gather_rows(gt_boxes, torch.gather(matched, 1, idx)), boxes,
+        gather_rows(gt_boxes, torch.gather(matched, 1, idx)), boxes,
         cfg.box_weights)
     return (boxes, out_labels, reg_targets, torch.gather(pos_sel, 1, idx),
             sampled_r)

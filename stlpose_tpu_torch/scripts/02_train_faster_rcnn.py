@@ -11,9 +11,11 @@ weighted), COCO bbox AP validation before each epoch with plateau-on-AP
 scheduling, ``detector_logs.json`` and checkpoints under
 ``models/detector/``. Training runs the live trunk in f32. The environment
 is the reference's: ``STLPOSE_DETECTOR_CONFIG`` (faster_rcnn,
-faster_rcnn_tiny or faster_rcnn_torchvision_parity; default the
-experiment's ``model.detector_name``), ``STLPOSE_DETECTOR_PRETRAINED`` (a
-torchvision fasterrcnn_resnet50_fpn ``.pth``; empty for none) and the
+faster_rcnn_tiny, faster_rcnn_torchvision_parity, efficientdet,
+efficientdet_d0, efficientdet_d3 or efficientdet_tiny; default the
+experiment's ``model.detector_name``, with ``model.detector_type``),
+``STLPOSE_DETECTOR_PRETRAINED`` (a torchvision fasterrcnn_resnet50_fpn or
+a zylo117 efficientdet-d{0,3} ``.pth``; empty for none) and the
 ``STLPOSE_*_PATH`` directories.
 """
 

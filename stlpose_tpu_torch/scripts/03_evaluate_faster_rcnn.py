@@ -10,7 +10,8 @@ JSON keyed by checkpoint. The environment is the reference's:
 ``STLPOSE_DETECTOR_CONFIG`` as for ``02_train_faster_rcnn.py``, and the
 serving flavor, ``STLPOSE_DTYPE=bfloat16`` (bf16 compute),
 ``STLPOSE_FRCNN_TRUNK_QUANT=folded`` (BatchNorm folded into the trunk)
-and ``STLPOSE_PALLAS_ROI_INT8=1`` (the int8 RoI patch pyramid).
+and ``STLPOSE_PALLAS_ROI_INT8=1`` (the int8 RoI patch pyramid); the
+last two are Faster R-CNN's only.
 """
 
 import os

@@ -13,7 +13,9 @@ time, each image's detections and skeletons drawn under
 ``plots/vases_<dataset_name>`` (matplotlib; the JPEG decode needs
 cv2). The environment is the
 reference's: ``STLPOSE_DETECTOR_CONFIG`` (faster_rcnn,
-faster_rcnn_tiny, faster_rcnn_torchvision_parity),
+faster_rcnn_tiny, faster_rcnn_torchvision_parity, efficientdet,
+efficientdet_d0, efficientdet_d3, efficientdet_tiny; default the
+experiment's ``model.detector_name``),
 ``STLPOSE_MODEL_CONFIG`` (default w32_256x192), ``STLPOSE_PRETRAINED`` (a
 reference-format HRNet ``.pth``; empty for none), ``STLPOSE_DTYPE=
 bfloat16``, ``STLPOSE_FRCNN_TRUNK_QUANT=folded``,

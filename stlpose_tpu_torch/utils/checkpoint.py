@@ -105,16 +105,17 @@ def load_detector_checkpoint(detector, exp_path: str, epoch):
     """Load a detector checkpoint's weights into ``detector`` in place.
 
     The file holds a live-BatchNorm detector's f32 state dict; for a
-    detector built with ``trunk_quant="folded"`` it is folded first
-    (``models/quantize.py::apply_trunk_flavor``), then every entry is
-    loaded strictly, rounded to the detector's dtype on the way in. Only
-    the weights are read; the file's optimizer state is left."""
+    Faster R-CNN built with ``trunk_quant="folded"`` it is folded first
+    (``models/quantize.py::apply_trunk_flavor``; an EfficientDet has no
+    trunk flavor), then every entry is loaded strictly, rounded to the
+    detector's dtype on the way in. Only the weights are read; the file's
+    optimizer state is left."""
     path = checkpoint_path(exp_path, epoch, detector=True)
     blob = torch.load(path + ".pt", map_location="cpu", weights_only=True)
     sd = {k: v for k, v in blob["model_state_dict"].items()
           if not k.endswith("num_batches_tracked")}
-    return load_strict(detector, apply_trunk_flavor(sd,
-                                                    detector.trunk_quant))
+    return load_strict(detector, apply_trunk_flavor(
+        sd, getattr(detector, "trunk_quant", "none")))
 
 
 def list_checkpoints(exp_path: str, detector: bool = False):

@@ -19,6 +19,7 @@ from stlpose_tpu_torch.ops.affine import (coords_to_center_scale,
 from stlpose_tpu_torch.ops.decode import (decode_heatmaps,
                                           decode_heatmaps_nhwc,
                                           heatmap_argmax)
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 T = torch.from_numpy
 

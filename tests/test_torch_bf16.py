@@ -41,6 +41,7 @@ from stlpose_tpu_torch.models.convert import (faster_rcnn_from_jax,
                                               hrnet_from_jax)
 from tests.test_torch_faster_rcnn import jax_detector
 from tests.test_torch_hrnet import jax_hrnet
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def _f32(x):

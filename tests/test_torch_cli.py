@@ -44,6 +44,7 @@ from stlpose_tpu_torch.utils import profiling
 from stlpose_tpu_torch.utils.checkpoint import checkpoint_path
 from stlpose_tpu_torch.utils.experiment import create_experiment
 from tests.fixtures import make_archdata_dataset, make_coco_dataset
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 SCRIPTS = os.path.dirname(SCRIPTS_INIT)
 AUG = {"dataset": {"scale_factor": 0.35, "rot_factor": 45, "flip": True,

@@ -15,6 +15,7 @@ import torch
 from stlpose_tpu.ops.pallas_warp import crop_from_center_scale_pallas
 from stlpose_tpu.ops.warp import crop_from_center_scale as jax_crop
 from stlpose_tpu_torch.ops.warp import crop_from_center_scale
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 OUT = (192, 256)
 

@@ -30,6 +30,7 @@ from stlpose_tpu_torch.utils.experiment import create_experiment
 from tests.fixtures import make_coco_dataset
 from tests.test_detector_convert import _flax_to_torch_names
 from tests.test_torch_hrnet import random_variables
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 TINY = "faster_rcnn_tiny"
 OVERRIDES = {"batch_size": 2, "num_epochs": 3, "save_frequency": 1,

@@ -43,6 +43,7 @@ from stlpose_tpu_torch.parallel.detector_steps import \
     make_detector_train_step
 from stlpose_tpu_torch.train.state import create_train_state
 from tests.test_torch_hrnet import random_variables
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 B, K = 2, 4
 EXP = {"training": {"learning_rate": 1e-5, "optimizer": "adam",

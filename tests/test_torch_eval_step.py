@@ -29,6 +29,7 @@ from stlpose_tpu_torch.ops import pck
 from stlpose_tpu_torch.parallel import steps
 from stlpose_tpu_torch.train.state import create_train_state
 from tests.test_torch_hrnet import jax_hrnet
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 B = 4
 EXP = {"training": {"learning_rate": 1e-3, "optimizer": "adam"}}

@@ -16,6 +16,7 @@ from stlpose_tpu_torch.models.convert import faster_rcnn_from_jax
 from stlpose_tpu_torch.ops.boxes import box_iou, clip_boxes, decode_boxes
 from stlpose_tpu_torch.ops.nms import box_nms_topk, top_k
 from tests.test_torch_hrnet import random_variables
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def jax_detector(seed):

@@ -10,6 +10,7 @@ import torch
 
 from stlpose_tpu.ops import flip as jax_flip
 from stlpose_tpu_torch.ops import flip
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def _maps(seed, shape):

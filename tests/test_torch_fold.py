@@ -21,6 +21,7 @@ from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
                                                fold_frcnn_trunk)
 from tests.test_torch_faster_rcnn import jax_detector
 from tests.test_torch_hrnet import jax_hrnet
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def _assert_within_one_ulp(got, ref):

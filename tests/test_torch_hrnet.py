@@ -13,6 +13,7 @@ from stlpose_tpu.models.hrnet import PoseHighResolutionNet as JaxHRNet
 from stlpose_tpu_torch.config import get_hrnet_config
 from stlpose_tpu_torch.models.convert import (hrnet_from_jax,
                                               jax_variables_to_state_dict)
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def random_variables(abstract, seed):

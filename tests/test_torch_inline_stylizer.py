@@ -38,6 +38,7 @@ from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
 from tests.fixtures import make_archdata_dataset, make_coco_dataset
 from tests.torch_style import (decoder_params, stylizer_pair, vgg_params,
                                write_images, write_weight_files)
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 AUG = {"dataset": {"scale_factor": 0.35, "rot_factor": 45, "flip": True,
                    "num_joints_half_body": 8, "prob_half_body": 0.3}}

@@ -28,6 +28,7 @@ from stlpose_tpu.ops.warp import crop_from_center_scale_batched as jax_crops
 from stlpose_tpu_torch.kernels import decode as k1
 from stlpose_tpu_torch.kernels import warp as k2
 from stlpose_tpu_torch.ops import affine
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402

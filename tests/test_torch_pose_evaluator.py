@@ -43,6 +43,7 @@ from stlpose_tpu_torch.utils.experiment import (create_experiment,
 from tests.fixtures import make_coco_dataset
 from tests.test_torch_eval_step import peak_margins
 from tests.torch_hrnet import TorchHRNet
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 
 def _exp(root, name, **overrides):

@@ -29,6 +29,7 @@ from stlpose_tpu_torch.ops import affine
 from stlpose_tpu_torch.ops.heatmap import generate_targets
 from tests.fixtures import make_coco_dataset
 from tests.test_torch_warp_two_pass import _pallas
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 AUG = {"dataset": {"scale_factor": 0.35, "rot_factor": 45, "flip": True,
                    "num_joints_half_body": 8, "prob_half_body": 0.3}}

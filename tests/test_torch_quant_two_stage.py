@@ -45,6 +45,7 @@ from stlpose_tpu_torch.ops.warp import crop_from_center_scale_batched
 from tests.test_torch_faster_rcnn import jax_detector
 from tests.test_torch_hrnet import random_variables
 from tests.test_torch_two_stage import ROOT, _imported_roots
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 B = 2
 # bf16 has 8 significant bits: one step of a value in [0.5, 1) is 2^-8

@@ -14,6 +14,7 @@ import torch
 from stlpose_tpu_torch.kernels import quantize as k3q
 from stlpose_tpu_torch.ops.roi_align import quantize_levels
 from tests.test_torch_roi_quant import _jax_quantize
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 SIZES, C = (100, 50, 25, 13), 256
 

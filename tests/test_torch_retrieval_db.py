@@ -39,7 +39,8 @@ from stlpose_tpu_torch.utils.checkpoint import save_checkpoint
 from stlpose_tpu_torch.utils.experiment import (create_experiment,
                                                 load_experiment_parameters)
 from tests.fixtures import make_archdata_dataset
-from tests.test_torch_retrieval import jax_hnsw_built_in
+from tests.test_torch_retrieval_hnsw import jax_hnsw_built_in
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 N_IMAGES, KPT_THR, MARGIN = 6, 0.1, 1e-4
 CHARACTERS = ("Heracles", "satyr", "maenad")

@@ -18,6 +18,7 @@ from stlpose_tpu_torch.kernels.roi_align import roi_align_plain
 from stlpose_tpu_torch.ops.roi_align import _assign_levels
 from stlpose_tpu_torch.ops.roi_align import \
     multilevel_roi_align as port_roi_align
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 STRIDES = (4, 8, 16, 32)
 IMG = 400

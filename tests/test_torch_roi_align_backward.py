@@ -14,6 +14,7 @@ from stlpose_tpu.ops.roi_align import (multilevel_roi_align,
                                        multilevel_roi_align_reference)
 from stlpose_tpu_torch.kernels import roi_align as _k3
 from stlpose_tpu_torch.ops import roi_align as roi_ops
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 STRIDES = (4, 8, 16, 32)
 SIZES = (32, 16, 8, 4)          # P2-P5 of a 128-pixel canvas

@@ -14,6 +14,7 @@ from stlpose_tpu_torch.kernels.roi_align import roi_align_plain
 from stlpose_tpu_torch.ops.roi_align import (multilevel_roi_align,
                                              quantize_levels)
 from tests.test_torch_roi_align import STRIDES, _scene
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 # bf16 has 8 significant bits: a rounding moves a value by at most
 # U = 2^-8 of its magnitude

@@ -2,8 +2,9 @@
 against stlpose_tpu's ``make_train_step`` on a 1-device CPU mesh, on the
 same HRNET_TINY weights and batch (B = 4), plus a second step continued
 from the JAX state through ``train_state_from_jax``; the optimizers given
-the same gradients; the eval step, metric accumulator, schedulers and
-perceptual-loss weighting.
+the same gradients; the eval step, metric accumulator and schedulers
+(the perceptual-loss weighting is in
+tests/test_torch_train_step_perceptual.py).
 
 Tolerances are relative to each tensor's largest magnitude: f32
 convolutions are summed in another order by XLA's and PyTorch's CPU
@@ -13,8 +14,6 @@ is E[x^2] - E[x]^2 in flax and a two-pass sum in PyTorch. The weights
 within that rounding of zero: where one does, its gradient flips between
 the two backends, and the flip moves the stem's gradients by up to a few
 percent (batch seeds 2 and 7 show it)."""
-
-import json
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +27,6 @@ from stlpose_tpu.parallel.mesh import get_mesh
 from stlpose_tpu.parallel.steps import MetricAccumulator as JaxAccumulator
 from stlpose_tpu.parallel.steps import make_eval_step as jax_eval_step
 from stlpose_tpu.parallel.steps import make_train_step as jax_train_step
-from stlpose_tpu.train import loss as jax_loss
 from stlpose_tpu.train import optim as jax_optim
 from stlpose_tpu.train.state import create_train_state as jax_create_state
 from stlpose_tpu_torch.config import HRNET_TINY
@@ -38,10 +36,10 @@ from stlpose_tpu_torch.models.convert import (hrnet_from_jax,
 from stlpose_tpu_torch.parallel.steps import (MetricAccumulator,
                                               make_eval_step,
                                               make_train_step)
-from stlpose_tpu_torch.train import loss as port_loss
 from stlpose_tpu_torch.train import optim as port_optim
 from stlpose_tpu_torch.train.state import create_train_state
 from tests.test_torch_hrnet import jax_hrnet
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 B = 4
 
@@ -256,26 +254,3 @@ def test_scheduler_sequence_matches_jax(kind):
     assert lr_ref < 1e-3
     assert sched.state_dict() == ref.state_dict()
     assert port_optim.build_scheduler(_exp(scheduler="none")) is None
-
-
-@pytest.mark.parametrize("training", [
-    {}, {"lambda_D": 0.7, "lambda_P": 0.3}, {"perceptual_loss": False}])
-def test_perceptual_loss_weighting_matches_jax(training):
-    """The "add" scheme, the lambda-weighted sum, and off."""
-    exp = _exp(**training)
-    perc = np.float32([0.3, 1.2, 0.05, 2.0])
-    ref = jax_loss.apply_perceptual_loss(exp, jnp.float32(0.8), perc)
-    got = port_loss.apply_perceptual_loss(exp, torch.tensor(0.8), perc)
-    assert float(got) == pytest.approx(float(ref), rel=1e-6)
-
-
-def test_perceptual_loss_dict_read(tmp_path):
-    exp = _exp()
-    path = tmp_path / "perceptual_loss_dict_alpha_0.5_styles_all.json"
-    path.write_text(json.dumps({"a.jpg": 0.25}))
-    assert port_loss.load_perceptual_loss_dict(exp, str(tmp_path)) == \
-        jax_loss.load_perceptual_loss_dict(exp, str(tmp_path))
-    assert port_loss.load_perceptual_loss_dict(
-        _exp(perceptual_loss=False), str(tmp_path)) is None
-    with pytest.raises(FileNotFoundError):
-        port_loss.load_perceptual_loss_dict(exp, str(tmp_path / "none"))

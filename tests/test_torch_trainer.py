@@ -67,6 +67,7 @@ from tests.fixtures import make_coco_dataset
 from tests.test_torch_pose_evaluator import _write_pth
 from tests.test_torch_train_step import _batch, _capture_grads, _to_port
 from tests.test_torch_train_step import _exp as _step_exp
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 TRAIN = {"batch_size": 8, "num_epochs": 2, "save_frequency": 1,
          "optimizer": "sgd", "learning_rate": 1e-3, "scheduler": "plateau",

@@ -34,6 +34,7 @@ from stlpose_tpu_torch.ops.nms import top_k
 from stlpose_tpu_torch.ops.warp import crop_from_center_scale_batched
 from tests.test_torch_faster_rcnn import jax_detector
 from tests.test_torch_hrnet import random_variables
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 B, MAX_DETS, BUDGET, THR = 2, 4, 6, 0.555
@@ -172,7 +173,8 @@ def test_port_imports_nothing_of_jax():
         "scripts/05_create_archdata_retrieval_db.py",
         "scripts/06_fit_knn_tree.py", "scripts/07_retrieval_experiments.py",
         "scripts/07_retrieval_test.py",
-        "scripts/07_display_database_skeletons.py")} <= names
+        "scripts/07_display_database_skeletons.py",
+        "models/efficientnet.py", "models/efficientdet.py")} <= names
     assert (ROOT / "stlpose_tpu_torch" / "native" / "hnsw.cpp").exists()
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "stlpose_tpu"}
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & banned)

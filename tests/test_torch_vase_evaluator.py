@@ -20,11 +20,11 @@ detector checkpoints, against the JAX package.
 - Compaction: the batch against each image alone.
 - The vase pipeline: images, scales, ids and counts equal to the JAX one.
 - Rendering: the same PNG names as the JAX engine.
-- The detector factory, detector checkpoints (live and folded), the CLI
-  on the CPU, and no run without a card.
+- The CLI on the CPU, and no run without a card. The detector factory
+  (both families), the detector checkpoints and the engine on
+  EfficientDet are in tests/test_torch_vase_detectors.py.
 """
 
-import dataclasses
 import importlib
 import os
 
@@ -34,7 +34,6 @@ import torch
 
 from stlpose_tpu.config import get_hrnet_config as jax_hrnet_config
 from stlpose_tpu.data.loaders import get_vase_subset as jax_vase_subset
-from stlpose_tpu.engines import detector_trainer as jax_detector_trainer
 from stlpose_tpu.engines.vase_evaluator import \
     VaseEvaluator as JaxVaseEvaluator
 from stlpose_tpu.models.hrnet import PoseHighResolutionNet as JaxHRNet
@@ -49,22 +48,20 @@ from stlpose_tpu.utils.experiment import \
 from stlpose_tpu_torch.config import (FASTER_RCNN_TINY, HRNET_TINY,
                                       IMAGENET_MEAN, IMAGENET_STD)
 from stlpose_tpu_torch.data.loaders import get_vase_subset
-from stlpose_tpu_torch.engines.detector_trainer import (DETECTOR_CONFIGS,
-                                                        build_detector)
+from stlpose_tpu_torch.engines.detector_trainer import build_detector
 from stlpose_tpu_torch.engines.vase_evaluator import VaseEvaluator
 from stlpose_tpu_torch.models.convert import (faster_rcnn_from_jax,
                                               hrnet_from_jax)
-from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
 from stlpose_tpu_torch.ops.affine import coords_to_center_scale
 from stlpose_tpu_torch.ops.warp import crop_from_center_scale_batched
 from stlpose_tpu_torch.train.state import create_train_state
-from stlpose_tpu_torch.utils.checkpoint import (load_detector_checkpoint,
-                                                save_checkpoint)
+from stlpose_tpu_torch.utils.checkpoint import save_checkpoint
 from stlpose_tpu_torch.utils.experiment import (create_experiment,
                                                 load_experiment_parameters)
 from tests.test_torch_eval_step import peak_margins
 from tests.test_torch_faster_rcnn import jax_detector
 from tests.test_torch_hrnet import random_variables
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 B, MAX_DETS, KPT_THR = 3, 4, 0.1
 DATASET = "ccoimages_final"
@@ -307,63 +304,6 @@ def test_qualitative_comparison_renders_like_jax(engines, monkeypatch):
         ["img_0000_dets.png", "img_0000_poses.png"]
     assert pev.plots_path == os.path.join(pev.exp_path, "plots",
                                           f"vases_{DATASET}")
-
-
-@pytest.mark.parametrize("name", ["faster_rcnn", "faster_rcnn_tiny",
-                                  "faster_rcnn_torchvision_parity"])
-def test_build_detector_configs_match_jax(workspace, name):
-    """The port's detector config has the JAX one's fields, the training
-    budgets and sampling included, each equal."""
-    exp = load_experiment_parameters(workspace["port_exp"])
-    exp["model"]["detector_name"] = name
-    _, ref = jax_detector_trainer.build_detector(exp)
-    got = DETECTOR_CONFIGS[name]
-    assert [f.name for f in dataclasses.fields(got)] == \
-        [f.name for f in dataclasses.fields(ref)]
-    for f in dataclasses.fields(got):
-        assert getattr(got, f.name) == getattr(ref, f.name), f.name
-    if name == "faster_rcnn_tiny":
-        det, cfg = build_detector(exp, device="cpu")
-        assert cfg is got and isinstance(det, FasterRCNN) and \
-            det.config is got and det.trunk_quant == "none"
-
-
-@pytest.mark.parametrize("name, det_type", [
-    ("efficientdet", ""), ("efficientdet", "d3"), ("efficientdet_d0", ""),
-    ("efficientdet_tiny", "")])
-def test_build_detector_refuses_efficientdet(workspace, name, det_type):
-    exp = load_experiment_parameters(workspace["port_exp"])
-    exp["model"].update(detector_name=name, detector_type=det_type)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build_detector(exp, device="cpu")
-    with pytest.raises(ValueError, match="not supported"):
-        build_detector(exp, "yolo", device="cpu")
-
-
-@pytest.mark.parametrize("trunk_quant", ["none", "folded"])
-def test_detector_checkpoint_loads_live_and_folded(workspace, trunk_quant):
-    """The live-BatchNorm checkpoint of the workspace loads weights-only
-    into a live detector (every entry equal) and into a folded one (FPN
-    maps and detections within 5e-5 relative of the live detector's)."""
-    ws = workspace
-    live = faster_rcnn_from_jax(ws["dv"], FASTER_RCNN_TINY, device="cpu")
-    det = FasterRCNN(FASTER_RCNN_TINY, device="cpu", trunk_quant=trunk_quant)
-    assert load_detector_checkpoint(det, ws["port_exp"], "final") is det
-    if trunk_quant == "none":
-        ref = live.state_dict()
-        for k, v in det.state_dict().items():
-            assert torch.equal(v, ref[k]), k
-        return
-    x = torch.from_numpy(batches()["float"])
-    with torch.inference_mode():
-        for a, b in zip(det.features(x.permute(0, 3, 1, 2)),
-                        live.features(x.permute(0, 3, 1, 2))):
-            assert float((a - b).abs().max() / b.abs().max()) < 5e-5
-        got, ref = det.predict(x), live.predict(x)
-    assert torch.equal(got["valid"], ref["valid"])
-    v = ref["valid"]
-    assert float((got["boxes"][v] - ref["boxes"][v]).abs().max()) < \
-        5e-5 * float(ref["boxes"][v].abs().max())
 
 
 def test_vase_cli_renders_on_the_cpu(workspace, engines, monkeypatch,

@@ -19,6 +19,7 @@ from stlpose_tpu.ops.warp import affine_warp as jax_affine_warp
 from stlpose_tpu.ops.warp import crop_from_center_scale_batched as jax_crops
 from stlpose_tpu_torch.ops.warp import (affine_warp,
                                         crop_from_center_scale_batched)
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 OUT = (192, 256)
 T = torch.from_numpy

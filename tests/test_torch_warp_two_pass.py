@@ -27,6 +27,7 @@ from stlpose_tpu_torch.kernels import warp_two_pass as _k4
 from stlpose_tpu_torch.ops.affine import get_affine_params
 from stlpose_tpu_torch.ops.warp import (affine_warp, affine_warp_two_pass,
                                         two_pass_params)
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 
 OUT = (192, 256)
 ROTS = (0.0, 15.0, 40.0, -60.0, 75.0, 90.0, -90.0)
