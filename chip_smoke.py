@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name, power limit); TF32 off;
-  2. build the seven CUDA kernel sources from
-     stlpose_tpu_torch/kernels/csrc (one nvcc per source, in parallel),
+  2. build the eight CUDA kernel sources from
+     stlpose_tpu_torch/kernels/csrc (``kernels/_build.py::SOURCES``, one
+     nvcc per source, in parallel),
      and the host HNSW library (stlpose_tpu_torch/native/hnsw.cpp, g++)
      alongside them, and print the build time;
   3. per kernel, at its main path's shapes, compare the kernel with its
@@ -72,6 +73,30 @@ Phases, each fatal on failure:
      inputs); engine ms per image at B = 1, per batch at B = 8 in turns
      with phase 4's bare fused call and split into upload, fused program
      and fetch + unpack; host-path, bf16 and torchvision-parity ms;
+  4d. the int8 PTQ serving flavors at full width (phase 4b's seeded
+     weights and BatchNorm): the ResNet-50 trunk calibrated on one seeded
+     batch of 8 and quantized by the port's flavored_state_dict in int8
+     and int8u (f32) and in the full quantized stack (bf16, int8 trunk,
+     int8 RoI pyramid): C2-C5 on the kernels 0.0 from their plain-version
+     run; the fused call with HRNet-W32 through the checks of 4, counters
+     at 0 first (K6 and K6q once per int8 ConvBN, K5 twice, K3 or K3q and
+     K3 int8 -> bf16, K2, K1), images/s, crops/s and the drift from the
+     f32 flavor (a record); HRNet-W32 quantized by
+     quantize_hrnet_from_batches in both act schemes on 64 seeded crops
+     (heatmaps 0.0 from the plain versions, ms, the drift from folded
+     f32); then K6 (the int8 implicit-GEMM convolution) and K6q (its
+     activation quantizer) alone, exactly against their plain versions at
+     every int8 ConvBN shape of both networks and on planted scenes
+     (+-127 codes at K = 4608, C_in = 3, a 1x1 stride-2 conv on 25x25,
+     zero-point pads, half-steps and clip ends), timed warm and cold over
+     one ResNet-50 trunk (52 convolutions) and one HRNet-W32 forward,
+     beside torch._int_mm on the trunk's 1x1 convolutions (the
+     accumulator only); bound: per convolution, int8 operations at 1,979
+     TOP/s or its bytes, the longer, summed. Phase 4c also runs the vase
+     engine with an int8 trunk at B = 1 and B = 8 (calibrated on its first
+     batch; fused = host path, kernels = plain versions), and phase 5e's
+     detector CLI runs 03 again with STLPOSE_FRCNN_TRUNK_QUANT=int8u (K6
+     and K6q launched, 12 stats in [-1, 1], a detection scored);
   5. drive the pose training path at full width (HRNet-W32 256x192, f32,
      B = 32, Adam lr 1e-3, seeded weights): batches from the device-warp
      collate on seeded 640x640 uint8 canvases with the COCO augmentation
@@ -222,12 +247,13 @@ Phases, each fatal on failure:
      likewise, in each layout of the flip combine; one engine training
      iteration (PoseTrainer's loop body: pipeline, step, metric update)
      likewise, in f32 and in bf16; one vase engine call at B = 1 and one
-     at B = 8 likewise; one stylizer call at B = 32 on 256x192 crops and
-     one style engine iteration (host warp, crops stylized) likewise; one
-     detector train step likewise (K3, K3b and K5 in its trace); one
-     EfficientDet-D0 fused call likewise (K5's, K2's and K1's kernels in
-     its trace); one retrieval extraction batch likewise (K1's bulk
-     kernel in its trace).
+     at B = 8 likewise; one int8 fused call (int8 trunk, bf16, int8 RoI;
+     K6's, K6q's, K3q's and K3's kernels in its trace); one stylizer call
+     at B = 32 on 256x192 crops and one style engine iteration (host
+     warp, crops stylized) likewise; one detector train step likewise
+     (K3, K3b and K5 in its trace); one EfficientDet-D0 fused call
+     likewise (K5's, K2's and K1's kernels in its trace); one retrieval
+     extraction batch likewise (K1's bulk kernel in its trace).
 All host-clock and CUDA-event times are taken before the first profiler
 session.
 The second-to-last line is the kernels' JSON record, the last line
@@ -253,6 +279,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 L2_BYTES = 50 << 20            # H100 SXM L2 (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+INT8_OPS = 1.979e15            # H100 SXM int8 tensor cores, dense
 B, MAX_DETS, BUDGET = 8, 8, 64
 # Random weights give person scores spread around 0.5: a threshold of 0
 # keeps every valid detection, so 8 per image fill the 64-crop budget.
@@ -324,10 +351,11 @@ def device_rows(prof):
     return sorted(rows, reverse=True)
 
 
-def bound_ms(n_bytes, flops=0.0):
-    """Least time for the work: bytes over HBM rate vs f32 operations over
-    the f32 peak, whichever is larger."""
-    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound_ms(n_bytes, flops=0.0, peak=F32_FLOPS):
+    """Least time for the work: bytes over HBM rate vs operations over
+    their peak (f32 unless ``peak`` says otherwise), whichever is
+    larger."""
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -1212,11 +1240,12 @@ def seeded_bn_statistics(torch, module, seed):
 
 
 def reset_counts(mods):
-    """Every launch counter to 0, each K3 instantiation's and K3b's
-    included."""
-    for k in ("k1", "k2", "k3", "k3q", "k4", "k5"):
+    """Every launch counter to 0, each K3 instantiation's, K3b's and
+    K6q's included."""
+    for k in ("k1", "k2", "k3", "k3q", "k4", "k5", "k6"):
         mods[k].LAUNCHES = 0
     mods["k3"].BACKWARD_LAUNCHES = 0
+    mods["k6"].QUANTIZE_LAUNCHES = 0
     for by_type in (mods["k3"].LAUNCHES_BY_TYPE,
                     mods["k1"].LAUNCHES_BY_KERNEL):
         for v in by_type:
@@ -1240,7 +1269,9 @@ def launch_counts(mods):
               "quantize_levels": mods["k3q"].LAUNCHES,
               "warp_two_pass": mods["k4"].LAUNCHES,
               "box_nms_topk": mods["k5"].LAUNCHES,
-              "roi_align_backward": mods["k3"].BACKWARD_LAUNCHES}
+              "roi_align_backward": mods["k3"].BACKWARD_LAUNCHES,
+              "int8_conv": mods["k6"].LAUNCHES,
+              "quantize_activations": mods["k6"].QUANTIZE_LAUNCHES}
     counts.update({ROI_RECORDS[v]: n
                    for v, n in mods["k3"].LAUNCHES_BY_TYPE.items()})
     return counts
@@ -1248,12 +1279,13 @@ def launch_counts(mods):
 
 @contextlib.contextmanager
 def plain_versions(mods):
-    """Route the seven kernel entry points to their plain versions (the
+    """Route the nine kernel entry points to their plain versions (the
     comparison runs only)."""
     entries = [(mods["k1"], "heatmap_peaks"), (mods["k2"], "affine_crop"),
                (mods["k3"], "roi_align"), (mods["k3q"], "quantize_levels"),
                (mods["k4"], "warp_two_pass"), (mods["k5"], "box_nms_topk"),
-               (mods["k3"], "roi_align_backward")]
+               (mods["k3"], "roi_align_backward"),
+               (mods["k6"], "int8_conv"), (mods["k6"], "quantize_activations")]
     saved = [getattr(m, name) for m, name in entries]
     for m, name in entries:
         setattr(m, name, getattr(m, name + "_plain"))
@@ -1391,7 +1423,7 @@ def rel_err(torch, got, ref):
 def quant_path(torch, mods, dev, args):
     """The quantized bf16 serving flavor at full width: seeded weights
     with seeded non-trivial BatchNorm, folded by the port's own
-    ``apply_trunk_flavor`` / ``fold_batchnorms``, into a bf16 detector
+    ``flavored_state_dict`` / ``fold_batchnorms``, into a bf16 detector
     with the int8 RoI patch pyramid and a bf16 HRNet. Checks the folded
     f32 models against the unfolded ones (FPN maps and heatmaps within
     5e-5 of their largest magnitude: two f32 programs whose weights round
@@ -1408,7 +1440,7 @@ def quant_path(torch, mods, dev, args):
         torch, FRCNN(cfg, device=dev), args.seed + 6), args.seed + 7)
     pose = seeded_bn_statistics(torch, seeded_weights(
         torch, HRNet(hcfg, device=dev), args.seed + 8), args.seed + 9)
-    det_sd = mods["apply_trunk_flavor"](det.state_dict(), "folded")
+    det_sd = mods["flavored_state_dict"](det.state_dict(), "folded")
     pose_sd = mods["fold_batchnorms"](pose.state_dict())
 
     def flavor(cls, config, sd, **kw):
@@ -1471,6 +1503,420 @@ def throughput(torch, fused, images, n_valid, iters):
     dt = time.perf_counter() - t0
     return {"images_per_s": B * iters / dt, "crops_per_s": n_valid * iters / dt,
             "ms_per_call": dt / iters * 1e3, "iters": iters}
+
+
+# ------------------------------------------------------- int8 PTQ (4d)
+# The int8 post-training-quantized serving flavors at full width: phase
+# 4b's seeded ResNet-50-FPN and HRNet-W32 (seeded non-trivial BatchNorm),
+# the trunk calibrated on one seeded batch of B 400x400 images, HRNet on
+# INT8_CROPS seeded crops; (trunk_quant, dtype, int8 RoI pyramid)
+INT8_FLAVORS = (("int8", "float32", False), ("int8u", "float32", False),
+                ("int8", "bfloat16", True))
+INT8_CROPS = 64
+
+
+@contextlib.contextmanager
+def conv_shapes(model, log):
+    """Record every int8 ConvBN call of ``model`` in ``log``: (N, C, H, W,
+    C_out, kernel, stride, quant, dtype) -> [calls, module]."""
+    def pre(mod, inp):
+        x = inp[0]
+        key = (*x.shape, mod.kernel_i8.shape[0], mod.kernel, mod.stride,
+               mod.quant, str(x.dtype)[6:])
+        log.setdefault(key, [0, mod])[0] += 1
+
+    hooks = [m.register_forward_pre_hook(pre) for m in model.modules()
+             if hasattr(m, "kernel_i8")]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def int8_convbns(model):
+    return sum(1 for m in model.modules() if hasattr(m, "kernel_i8"))
+
+
+def int8_path(torch, mods, dev, args):
+    """The int8 PTQ serving flavors at full width (phase 4d): the
+    Faster R-CNN trunk quantized by ``flavored_state_dict`` on one seeded
+    calibration batch in each flavor of INT8_FLAVORS (C2-C5 on the
+    kernels equal to their plain-version run, 0.0; the fused call with
+    phase 4b's HRNet, every counter at 0 first, through ``drive_fused``:
+    K6 and K6q once per int8 ConvBN, K5, K3 or K3q and K3 i8_bf16, K2, K1;
+    images/s, crops/s; the drift from the f32 flavor on the same weights
+    recorded); HRNet-W32 quantized by ``quantize_hrnet_from_batches`` in
+    both act schemes on INT8_CROPS crops (heatmaps 0.0 from the plain
+    versions, ms, the drift from the folded f32 model recorded); then K6
+    and K6q alone (``check_int8_kernels``). Returns ({path: launches},
+    summary, ([(record, fns)], the bf16 stack's fused call and images))."""
+    t0 = time.time()
+    FRCNN, HRNet = mods["FasterRCNN"], mods["PoseHighResolutionNet"]
+    cfg, hcfg = mods["FasterRCNNConfig"](), mods["get_hrnet_config"](
+        "w32_256x192")
+    det = seeded_bn_statistics(torch, seeded_weights(
+        torch, FRCNN(cfg, device=dev), args.seed + 6), args.seed + 7)
+    pose = seeded_bn_statistics(torch, seeded_weights(
+        torch, HRNet(hcfg, device=dev), args.seed + 8), args.seed + 9)
+
+    def weights(m):
+        return {k: v for k, v in m.state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+
+    live, pose_sd = weights(det), weights(pose)
+    folded = mods["fold_batchnorms"](pose_sd)
+    pose_f = mods["load_strict"](HRNet(hcfg, device=dev, folded=True),
+                                 folded)
+    pose_16 = mods["load_strict"](HRNet(hcfg, device=dev,
+                                        dtype=torch.bfloat16, folded=True),
+                                  folded)
+    images = serving_images(torch, dev, args.seed + 2)
+    calib = serving_images(torch, dev, args.seed + 50).float() / 255.0
+    x01 = (images.float() / 255.0).permute(0, 3, 1, 2).contiguous()
+
+    def fused_of(d, p):
+        return mods["build_fused_two_stage"](
+            d, p, bbox_thr=BBOX_THR, max_dets=MAX_DETS, budget=BUDGET,
+            device=dev)
+
+    with torch.inference_mode():
+        ref = fused_of(det, pose)(images)
+    print(f"int8 set-up in {time.time() - t0:.1f} s", flush=True)
+    paths, summary, trunk_shapes, hrnet_shapes, all_shapes = {}, {}, {}, \
+        {}, {}
+    stack = None
+    for tq, dname, roi8 in INT8_FLAVORS:
+        dtype = getattr(torch, dname)
+        label = f"int8 serving ({tq} trunk, {dname}" + \
+            (", int8 RoI)" if roi8 else ")")
+        t = time.time()
+        sd = mods["flavored_state_dict"](live, tq, config=cfg,
+                                         calib_batches=[calib], dtype=dtype)
+        torch.cuda.synchronize()
+        calib_s = time.time() - t
+        det_q = mods["load_strict"](FRCNN(
+            cfg, device=dev, dtype=dtype, roi_patch_quant=roi8,
+            trunk_quant=tq), sd)
+        log = {}
+        with torch.inference_mode():
+            with conv_shapes(det_q, log):
+                c = det_q.backbone(x01)
+            with plain_versions(mods):
+                c_ref = det_q.backbone(x01)
+        c_err = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(c, c_ref))
+        n_cb = int8_convbns(det_q)
+        if c_err != 0.0 or sum(v[0] for v in log.values()) != n_cb:
+            fail(f"{label}: C2-C5 on the kernels {c_err} from the plain "
+                 f"versions, or not every int8 ConvBN ran once")
+        for key, v in log.items():
+            all_shapes.setdefault(key, v)
+        if (tq, dname) == ("int8", "float32"):
+            trunk_shapes = log
+        required = ("int8_conv", "quantize_activations", "heatmap_peaks",
+                    "affine_crop") + (("quantize_levels", "roi_align_i8_bf16")
+                                      if roi8 else ("roi_align",))
+        fused = fused_of(det_q, pose_16 if roi8 else pose)
+        launches, tput, out, n_valid = drive_fused(
+            torch, mods, fused, images, required, label, args.iters)
+        if launches["int8_conv"] != n_cb or \
+                launches["quantize_activations"] != n_cb:
+            fail(f"{label}: K6 / K6q launched {launches['int8_conv']} / "
+                 f"{launches['quantize_activations']} times, not once per "
+                 f"int8 ConvBN ({n_cb})")
+        drift = flavor_drift(torch, out, ref)
+        print(f"{label} vs f32 flavor, same weights (record):",
+              json.dumps(drift), flush=True)
+        key = f"serving_{tq}_{dname}" + ("_roi8" if roi8 else "")
+        paths[key] = launches
+        summary[key] = {"calibration_s": calib_s, "int8_convbns": n_cb,
+                        "c2_c5_kernels_vs_plain": c_err, **tput,
+                        "drift_from_f32": drift}
+        if roi8:
+            stack = (fused, images)
+        del det_q, fused, out, c, c_ref
+
+    g = torch.Generator(device=dev).manual_seed(args.seed + 51)
+    calib_crops = torch.randn((INT8_CROPS, 256, 192, 3), generator=g,
+                              device=dev)
+    crops = torch.randn((INT8_CROPS, 256, 192, 3), generator=g, device=dev)
+    with torch.inference_mode():
+        hm_f = pose_f(crops)
+        f32_ms = elapsed_ms(torch, lambda: pose_f(crops), args.iters)
+    hr = {"crops": INT8_CROPS, "folded_f32_ms": f32_ms}
+    for scheme, quant in (("signed", "int8"), ("unsigned", "int8u")):
+        t = time.time()
+        _, model = mods["quantize_hrnet_from_batches"](
+            "w32_256x192", pose_sd, [calib_crops], device=dev,
+            act_scheme=scheme)
+        torch.cuda.synchronize()
+        calib_s = time.time() - t
+        log = {}
+        with torch.inference_mode():
+            with conv_shapes(model, log):
+                model(crops)
+            torch.cuda.synchronize()
+            reset_counts(mods)
+            hm = model(crops)
+            torch.cuda.synchronize()
+            launches = launch_counts(mods)
+            with plain_versions(mods):
+                hm_ref = model(crops)
+            ms = elapsed_ms(torch, lambda: model(crops), args.iters)
+        for key, v in log.items():
+            all_shapes.setdefault(key, v)
+        if quant == "int8":
+            hrnet_shapes = log
+        n_cb = int8_convbns(model)
+        err = float((hm - hm_ref).abs().max())
+        if (err != 0.0 or not bool(torch.isfinite(hm).all())
+                or launches["int8_conv"] != n_cb
+                or launches["quantize_activations"] != n_cb):
+            fail(f"HRNet-W32 {quant}: heatmaps {err} from the plain "
+                 f"versions, or K6 / K6q not once per int8 ConvBN ({n_cb}):"
+                 f" {launches}")
+        paths[f"hrnet_{quant}"] = launches
+        hr[quant] = {"calibration_s": calib_s, "int8_convbns": n_cb,
+                     "kernels_vs_plain": err, "ms": ms,
+                     "crops_per_s": INT8_CROPS / ms * 1e3,
+                     "drift_from_folded_f32": rel_err(torch, hm, hm_f)}
+        print(f"HRNet-W32 {quant} on {INT8_CROPS} crops:",
+              json.dumps(hr[quant]), flush=True)
+        del model, hm, hm_ref
+    summary["hrnet"] = hr
+    checks = check_int8_kernels(torch, mods["k6"], all_shapes, trunk_shapes,
+                                hrnet_shapes, dev, args.seed + 52)
+    summary["card_time_s"] = time.time() - t0
+    print("int8:", json.dumps(summary), flush=True)
+    return paths, summary, (checks, stack)
+
+
+def int8_input(torch, key, mod, g, dev):
+    """Random NCHW activations of a recorded ConvBN call, in its dtype,
+    spread over the module's calibrated range (non-negative where its zero
+    point is 128), and the module's zero-point scalars."""
+    N, C, H, W, _, _, _, quant, dt = key
+    x = torch.randn((N, C, H, W), generator=g, device=dev) * \
+        (float(mod.sx) * 60.0)
+    zq = (None, None, None)
+    if quant == "int8u":
+        zq = (mod.zp, mod.qlo, mod.qhi)
+        if float(mod.zp) == 128.0:
+            x = x.abs()
+    return x.to(getattr(torch, dt)), zq
+
+
+def int8_planted(torch, k6, dev):
+    """K6 and K6q on planted scenes. Returns {case: max abs error or
+    mismatch count}; every value must be 0."""
+    f32 = torch.float32
+    one = torch.tensor(1.0, device=dev)
+    out = {}
+    # all +-127 codes at K = 3 * 3 * 512 = 4608: |acc| 7.4e7 > 2^24
+    x8 = torch.full((8, 13, 13, 512), 127, dtype=torch.int8, device=dev)
+    x8[..., 1::2] = -127
+    w = torch.full((64, 512, 3, 3), 127, dtype=torch.int8, device=dev)
+    w[:, 1::2] = -127
+    w[1::2] = -w[1::2]
+    w8 = k6.relayout_kernel_i8(w)
+    sw, zb = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    args = (x8, w8, 3, 1, one, sw, zb, None, False, f32)
+    y, yr = k6.int8_conv(*args), k6.int8_conv_plain(*args)
+    peak = 4608 * 127 * 127
+    out["acc_past_2^24"] = float((y - yr).abs().max()) + float(
+        (y[:, 0, 1:-1, 1:-1] - peak).abs().max()) + float(
+        (y[:, 1, 1:-1, 1:-1] + peak).abs().max())
+    # zero-point pads: an all-zero input codes every tap to -zp, as the
+    # pad does, so each output channel is one value, border included
+    g = torch.Generator(device=dev).manual_seed(3)
+    w8 = k6.relayout_kernel_i8(torch.randint(
+        -127, 128, (32, 64, 3, 3), generator=g, device=dev,
+        dtype=torch.int8))
+    sx, zp = torch.tensor(0.02, device=dev), torch.tensor(128.0, device=dev)
+    lo, hi = torch.tensor(0.0, device=dev), torch.tensor(255.0, device=dev)
+    sw = torch.rand(32, generator=g, device=dev) * 1e-2
+    b = torch.randn(32, generator=g, device=dev)
+    x = torch.zeros((2, 64, 9, 7), device=dev)
+    q = k6.quantize_activations(x, sx, zp, lo, hi)
+    args = (q, w8, 3, 1, sx, sw, b, zp, False, f32)
+    y, yr = k6.int8_conv(*args), k6.int8_conv_plain(*args)
+    out["zero_point_pads"] = float((y - yr).abs().max()) + float(
+        (y.amax(dim=(2, 3)) - y.amin(dim=(2, 3))).abs().max()) + int(
+        (q != -128).sum())
+    # a missing activation scale is refused before any launch
+    try:
+        k6.int8_conv(q, w8, 3, 1, None, sw, b, zp, False, f32)
+        out["sx_required"] = 1
+    except ValueError:
+        out["sx_required"] = 0
+    # C_in = 3 and a 1x1 stride-2 conv on sizes that are not multiples
+    # of the 64-pixel tile
+    for case, (C, O, k, s, H, W) in (("c_in_3", (3, 64, 3, 2, 37, 29)),
+                                     ("1x1_stride_2", (256, 512, 1, 2, 25,
+                                                       25))):
+        q = torch.randint(-127, 128, (8, H, W, C), generator=g, device=dev,
+                          dtype=torch.int8)
+        w8 = k6.relayout_kernel_i8(torch.randint(
+            -127, 128, (O, C, k, k), generator=g, device=dev,
+            dtype=torch.int8))
+        sw = torch.rand(O, generator=g, device=dev) * 1e-3
+        b = torch.randn(O, generator=g, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (q, w8, k, s, sx, sw, b, None, True, dt)
+            out[f"{case}_{str(dt)[6:]}"] = float(
+                (k6.int8_conv(*args).float() -
+                 k6.int8_conv_plain(*args).float()).abs().max())
+    # K6q: half-steps, exact steps and the clip ends, f32 and bf16 inputs
+    # (sx 0.5: every planted value is exact in bf16)
+    steps = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 127.5,
+             -127.5, 300.0, -300.0, 0.0, 3.0, 254.5, 255.5]
+    want = {"int8": [0, 2, 2, 0, -2, -2, 126, -126, 127, -127, 127, -127,
+                     0, 3, 127, 127],
+            "int8u": [-128, -126, -126, -128, -128, -128, -2, -128, 0,
+                      -128, 127, -128, -128, -125, 126, 127]}
+    half = torch.tensor(0.5, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.zeros((2, 16, 3, 5), device=dev)
+        x[1, :, 2, 4] = torch.tensor(steps, device=dev) * 0.5
+        x = x.to(dt)
+        for quant, zq in (("int8", (None, None, None)),
+                          ("int8u", (torch.tensor(128.0, device=dev), lo,
+                                     hi))):
+            q = k6.quantize_activations(x, half, *zq)
+            qr = k6.quantize_activations_plain(x, half, *zq)
+            out[f"k6q_{quant}_{str(dt)[6:]}"] = int((q != qr).sum()) + int(
+                q[1, 2, 4].tolist() != want[quant])
+    return out
+
+
+def check_int8_kernels(torch, k6, shapes, trunk_shapes, hrnet_shapes, dev,
+                       seed):
+    """K6 and K6q against their plain versions at every int8 ConvBN shape
+    the paths gave them (``shapes``: ResNet-50 at 400x400, B = 8, in each
+    flavor, and HRNet-W32 at INT8_CROPS crops), on random activations in
+    each module's calibrated range with the module's own weights and
+    scales, and on the planted scenes of ``int8_planted``: codes and
+    outputs equal (0). Timed warm and cold (L2 flushed before each call)
+    over one ResNet-50 trunk (``trunk_shapes``: the f32 "int8" flavor's
+    52 convolutions, each on inputs of its own) and over one HRNet-W32
+    forward (``hrnet_shapes``, one input per distinct shape); the plain
+    versions over the trunk; ``torch._int_mm`` on the trunk's 1x1
+    stride-1 convolutions (the accumulator only) beside K6 on the same
+    ones. Bound: per convolution, int8 operations at INT8_OPS or the bytes
+    it must move, whichever is longer, summed over the trunk. Returns
+    [(K6 record, fns), (K6q record, fns)]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bad, n_checked = [], 0
+    for key, (_, mod) in shapes.items():
+        x, zq = int8_input(torch, key, mod, g, dev)
+        q = k6.quantize_activations(x, mod.sx, *zq)
+        qr = k6.quantize_activations_plain(x, mod.sx, *zq)
+        a = (q, mod.kernel_i8, mod.kernel, mod.stride, mod.sx, mod.sw,
+             mod.bias, zq[0], mod.relu, x.dtype)
+        e = float((k6.int8_conv(*a).float() -
+                   k6.int8_conv_plain(*a).float()).abs().max())
+        n_checked += 1
+        if not torch.equal(q, qr) or e != 0.0:
+            bad.append((key, int((q != qr).sum()), e))
+    planted = int8_planted(torch, k6, dev)
+    print(f"K6 / K6q at {n_checked} ConvBN shapes; planted scenes:",
+          json.dumps(planted), flush=True)
+    if bad or any(planted.values()):
+        fail(f"K6 / K6q differ from their plain versions: shapes {bad}, "
+             f"planted {planted}")
+
+    def calls(log, per_conv):
+        """Inputs for each call of a timed run: x (NCHW), the codes, the
+        K6 arguments; one set per call (per_conv) or per distinct shape."""
+        out = []
+        for key, (count, mod) in log.items():
+            for i in range(count if per_conv else 1):
+                x, zq = int8_input(torch, key, mod, g, dev)
+                q = k6.quantize_activations_plain(x, mod.sx, *zq)
+                rep = 1 if per_conv else count
+                out.append((rep, key, mod, x, zq, q))
+        return out
+
+    trunk, hrnet = calls(trunk_shapes, True), calls(hrnet_shapes, False)
+
+    def k6_args(c):
+        _, key, mod, x, zq, q = c
+        return (q, mod.kernel_i8, mod.kernel, mod.stride, mod.sx, mod.sw,
+                mod.bias, zq[0], mod.relu, x.dtype)
+
+    def run(fn, cs, args):
+        return lambda: [fn(*args(c)) for c in cs for _ in range(c[0])]
+
+    ones = [c for c in trunk if c[1][5] == 1 and c[1][6] == 1]
+    mm = [(c[5].view(-1, c[1][1]), c[2].kernel_i8[:, :c[1][1]].t())
+          for c in ones]
+    qargs = lambda c: (c[3], c[2].sx, *c[4])  # noqa: E731
+
+    def bounds(cs):
+        """Per convolution of a run, the larger of its int8 operations at
+        INT8_OPS and the bytes it must move at HBM_BYTES_PER_S, summed:
+        K6's (bound, bytes part, operations part) in s, its bytes and
+        operations, and K6q's bytes (NCHW in once, NHWC codes out once)."""
+        tb = tbytes = to = 0.0
+        n_bytes = n_ops = q_bytes = 0
+        for rep, key, mod, x, zq, q in cs:
+            N, C, H, W, O, k, s = key[:7]
+            Ho, Wo = (H - 1) // s + 1, (W - 1) // s + 1
+            out_bytes = N * O * Ho * Wo * x.element_size()
+            # a 1x1 conv reads only the pixels its stride lands on; a 3x3
+            # one's taps cover every pixel
+            in_bytes = N * C * (Ho * Wo if k == 1 else H * W)
+            b = in_bytes + O * k * k * C + 8 * O + 4 + out_bytes
+            ops = 2 * N * Ho * Wo * O * k * k * C
+            tb += rep * max(b / HBM_BYTES_PER_S, ops / INT8_OPS)
+            tbytes += rep * b / HBM_BYTES_PER_S
+            to += rep * ops / INT8_OPS
+            n_bytes, n_ops = n_bytes + rep * b, n_ops + rep * ops
+            q_bytes += rep * (N * C * H * W * (x.element_size() + 1) + 4)
+        return tb, tbytes, to, n_bytes, n_ops, q_bytes
+
+    tb, tbytes, to, n_bytes, n_ops, q_bytes = bounds(trunk)
+    hb, _, _, _, _, hq_bytes = bounds(hrnet)
+    k6_fns = {"": run(k6.int8_conv, trunk, k6_args),
+              "plain_": run(k6.int8_conv_plain, trunk, k6_args),
+              "library_": lambda: [torch._int_mm(a, b) for a, b in mm],
+              "onebyone_": run(k6.int8_conv, ones, k6_args),
+              "hrnet_": run(k6.int8_conv, hrnet, k6_args)}
+    k6q_fns = {"": run(k6.quantize_activations, trunk, qargs),
+               "plain_": run(k6.quantize_activations_plain, trunk, qargs),
+               "library_": None,
+               "hrnet_": run(k6.quantize_activations, hrnet, qargs)}
+    common = dict(route="cuda",
+                  source="stlpose_tpu_torch/kernels/csrc/int8_conv.cu",
+                  replaces="stlpose_tpu/models/hrnet.py:96",
+                  max_abs_err=0.0, tolerance=0.0, shapes_checked=n_checked,
+                  planted=planted,
+                  timed=f"one ResNet-50 trunk at 400x400, B = {B}, f32 "
+                        f"({len(trunk)} ConvBNs); hrnet_: one HRNet-W32 "
+                        f"forward on {INT8_CROPS} crops "
+                        f"({sum(c[0] for c in hrnet)} ConvBNs)")
+    k6_rec = dict(
+        name="int8_conv", **common,
+        replaces_note="ConvBN quant int8 / int8u: XLA conv_general_dilated "
+                      "on int8 with int32 accumulation (hrnet.py:96-100, "
+                      ":119-123); no Pallas original",
+        bound_ms=tb * 1e3,
+        bound_by="bytes" if tbytes >= to else "operations",
+        bytes=n_bytes, ops=n_ops, bytes_bound_ms=tbytes * 1e3,
+        ops_bound_ms=to * 1e3, hrnet_bound_ms=hb * 1e3,
+        library="torch._int_mm on the trunk's 1x1 stride-1 convolutions "
+                "(the int32 accumulator only; K6 on the same convolutions "
+                "is onebyone_)", onebyone_convs=len(ones),
+        **event_times(torch, k6_fns, iters=5, cold=True))
+    k6q_rec = dict(
+        name="quantize_activations", **common,
+        replaces_note="ConvBN quant int8 / int8u: the input quantization "
+                      "(hrnet.py:94-95, :116-118); no Pallas original",
+        bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=q_bytes, hrnet_bound_ms=hq_bytes / HBM_BYTES_PER_S * 1e3,
+        library=None, **event_times(torch, k6q_fns, iters=5, cold=True))
+    return [(k6_rec, k6_fns), (k6q_rec, k6q_fns)]
 
 
 # --------------------------------------------------------------- vase path
@@ -1792,6 +2238,51 @@ def vase_path(torch, mods, dev, args, tmp, state):
         plain_bf16 = vs_plain(ev16, "vase bf16 engine")
         ties16 = tied_scores(out16)
 
+        # the int8 trunk (04 with STLPOSE_FRCNN_TRUNK_QUANT=int8), each
+        # engine calibrating on the first batch of its subset, every valid
+        # detection kept
+        int8_vase = {}
+        for b in (1, B):
+            evq = vase_engine(mods, exp_path, data, dev, batch_size=b,
+                              bbox_thr=BBOX_THR, trunk_quant="int8")
+            imgs = canvases[:b]
+            evq.process_images(imgs)
+            torch.cuda.synchronize()
+            reset_counts(mods)
+            outq = evq.process_images(imgs)
+            torch.cuda.synchronize()
+            key = f"vase_int8_b{b}"
+            paths[key] = launch_counts(mods)
+            n_cb = int8_convbns(evq.detector)
+            hostq = evq.process_images(imgs, use_fused=False)
+            vsq = result_diffs(outq, hostq)
+            print(f"vase int8 engine, B = {b}: launches",
+                  json.dumps(paths[key]), "fused vs host path:",
+                  json.dumps(vsq), flush=True)
+            if min(paths[key][k] for k in ("heatmap_peaks", "affine_crop",
+                                            "roi_align")) < 1 or \
+                    paths[key]["int8_conv"] != n_cb or \
+                    paths[key]["quantize_activations"] != n_cb or \
+                    paths[key]["box_nms_topk"] != 2 or \
+                    not results_ok(outq, b) or \
+                    not sum(len(r["boxes"]) for r in outq):
+                fail(f"vase int8, B = {b}: {paths[key]}")
+            if vsq is None or not (
+                    vsq["boxes"] <= 1e-4 and vsq["scores"] <= 1e-5 and
+                    max(vsq["crop_xy"], vsq["image_xy"],
+                        vsq["kpt_scores"]) <= 1e-3):
+                fail(f"vase int8, B = {b}: fused engine disagrees with its "
+                     f"host path: {vsq}")
+            int8_vase[key] = {
+                "fused_vs_host": vsq, "int8_convbns": n_cb,
+                "detections": [len(r["boxes"]) for r in outq],
+                "ms_per_call": host_ms(torch, lambda: evq.process_images(
+                    imgs), args.iters)}
+            if b == B:
+                int8_vase[key]["kernels_vs_plain"] = vs_plain(
+                    evq, "vase int8 engine")
+            del evq
+
         evp = vase_engine(mods, exp_path, data, dev, bbox_thr=thr,
                           detector_config=VASE_PARITY)
         evp.process_images(canvases)
@@ -1878,7 +2369,7 @@ def vase_path(torch, mods, dev, args, tmp, state):
         "bf16_engine_b8_ms": bf16_ms, "bf16_tied_scores": ties16,
         "tv_parity_b8_ms": parity_ms, "tv_parity": parity,
         "fused_vs_host": vs_host, "kernels_vs_plain_f32": plain_f32,
-        "kernels_vs_plain_bf16": plain_bf16}
+        "kernels_vs_plain_bf16": plain_bf16, "int8_trunk": int8_vase}
     print("vase:", json.dumps(summary), flush=True)
     del ev16, evp
     return paths, summary, (ev, ev_thr, canvases, b1_call_ms,
@@ -3833,7 +4324,9 @@ def detector_train_path(torch, mods, dev, args, tmp):
 
     launches["detector_cli"], cli = detector_cli(
         torch, mods, tmp, "detector_cli", canvases, data, DET_CONFIG, [],
-        ("roi_align", "roi_align_backward", "box_nms_topk"), plateau)
+        ("roi_align", "roi_align_backward", "box_nms_topk"), plateau,
+        int8_03="int8u")
+    launches["detector_cli_03_int8u"] = cli.pop("int8_03_launches")
     summary = {
         "config": "faster_rcnn (ResNet-50-FPN, C = 256, 400x400)",
         "batch": DET_B, "train_step_metrics": metrics,
@@ -3851,7 +4344,8 @@ def detector_train_path(torch, mods, dev, args, tmp):
 
 
 def detector_cli(torch, mods, tmp, name, canvases, data, detector_config,
-                 create_args, must_launch, check, start=None):
+                 create_args, must_launch, check, start=None,
+                 int8_03=None):
     """The detector CLI in-process on ``canvases`` from memory, its epochs
     timed: 01_create_experiment (``create_args`` added) ->
     02_train_faster_rcnn (2 epochs, a checkpoint each) -> a resume from
@@ -3862,7 +4356,11 @@ def detector_cli(torch, mods, tmp, name, canvases, data, detector_config,
     train losses and 2 valid APs, the checkpoints, the resume's epoch and
     step, 03's 12 stats (each -1 or in [0, 1]), the counters
     ``must_launch`` risen in 02's first run, and what ``check(trainer,
-    logs)`` adds. Returns (02's launches, summary)."""
+    logs)`` adds. With ``int8_03`` ("int8" or "int8u"), 03 runs again with
+    STLPOSE_FRCNN_TRUNK_QUANT at it, the counters at 0 first: K6 and K6q
+    launched, 12 stats each -1 or in [0, 1], and a detection scored (AP
+    not -1). Returns (02's launches, summary; 03's int8 launches under
+    "int8_03_launches")."""
     times = {"train": [], "valid": [], "start": []}
     scripts = mods["scripts"]
     low = 0.0 if start is not None else -1.0
@@ -3913,12 +4411,29 @@ def detector_cli(torch, mods, tmp, name, canvases, data, detector_config,
         held["12 stats, each -1 or in [0, 1]"] = len(stats) == 12 and all(
             s == -1.0 or 0.0 <= s <= 1.0 for s in stats)
         held["03's AP in [%g, 1]" % low] = low <= stats[0] <= 1.0
+        stats8, launches8 = None, None
+        if int8_03:
+            with environment(STLPOSE_FRCNN_TRUNK_QUANT=int8_03):
+                reset_counts(mods)
+                stats8 = scripts["03_evaluate_faster_rcnn"].main(
+                    ["-d", exp_path, "--checkpoint", "final", "--data_path",
+                     data])
+                launches8 = launch_counts(mods)
+            held[f"03 {int8_03}: K6 and K6q launched"] = bool(
+                launches8["int8_conv"] and launches8["quantize_activations"])
+            held[f"03 {int8_03}: 12 stats in [-1, 1], a detection scored"] = \
+                len(stats8) == 12 and all(-1.0 <= v <= 1.0 for v in stats8) \
+                and 0.0 <= stats8[0] <= 1.0
     if not all(held.values()):
         fail(f"{name}: logs {logs}, checkpoints {ckpts}, 03 {list(stats)}, "
              f"not held: {[k for k, v in held.items() if not v]}")
-    return launches, {"logs": logs, "ms_per_train_epoch": times["train"],
-                      "ms_per_valid_epoch": times["valid"],
-                      "starts": times["start"], "stats_03": list(stats)}
+    summary = {"logs": logs, "ms_per_train_epoch": times["train"],
+               "ms_per_valid_epoch": times["valid"],
+               "starts": times["start"], "stats_03": list(stats)}
+    if int8_03:
+        summary[f"stats_03_{int8_03}"] = list(stats8)
+        summary["int8_03_launches"] = launches8
+    return launches, summary
 
 
 # ------------------------------------------------------ EfficientDet (5g)
@@ -4823,6 +5338,7 @@ def main():
                                                    generate_submission)
     from stlpose_tpu_torch.kernels import _build
     from stlpose_tpu_torch.kernels import decode as k1
+    from stlpose_tpu_torch.kernels import int8_conv as k6
     from stlpose_tpu_torch.kernels import nms as k5
     from stlpose_tpu_torch.kernels import quantize as k3q
     from stlpose_tpu_torch.kernels import roi_align as k3
@@ -4832,8 +5348,9 @@ def main():
     from stlpose_tpu_torch.models.efficientdet import EfficientDet
     from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
     from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
-    from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
-                                                   fold_batchnorms)
+    from stlpose_tpu_torch.models.convert import load_strict
+    from stlpose_tpu_torch.models.quantize import (
+        flavored_state_dict, fold_batchnorms, quantize_hrnet_from_batches)
     from stlpose_tpu_torch.ops import affine
     from stlpose_tpu_torch.ops import roi_align as roi_ops
     from stlpose_tpu_torch.ops.decode import decode_heatmaps, heatmap_argmax
@@ -4883,8 +5400,7 @@ def main():
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         # the host HNSW library (g++) alongside the nvcc builds
         hnsw_lib = pool.submit(hnsw.build)
-        logs = _build.build(["decode", "warp", "roi_align", "quantize",
-                             "warp_two_pass", "nms", "roi_align_backward"])
+        logs = _build.build(_build.SOURCES)
         hnsw_lib = hnsw_lib.result()
     print(f"built {sorted(logs) or 'nothing (cached)'} and "
           f"{os.path.basename(hnsw_lib)} in {time.time() - t0:.1f} s",
@@ -4894,7 +5410,9 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    mods = dict(k1=k1, k2=k2, k3=k3, k3q=k3q, k4=k4, k5=k5,
+    mods = dict(k1=k1, k2=k2, k3=k3, k3q=k3q, k4=k4, k5=k5, k6=k6,
+                load_strict=load_strict,
+                quantize_hrnet_from_batches=quantize_hrnet_from_batches,
                 FasterRCNN=FasterRCNN,
                 FasterRCNNConfig=FasterRCNNConfig,
                 PoseHighResolutionNet=PoseHighResolutionNet,
@@ -4910,7 +5428,7 @@ def main():
                 MetricAccumulator=MetricAccumulator,
                 build_scheduler=build_scheduler,
                 get_current_lr=get_current_lr, set_current_lr=set_current_lr,
-                apply_trunk_flavor=apply_trunk_flavor,
+                flavored_state_dict=flavored_state_dict,
                 fold_batchnorms=fold_batchnorms,
                 PoseEvaluator=PoseEvaluator, device_batch=device_batch,
                 create_experiment=create_experiment,
@@ -4965,6 +5483,13 @@ def main():
         vase_launches, vase, vase_state = vase_path(torch, mods, dev, args,
                                                     tmp, state)
     vase["card"] = card
+    int8_launches, int8, (int8_checks, int8_stack) = int8_path(
+        torch, mods, dev, args)
+    int8["card"] = card
+    checks += int8_checks
+    for k, _ in int8_checks:
+        print(f"{k['name']}: max_abs_err {k['max_abs_err']} (tol "
+              f"{k['tolerance']})", flush=True)
     train_launches, train, train_forms = train_path(torch, mods, dev, args)
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches, evaluation, eval_state = eval_path(torch, mods, dev,
@@ -5016,6 +5541,7 @@ def main():
         by_path = {"serving": launches[k["name"]],
                    "serving_bf16_roi8": q_launches[k["name"]],
                    **{p: n[k["name"]] for p, n in vase_launches.items()},
+                   **{p: n[k["name"]] for p, n in int8_launches.items()},
                    "training": train_launches[k["name"]],
                    "eval": eval_launches[k["name"]],
                    "trainer": trainer_launches[k["name"]],
@@ -5047,6 +5573,14 @@ def main():
         "one quantized bf16 fused call",
         expect=("absmax_kernel", "quantize_kernel", "roi_align_kernel"),
         forbid=(QUANTIZE_OPS, [[B, s, s, ROI_C] for s in ROI_SIZES]))
+    i8_fused, i8_images = int8_stack
+    int8["profile"] = profile_program(
+        torch, lambda: i8_fused(i8_images),
+        int8["serving_int8_bfloat16_roi8"]["ms_per_call"], args.out,
+        "one int8 fused call (int8 trunk, bf16, int8 RoI)",
+        expect=("int8_conv_kernel", "act_quant_kernel", "absmax_kernel",
+                "quantize_kernel", "roi_align_kernel"))
+    del i8_fused, int8_stack
     train["profile"] = profile_program(
         torch, train_forms["guarded"], train["ms_per_step"], args.out,
         "one training iteration")
@@ -5115,6 +5649,7 @@ def main():
     print(json.dumps({"kernels": kernels, "end_to_end": tput,
                       "stages_ms": stages, "profile": prof,
                       "serving_bf16_roi8": quant, "vase": vase,
+                      "int8": int8,
                       "training": train,
                       "eval": evaluation, "trainer": trainer,
                       "style": style, "detector_training": det_train,

@@ -1,8 +1,8 @@
 """Person-detector training and evaluation engines.
 
 Port of ``stlpose_tpu/engines/detector_trainer.py`` (``DETECTOR_CONFIGS``,
-``build_detector``, ``live_template_detector``, ``DetectorTrainer``,
-``load_detector_pretrained``, ``evaluate_detector``,
+``build_detector``, ``live_template_detector``, ``apply_trunk_flavor``,
+``DetectorTrainer``, ``load_detector_pretrained``, ``evaluate_detector``,
 ``DetectorEvaluator``), the engines behind ``02_train_faster_rcnn.py``
 and ``03_evaluate_faster_rcnn.py``, with the reference's semantics: the
 loss is the summed torchvision-style loss dict with optional perceptual
@@ -16,12 +16,12 @@ One device, ``device`` ("cuda" unless the caller asks for the CPU). The
 serving flavors are arguments, where the JAX factory and detector read
 ``STLPOSE_DTYPE``, ``STLPOSE_FRCNN_TRUNK_QUANT`` and
 ``STLPOSE_PALLAS_ROI_INT8``; the scripts read those names and pass them
-on. Training runs the live trunk in f32. ``DetectorEvaluator`` serves the
-live and the folded trunk (``apply_trunk_flavor`` of the int8 flavors
-waits for them). Both reference families build here: Faster R-CNN and
-EfficientDet (``efficientdet`` with ``model.detector_type`` d0 or d3,
-``efficientdet_d0``, ``efficientdet_d3``, ``efficientdet_tiny``), whose
-only serving flavor is ``dtype``.
+on. Training runs the live trunk in f32. ``DetectorEvaluator`` serves
+every trunk flavor: live, folded, and the int8 PTQ trunks, calibrated on
+the first validation batch. Both reference families build here: Faster
+R-CNN and EfficientDet (``efficientdet`` with ``model.detector_type`` d0
+or d3, ``efficientdet_d0``, ``efficientdet_d3``, ``efficientdet_tiny``),
+whose only serving flavor is ``dtype``.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from stlpose_tpu_torch.models.convert_detector import (
     torch_efficientdet_to_port, torch_fasterrcnn_to_port)
 from stlpose_tpu_torch.models.efficientdet import EfficientDet
 from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
-from stlpose_tpu_torch.models.quantize import apply_trunk_flavor
+from stlpose_tpu_torch.models import quantize
 from stlpose_tpu_torch.parallel.detector_steps import (
     make_detector_predict, make_detector_train_step)
 from stlpose_tpu_torch.parallel.steps import MetricAccumulator
@@ -116,6 +116,31 @@ def live_template_detector(exp_data: dict, detector_config=None,
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(CONFIG["random_seed"])
         return build_detector(exp_data, detector_config, device=device)
+
+
+def apply_trunk_flavor(detector, det_cfg, state_dict, calib_batch_fn=None):
+    """A live-BatchNorm detector state dict -> the state dict of
+    ``detector``'s trunk flavor (``detector.trunk_quant``): "folded" folds
+    the ResNet's BatchNorms, "int8" / "int8u" also quantize its
+    bottlenecks, calibrating on ``calib_batch_fn()`` (one batch of images
+    in the predict convention) with the trunk in the detector's serving
+    dtype, on the state dict's device. The live flavor, and EfficientDet,
+    which has no trunk flavor, take the state dict as it is."""
+    tq = getattr(detector, "trunk_quant", "none")
+    if tq == "none":
+        return state_dict
+    calib = ([calib_batch_fn()]
+             if calib_batch_fn is not None and tq in ("int8", "int8u")
+             else None)
+    return quantize.flavored_state_dict(state_dict, tq, config=det_cfg,
+                                        calib_batches=calib,
+                                        dtype=detector.dtype)
+
+
+def live_state_dict(detector):
+    """The detector's weights and statistics, without the counters."""
+    return {k: v for k, v in detector.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
 
 
 def _detection_pipeline(exp_data, det_cfg, split, **kw):
@@ -316,8 +341,8 @@ def evaluate_detector(predict, pipe, device, limit: int | None = None,
 
 class DetectorEvaluator:
     """Engine behind 03_evaluate_faster_rcnn.py, on ``device``, in the
-    serving flavor given by ``dtype``, ``trunk_quant`` ("none" or
-    "folded") and ``roi_patch_quant``."""
+    serving flavor given by ``dtype``, ``trunk_quant`` ("none", "folded",
+    "int8" or "int8u") and ``roi_patch_quant``."""
 
     def __init__(self, exp_path: str, checkpoint=None, dataset_name=None,
                  data_path=None, num_workers=None,
@@ -337,10 +362,15 @@ class DetectorEvaluator:
                            roi_patch_quant=roi_patch_quant)
 
     def setup(self):
-        """The live template (seeded weights, then the checkpoint's), the
-        serving detector made from it, and the valid pipeline."""
+        """The valid pipeline, the live template (seeded weights, then the
+        checkpoint's) and the serving detector made from it; the int8
+        trunks calibrate on the first validation batch."""
         template, self.det_cfg = live_template_detector(
             self.exp_data, self.detector_config, self.device)
+        self.pipe = _detection_pipeline(
+            self.exp_data, self.det_cfg, "valid",
+            num_workers=self.num_workers, data_path=self.data_path,
+            device=self.device)
         if self.checkpoint is not None:
             load_detector_checkpoint(template, self.exp_path,
                                      self.checkpoint)
@@ -351,14 +381,9 @@ class DetectorEvaluator:
             self.detector, _ = build_detector(
                 self.exp_data, self.detector_config, device=self.device,
                 **self.flavor)
-            sd = {k: v for k, v in template.state_dict().items()
-                  if not k.endswith("num_batches_tracked")}
-            load_strict(self.detector,
-                        apply_trunk_flavor(sd, self.flavor["trunk_quant"]))
-        self.pipe = _detection_pipeline(
-            self.exp_data, self.det_cfg, "valid",
-            num_workers=self.num_workers, data_path=self.data_path,
-            device=self.device)
+            load_strict(self.detector, apply_trunk_flavor(
+                self.detector, self.det_cfg, live_state_dict(template),
+                calib_batch_fn=lambda: next(iter(self.pipe))["image"]))
         self.predict = make_detector_predict(self.detector)
 
     def evaluate(self, save_stats: bool = True):

@@ -35,8 +35,11 @@ from stlpose_tpu_torch import resolve_device
 from stlpose_tpu_torch.config import (CONFIG, IMAGENET_MEAN, IMAGENET_STD,
                                       get_hrnet_config)
 from stlpose_tpu_torch.data.loaders import get_vase_subset
-from stlpose_tpu_torch.engines.detector_trainer import build_detector
+from stlpose_tpu_torch.engines.detector_trainer import (
+    apply_trunk_flavor, build_detector, live_state_dict,
+    live_template_detector)
 from stlpose_tpu_torch.kernels import decode as _k1
+from stlpose_tpu_torch.models.convert import load_strict
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
 from stlpose_tpu_torch.ops.affine import coords_to_center_scale, \
     transform_preds
@@ -183,9 +186,10 @@ class VaseEvaluator:
     ("cuda" unless the caller asks for the CPU).
 
     ``dtype`` is the compute dtype of both models (the JAX engine reads
-    ``STLPOSE_DTYPE``); ``trunk_quant`` ("none" or "folded") and
-    ``roi_patch_quant`` are the detector's serving flavors (the JAX
-    detector reads ``STLPOSE_FRCNN_TRUNK_QUANT`` and
+    ``STLPOSE_DTYPE``); ``trunk_quant`` ("none", "folded", "int8" or
+    "int8u"; the int8 trunks calibrate on the first batch of the vase
+    subset) and ``roi_patch_quant`` are the detector's serving flavors
+    (the JAX detector reads ``STLPOSE_FRCNN_TRUNK_QUANT`` and
     ``STLPOSE_PALLAS_ROI_INT8``). ``use_fused`` None or True runs the
     fused program, False the host path. ``crop_budget`` is the fused
     program's crop budget; None (or more) gives B * max_dets, so nothing
@@ -235,13 +239,39 @@ class VaseEvaluator:
 
     def setup_models(self, config_name: str = "w32_256x192",
                      pretrained=None):
-        """The detector's checkpoint, if one was named, and the pose model:
-        HRNet in ``dtype`` with live BatchNorm, from seeded initialisation,
-        then a reference-format ``pretrained`` .pth, then the checkpoint
-        (weights only). ``load_vase_subset`` must have run."""
-        if self.detector_checkpoint is not None:
-            load_detector_checkpoint(self.detector, self.exp_path,
-                                     self.detector_checkpoint)
+        """The detector's weights and the pose model. A live trunk takes
+        the checkpoint, if one was named; another trunk flavor is made
+        from the live template (seeded weights, then the checkpoint's),
+        the int8 trunks calibrating on the first batch of the vase subset.
+        The pose model: HRNet in ``dtype`` with live BatchNorm, from seeded
+        initialisation, then a reference-format ``pretrained`` .pth, then
+        the checkpoint (weights only). ``load_vase_subset`` must have
+        run."""
+        tq = getattr(self.detector, "trunk_quant", "none")
+        if tq == "none":
+            if self.detector_checkpoint is not None:
+                load_detector_checkpoint(self.detector, self.exp_path,
+                                         self.detector_checkpoint)
+        else:
+            template, _ = live_template_detector(
+                self.exp_data, self.detector_config, self.device)
+            if self.detector_checkpoint is not None:
+                load_detector_checkpoint(template, self.exp_path,
+                                         self.detector_checkpoint)
+
+            def calib_batch():
+                pipe = getattr(self, "pipe", None)
+                if pipe is None:
+                    raise RuntimeError(
+                        f"trunk_quant={tq!r} calibrates on the first image "
+                        "batch: call load_vase_subset() before "
+                        "setup_models(), or set ev.pipe = [{'image': "
+                        "batch}] with a (N, S, S, 3) 0-1 float batch")
+                return next(iter(pipe))["image"]
+
+            load_strict(self.detector, apply_trunk_flavor(
+                self.detector, self.det_cfg, live_state_dict(template),
+                calib_batch_fn=calib_batch))
         self.pose_model = _seeded(lambda: PoseHighResolutionNet(
             get_hrnet_config(config_name), self.device, self.dtype))
         load_pretrained_variables(self.pose_model, pretrained)

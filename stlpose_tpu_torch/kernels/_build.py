@@ -27,6 +27,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
+# every kernel source under csrc/, by name (csrc/<name>.cu)
+SOURCES = ("decode", "warp", "roi_align", "quantize", "warp_two_pass", "nms",
+           "roi_align_backward", "int8_conv")
+
 _loaded: dict[str, ctypes.CDLL] = {}
 _launchers: dict = {}
 P, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,

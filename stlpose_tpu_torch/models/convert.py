@@ -7,7 +7,11 @@ leaf names change:
 
   * conv kernels HWIO -> OIHW; dense kernels (in, out) -> (out, in);
   * BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
-    (batch_stats) -> ``weight``/``bias``/``running_mean``/``running_var``.
+    (batch_stats) -> ``weight``/``bias``/``running_mean``/``running_var``;
+  * an int8 ConvBN's leaves (the output of ``quantize_hrnet`` /
+    ``quantize_frcnn_trunk``) keep their names: ``kernel_i8`` HWIO int8
+    -> int8 in kernel K6's (C_out, Kpad) layout, ``sw``, ``sx``, ``bias``,
+    ``zp``, ``qlo``, ``qhi`` as f32.
 
 Counterpart of ``stlpose_tpu/models/convert.py`` (torch -> Flax names) and
 ``convert_detector.py`` in the other direction. ``load_torch_statedict``
@@ -21,7 +25,9 @@ train state (weights, BatchNorm statistics, optimizer moments, step)
 across, so a run continues a JAX run step for step. ``hrnet_from_jax``
 and ``faster_rcnn_from_jax`` also build the serving flavors: they take
 live-BatchNorm variables (folded here by ``models/quantize.py``) or
-variables the JAX package already folded (no ``batch_stats``).
+variables the JAX package already folded (no ``batch_stats``), or the
+JAX package's int8 variables for ``quant`` / ``trunk_quant`` "int8" and
+"int8u".
 ``efficientdet_from_jax`` carries the EfficientDet tree across (its
 BiFPN fusion weights are plain parameters, not Flax leaves of a layer).
 ``vgg_from_jax`` and ``adain_decoder_from_jax`` carry the style-transfer
@@ -39,17 +45,20 @@ import torch
 
 from stlpose_tpu_torch.config import (EfficientDetConfig, FasterRCNNConfig,
                                       HRNetConfig)
+from stlpose_tpu_torch.kernels.int8_conv import relayout_kernel_i8
 from stlpose_tpu_torch.models.adain import AdaINDecoder
 from stlpose_tpu_torch.models.efficientdet import EfficientDet
 from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
-from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
+from stlpose_tpu_torch.models.quantize import (flavored_state_dict,
                                                fold_batchnorms)
 from stlpose_tpu_torch.models.vgg import VGG16Features
 from stlpose_tpu_torch.train.optim import set_current_lr
 from stlpose_tpu_torch.train.state import PoseTrainState, create_train_state
 
-_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               **{k: k for k in ("kernel_i8", "sw", "sx", "zp", "qlo",
+                                 "qhi")}}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -69,6 +78,10 @@ def jax_variables_to_state_dict(variables) -> dict:
     in the port's names and layouts."""
     out = {}
     for key, leaf, arr in _flatten(variables["params"], _PARAM_LEAF):
+        if leaf == "kernel_i8":
+            out[key] = relayout_kernel_i8(torch.from_numpy(
+                np.array(arr, np.int8).transpose(3, 2, 0, 1)))
+            continue
         if leaf == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         out[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
@@ -208,14 +221,17 @@ def _live_bn(variables_np):
 
 
 def hrnet_from_jax(variables_np, config: HRNetConfig, device="cuda",
-                   dtype=torch.float32, folded: bool = False):
+                   dtype=torch.float32, folded: bool = False,
+                   quant: str = "none"):
     """A fresh ``PoseHighResolutionNet`` holding the JAX HRNet's weights;
-    with ``folded``, live-BatchNorm variables are folded first."""
+    with ``folded``, live-BatchNorm variables are folded first; with
+    ``quant`` "int8" / "int8u" (folded), the JAX package's quantized
+    variables (``quantize_hrnet``) go in as they are."""
     sd = jax_variables_to_state_dict(variables_np)
     if folded and _live_bn(variables_np):
         sd = fold_batchnorms(sd)
-    return load_strict(PoseHighResolutionNet(config, device, dtype, folded),
-                       sd)
+    return load_strict(PoseHighResolutionNet(config, device, dtype, folded,
+                                             quant=quant), sd)
 
 
 def faster_rcnn_from_jax(variables_np, config: FasterRCNNConfig,
@@ -223,10 +239,12 @@ def faster_rcnn_from_jax(variables_np, config: FasterRCNNConfig,
                          roi_patch_quant: bool = False,
                          trunk_quant: str = "none"):
     """A fresh ``FasterRCNN`` holding the JAX detector's weights; with
-    ``trunk_quant="folded"``, live-BatchNorm variables are folded first."""
+    ``trunk_quant="folded"``, live-BatchNorm variables are folded first;
+    with "int8" / "int8u", the variables are the JAX package's quantized
+    ones (``quantize_frcnn_trunk``), which go in as they are."""
     sd = jax_variables_to_state_dict(variables_np)
-    if _live_bn(variables_np):
-        sd = apply_trunk_flavor(sd, trunk_quant)
+    if _live_bn(variables_np) and trunk_quant == "folded":
+        sd = flavored_state_dict(sd, trunk_quant)
     return load_strict(FasterRCNN(config, device, dtype, roi_patch_quant,
                                   trunk_quant), sd)
 

@@ -22,7 +22,10 @@ box-head outputs stay bf16 into top-k, softmax and the score tests; box
 decoding promotes to f32 at its first f32 operand); ``roi_patch_quant``
 pools from the int8 patch pyramid; ``trunk_quant="folded"`` takes a trunk
 with BatchNorm folded into its convolutions
-(``models/quantize.py::fold_frcnn_trunk``).
+(``models/quantize.py::fold_frcnn_trunk``), and ``"int8"`` / ``"int8u"``
+the folded trunk with its bottleneck convolutions post-training quantized
+(``models/quantize.py::quantize_frcnn_trunk``; the int8 convolution is
+kernel K6, ``kernels/int8_conv.py``).
 
 Submodule names repeat the Flax module tree (``backbone``, ``fpn``,
 ``rpn_head``, ``box_head``). ``BoxHead`` flattens the pooled features in
@@ -311,7 +314,10 @@ class FasterRCNN(nn.Module):
     and the inference program ``predict``. Built in eval mode, on
     ``device``; ``dtype`` (float32 or bfloat16) is the compute dtype;
     ``roi_patch_quant`` pools RoIs from the int8 patch pyramid;
-    ``trunk_quant`` is "none" (live BatchNorm) or "folded". ``loss_fn``
+    ``trunk_quant`` is "none" (live BatchNorm), "folded", or "int8" /
+    "int8u" (folded, every bottleneck ConvBN on the int8 kernels; weights
+    from ``models/quantize.py::flavored_state_dict`` with calibration
+    images). ``loss_fn``
     puts the module in train mode and ``predict`` back in eval mode, each
     only when it is not already in it; training needs the live trunk in
     f32."""
@@ -326,8 +332,10 @@ class FasterRCNN(nn.Module):
         self.dtype = dtype
         self.roi_patch_quant = roi_patch_quant
         self.trunk_quant = trunk_quant
-        self.backbone = ResNet(cfg.stage_sizes, cfg.width,
-                               folded=trunk_quant == "folded")
+        self.backbone = ResNet(
+            cfg.stage_sizes, cfg.width, folded=trunk_quant != "none",
+            quant=trunk_quant if trunk_quant in ("int8", "int8u")
+            else "none")
         c2 = cfg.width * 4
         self.fpn = FPN([c2, c2 * 2, c2 * 4, c2 * 8], cfg.fpn_channels)
         self.rpn_head = RPNHead(cfg.fpn_channels, len(cfg.anchor_ratios))

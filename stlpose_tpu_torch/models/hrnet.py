@@ -5,7 +5,10 @@ running statistics) and in train mode (``model.train()``, batch
 statistics, with flax's running-statistics update), and in its serving
 flavors: ``folded=True`` (BatchNorm folded into the convolutions by
 ``models/quantize.py::fold_batchnorms``: each ConvBN is a biased conv with
-no ``bn`` submodule) and ``dtype=torch.bfloat16`` (compute in bf16 as
+no ``bn`` submodule), ``quant`` on a folded graph ("calib" records each
+ConvBN input's statistics; "int8" / "int8u" run each ConvBN as w8a8 on
+kernels K6q and K6, ``models/quantize.py`` making their weights) and
+``dtype=torch.bfloat16`` (compute in bf16 as
 flax's ``dtype=bfloat16`` does: convolutions on bf16 weights, ReLU and
 residual adds in bf16, live BatchNorm in f32, heatmaps cast to f32 at the
 end). With bf16 compute the convolution weights are stored rounded to
@@ -24,11 +27,13 @@ layout alone (``models/convert.py``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from stlpose_tpu_torch import resolve_device
+from stlpose_tpu_torch.kernels import int8_conv
 from stlpose_tpu_torch.config import HRNetConfig, HRNetStageConfig, \
     get_hrnet_config
 
@@ -87,21 +92,109 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, w, b)
 
 
+QUANT_MODES = ("none", "calib", "int8", "int8u")
+# the quantile of |x| that calibration records beside its max
+CALIB_QUANTILE = 0.999
+
+
+def quantile_linear(a, q: float):
+    """``jnp.quantile(a, q)`` (method "linear") of a flat f32 tensor, as
+    the JAX package computes it: the index ``q * (n - 1)`` in f32 (n
+    rounded to f32 first), its floor and ceiling as the two neighbours,
+    weights ``1 - frac`` and ``frac`` in f32; NaN if ``a`` holds a NaN.
+    The neighbours come from one ``topk`` of the largest ``n - floor``
+    values (``torch.quantile`` refuses more than 2^24 elements)."""
+    n = a.numel()
+    nf = np.float32(n)
+    qf = np.float32(q) * (nf - np.float32(1.0))
+    low, high = np.floor(qf), np.ceil(qf)
+    hw = np.float32(qf - low)
+    lw = np.float32(np.float32(1.0) - hw)
+    # XLA's gather clamps an index past the end (nf - 1 may round up)
+    low = min(int(min(max(low, 0.0), nf - 1)), n - 1)
+    high = min(int(min(max(high, 0.0), nf - 1)), n - 1)
+    top = torch.topk(a, n - low, sorted=True).values  # descending
+    out = top[n - 1 - low] * float(lw) + top[n - 1 - high] * float(hw)
+    return torch.where(torch.isnan(a).any(), float("nan"), out)
+
+
 class ConvBN(nn.Module):
     """conv (no bias, symmetric k//2 padding) + BatchNorm (eps 1e-5, the
     reference's; flax's train-mode update) [+ ReLU]. ``folded``: a biased
     conv and no BatchNorm. The BatchNorm runs in f32 on the conv's output
-    and its result returns to the conv's dtype."""
+    and its result returns to the conv's dtype.
+
+    ``quant`` (folded graphs only) is the int8 post-training quantization
+    mode of ``stlpose_tpu/models/hrnet.py::ConvBN``:
+
+    * "calib": the folded conv, and its input's ``in_absmax`` (max |x|),
+      ``in_q999`` (the 0.999 quantile of |x|) and ``in_min`` (min x) kept
+      in ``calib_stats`` as f32 device scalars, max- (min-) reduced over
+      calls from 0 (+inf) until ``calib_stats`` is set to None;
+    * "int8": the input quantized per tensor, ``clip(rint(x / sx), -127,
+      127)`` (K6q), the int8 convolution with int32 accumulation, then
+      ``acc * (sx * sw) + bias`` (K6), ReLU, the input's dtype;
+    * "int8u": ``clip(rint(x / sx), qlo, qhi) - zp`` and padding with -zp
+      (the ``zp * sum(w8)`` term is folded into ``bias`` by
+      ``models/quantize.py::quantize_hrnet``).
+
+    The int8 modes hold buffers, not a conv: ``kernel_i8`` (int8, in K6's
+    (C_out, Kpad) layout), ``sw`` (C_out,), ``sx`` (), ``bias`` (C_out,)
+    and, for "int8u", ``zp``, ``qlo``, ``qhi`` (), all f32 but the
+    kernel, named as the Flax scope names its parameters."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
-                 stride: int = 1, relu: bool = True, folded: bool = False):
+                 stride: int = 1, relu: bool = True, folded: bool = False,
+                 quant: str = "none"):
         super().__init__()
+        if quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant {quant!r}; one of {QUANT_MODES}")
+        if quant != "none" and not folded:
+            raise ValueError(f"quant={quant!r} runs on a folded graph "
+                             "(folded=True)")
+        self.kernel, self.stride = kernel, stride
+        self.relu = relu
+        self.quant = quant
+        self.calib_stats = None
+        if quant in ("int8", "int8u"):
+            self.conv = self.bn = None
+            self.register_buffer("kernel_i8", torch.zeros(
+                (cout, int8_conv.padded_k(kernel, cin)), dtype=torch.int8))
+            self.register_buffer("sw", torch.ones(cout))
+            self.register_buffer("sx", torch.ones(()))
+            self.register_buffer("bias", torch.zeros(cout))
+            if quant == "int8u":
+                self.register_buffer("zp", torch.zeros(()))
+                self.register_buffer("qlo", torch.full((), -127.0))
+                self.register_buffer("qhi", torch.full((), 127.0))
+            return
         self.conv = Conv2d(cin, cout, kernel, stride, kernel // 2,
                            bias=folded)
         self.bn = None if folded else FlaxBatchNorm2d(cout)
-        self.relu = relu
+
+    def _record(self, x):
+        ax = x.abs().float().flatten()
+        new = {"in_absmax": ax.max(),
+               "in_q999": quantile_linear(ax, CALIB_QUANTILE),
+               "in_min": x.float().min()}
+        old = self.calib_stats or {
+            "in_absmax": torch.zeros((), device=x.device),
+            "in_q999": torch.zeros((), device=x.device),
+            "in_min": torch.full((), float("inf"), device=x.device)}
+        self.calib_stats = {
+            k: (torch.minimum if k == "in_min" else torch.maximum)(old[k], v)
+            for k, v in new.items()}
 
     def forward(self, x):
+        if self.quant in ("int8", "int8u"):
+            zq = ((self.zp, self.qlo, self.qhi) if self.quant == "int8u"
+                  else (None, None, None))
+            xq = int8_conv.quantize_activations(x, self.sx, *zq)
+            return int8_conv.int8_conv(xq, self.kernel_i8, self.kernel,
+                                       self.stride, self.sx, self.sw,
+                                       self.bias, zq[0], self.relu, x.dtype)
+        if self.quant == "calib":
+            self._record(x)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x.float()).to(x.dtype)
@@ -112,13 +205,14 @@ class BasicBlock(nn.Module):
     """Two 3x3 ConvBNs with a residual."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 downsample: bool = False, folded: bool = False):
+                 downsample: bool = False, folded: bool = False,
+                 quant: str = "none"):
         super().__init__()
-        self.cb1 = ConvBN(cin, features, 3, stride, folded=folded)
-        self.cb2 = ConvBN(features, features, 3, 1, relu=False,
-                          folded=folded)
-        self.down = (ConvBN(cin, features, 1, stride, relu=False,
-                            folded=folded) if downsample else None)
+        fq = dict(folded=folded, quant=quant)
+        self.cb1 = ConvBN(cin, features, 3, stride, **fq)
+        self.cb2 = ConvBN(features, features, 3, 1, relu=False, **fq)
+        self.down = (ConvBN(cin, features, 1, stride, relu=False, **fq)
+                     if downsample else None)
 
     def forward(self, x):
         y = self.cb2(self.cb1(x))
@@ -131,14 +225,16 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 downsample: bool = False, folded: bool = False):
+                 downsample: bool = False, folded: bool = False,
+                 quant: str = "none"):
         super().__init__()
-        self.cb1 = ConvBN(cin, features, 1, 1, folded=folded)
-        self.cb2 = ConvBN(features, features, 3, stride, folded=folded)
+        fq = dict(folded=folded, quant=quant)
+        self.cb1 = ConvBN(cin, features, 1, 1, **fq)
+        self.cb2 = ConvBN(features, features, 3, stride, **fq)
         self.cb3 = ConvBN(features, features * self.expansion, 1, 1,
-                          relu=False, folded=folded)
+                          relu=False, **fq)
         self.down = (ConvBN(cin, features * self.expansion, 1, stride,
-                            relu=False, folded=folded)
+                            relu=False, **fq)
                      if downsample else None)
 
     def forward(self, x):
@@ -151,15 +247,16 @@ class HighResolutionModule(nn.Module):
     """Parallel BasicBlock branches + all-to-all cross-resolution fusion."""
 
     def __init__(self, stage: HRNetStageConfig,
-                 multi_scale_output: bool = True, folded: bool = False):
+                 multi_scale_output: bool = True, folded: bool = False,
+                 quant: str = "none"):
         super().__init__()
         self.stage = stage
         chans = stage.num_channels
+        fq = dict(folded=folded, quant=quant)
         for b in range(stage.num_branches):
             for k in range(stage.num_blocks[b]):
                 self.add_module(f"branch{b}_block{k}",
-                                BasicBlock(chans[b], chans[b],
-                                           folded=folded))
+                                BasicBlock(chans[b], chans[b], **fq))
         self.n_out = (stage.num_branches if multi_scale_output else 1) \
             if stage.num_branches > 1 else 0
         for i in range(self.n_out):
@@ -167,14 +264,14 @@ class HighResolutionModule(nn.Module):
                 if j > i:
                     self.add_module(f"fuse{i}_{j}",
                                     ConvBN(chans[j], chans[i], 1, 1,
-                                           relu=False, folded=folded))
+                                           relu=False, **fq))
                 elif j < i:
                     for k in range(i - j):
                         last = k == i - j - 1
                         self.add_module(
                             f"fuse{i}_{j}_{k}",
                             ConvBN(chans[j], chans[i] if last else chans[j],
-                                   3, 2, relu=not last, folded=folded))
+                                   3, 2, relu=not last, **fq))
 
     def forward(self, xs):
         st = self.stage
@@ -209,17 +306,20 @@ class PoseHighResolutionNet(nn.Module):
     (N, 64, 48, num_joints) heatmaps, float32; built in eval mode.
     ``dtype`` (float32 or bfloat16) is the compute dtype; ``param_dtype``
     the storage of the convolution weights (None: ``dtype``; float32 for
-    training); ``folded`` takes BatchNorm-folded weights (serving only)."""
+    training); ``folded`` takes BatchNorm-folded weights (serving only);
+    ``quant`` is every ConvBN's int8 mode ("none", "calib", "int8",
+    "int8u"; folded only), ``final_layer`` staying a float conv."""
 
     def __init__(self, config: HRNetConfig = get_hrnet_config("w32_256x192"),
                  device="cuda", dtype=torch.float32, folded: bool = False,
-                 param_dtype=None):
+                 param_dtype=None, quant: str = "none"):
         super().__init__()
         device = resolve_device(device)
         self.config = cfg = config
         self.dtype = dtype
         self.folded = folded
-        fo = dict(folded=folded)
+        self.quant = quant
+        fo = dict(folded=folded, quant=quant)
         self.stem1 = ConvBN(3, cfg.stem_channels, 3, 2, **fo)
         self.stem2 = ConvBN(cfg.stem_channels, cfg.stem_channels, 3, 2, **fo)
         cin = cfg.stem_channels
@@ -284,3 +384,37 @@ class PoseHighResolutionNet(nn.Module):
                 xs = getattr(self, f"stage{s}_m{m}")(xs)
             n_prev = stage.num_branches
         return self.final_layer(xs[0]).float().permute(0, 2, 3, 1)
+
+
+def create_hrnet(config_name: str = "w32_256x192", device="cuda",
+                 dtype=torch.float32, folded: bool = False,
+                 quant: str = "none") -> PoseHighResolutionNet:
+    """``PoseHighResolutionNet`` of a named config (``get_hrnet_config``)
+    in a serving flavor."""
+    return PoseHighResolutionNet(get_hrnet_config(config_name), device,
+                                 dtype, folded, quant=quant)
+
+
+def fold_input_normalization(state_dict, mean, std):
+    """Fold the input normalization ``(x - mean) / std`` (per channel) into
+    ``stem1``'s conv and BatchNorm of an unfolded state dict, so the model
+    takes raw images: the kernel is divided by ``std`` per input channel
+    and the running mean lowered by ``sum_hwi W * mean / std``; in f32
+    numpy, in the JAX package's HWIO layout and order (own copy of
+    ``stlpose_tpu/models/hrnet.py::fold_input_normalization``). With zero
+    padding the constant term is smaller on the stem's 1-pixel border, so
+    the folded model differs from the normalized one at crop edges."""
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    w = state_dict["stem1.conv.weight"]
+    W = np.ascontiguousarray(w.detach().cpu().numpy().transpose(
+        2, 3, 1, 0))                                          # HWIO
+    W_scaled = W / std[None, None, :, None]
+    shift = (W * (mean / std)[None, None, :, None]).sum(axis=(0, 1, 2))
+    out = dict(state_dict)
+    out["stem1.conv.weight"] = torch.from_numpy(
+        np.ascontiguousarray(W_scaled.transpose(3, 2, 0, 1))).to(w.device)
+    rm = state_dict["stem1.bn.running_mean"]
+    out["stem1.bn.running_mean"] = torch.from_numpy(
+        rm.detach().cpu().numpy() - shift).to(rm.device)
+    return out

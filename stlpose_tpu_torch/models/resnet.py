@@ -2,7 +2,9 @@
 
 Port of ``stlpose_tpu/models/resnet.py`` (live BatchNorm with flax's
 train-mode update, ``FlaxBatchNorm2d``, or ``folded``: ``stem_conv`` with
-a bias and no ``stem_bn``, every ConvBN folded). Its bottleneck is
+a bias and no ``stem_bn``, every ConvBN folded; with ``folded``, ``quant``
+puts every bottleneck ConvBN in an int8 mode, "calib", "int8" or "int8u",
+and ``stem_conv`` stays a folded float conv). Its bottleneck is
 HRNet's (same layers, same names). Submodule
 names repeat the Flax module tree (``stem_conv``, ``stem_bn``,
 ``layer{s}_{b}.cb{q}``, ``.down``). The input is cast to the dtype of the
@@ -21,7 +23,7 @@ class ResNet(nn.Module):
     """ResNet-{50,101} trunk; forward returns [C2, C3, C4, C5]."""
 
     def __init__(self, stage_sizes=(3, 4, 6, 3), width: int = 64,
-                 folded: bool = False):
+                 folded: bool = False, quant: str = "none"):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.stem_conv = nn.Conv2d(3, width, 7, 2, 3, bias=folded)
@@ -33,7 +35,7 @@ class ResNet(nn.Module):
                 self.add_module(f"layer{s + 1}_{b}",
                                 Bottleneck(cin, planes, stride,
                                            downsample=(b == 0),
-                                           folded=folded))
+                                           folded=folded, quant=quant))
                 cin = planes * Bottleneck.expansion
             planes *= 2
 

@@ -18,9 +18,10 @@ efficientdet_d0, efficientdet_d3, efficientdet_tiny; default the
 experiment's ``model.detector_name``),
 ``STLPOSE_MODEL_CONFIG`` (default w32_256x192), ``STLPOSE_PRETRAINED`` (a
 reference-format HRNet ``.pth``; empty for none), ``STLPOSE_DTYPE=
-bfloat16``, ``STLPOSE_FRCNN_TRUNK_QUANT=folded``,
-``STLPOSE_PALLAS_ROI_INT8=1`` and the ``STLPOSE_*_PATH`` directories;
-they reach the engine as arguments.
+bfloat16``, ``STLPOSE_FRCNN_TRUNK_QUANT=folded|int8|int8u`` (the int8
+trunks calibrate on the first vase batch), ``STLPOSE_PALLAS_ROI_INT8=1``
+and the ``STLPOSE_*_PATH`` directories; they reach the engine as
+arguments.
 """
 
 import argparse

@@ -23,7 +23,7 @@ import torch
 from stlpose_tpu_torch.models.convert import (load_strict,
                                               load_torch_statedict,
                                               torch_statedict_to_port)
-from stlpose_tpu_torch.models.quantize import apply_trunk_flavor
+from stlpose_tpu_torch.models.quantize import flavored_state_dict
 from stlpose_tpu_torch.train.optim import get_current_lr, set_current_lr
 from stlpose_tpu_torch.train.state import PoseTrainState
 
@@ -106,15 +106,17 @@ def load_detector_checkpoint(detector, exp_path: str, epoch):
 
     The file holds a live-BatchNorm detector's f32 state dict; for a
     Faster R-CNN built with ``trunk_quant="folded"`` it is folded first
-    (``models/quantize.py::apply_trunk_flavor``; an EfficientDet has no
+    (``models/quantize.py::flavored_state_dict``; an EfficientDet has no
     trunk flavor), then every entry is loaded strictly, rounded to the
     detector's dtype on the way in. Only the weights are read; the file's
-    optimizer state is left."""
+    optimizer state is left. The int8 trunks need calibration images and
+    raise here: the engines load the checkpoint into a live template and
+    quantize that (``engines/detector_trainer.py::apply_trunk_flavor``)."""
     path = checkpoint_path(exp_path, epoch, detector=True)
     blob = torch.load(path + ".pt", map_location="cpu", weights_only=True)
     sd = {k: v for k, v in blob["model_state_dict"].items()
           if not k.endswith("num_batches_tracked")}
-    return load_strict(detector, apply_trunk_flavor(
+    return load_strict(detector, flavored_state_dict(
         sd, getattr(detector, "trunk_quant", "none")))
 
 

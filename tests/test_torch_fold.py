@@ -16,7 +16,7 @@ from stlpose_tpu_torch.models.convert import (faster_rcnn_from_jax,
                                               jax_variables_to_state_dict)
 from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
-from stlpose_tpu_torch.models.quantize import (apply_trunk_flavor,
+from stlpose_tpu_torch.models.quantize import (flavored_state_dict,
                                                fold_batchnorms,
                                                fold_frcnn_trunk)
 from tests.test_torch_faster_rcnn import jax_detector
@@ -122,17 +122,20 @@ def test_model_trained_by_the_port_folds():
 
 
 def test_trunk_flavors():
-    """``apply_trunk_flavor``: "none" leaves the weights as they are,
-    "folded" folds the trunk; the int8 PTQ flavors are not ported and say
-    where they are queued, in the model's constructor too."""
+    """``flavored_state_dict``: "none" leaves the weights as they are,
+    "folded" folds the trunk; the int8 PTQ flavors build (every
+    bottleneck ConvBN in the int8 mode, the stem a folded conv) and refuse
+    to run without calibration batches; unknown names raise."""
     _, dv = jax_detector(0)
     sd = jax_variables_to_state_dict(dv)
-    assert apply_trunk_flavor(sd, "none") is sd
-    assert set(apply_trunk_flavor(sd, "folded")) == set(fold_frcnn_trunk(sd))
+    assert flavored_state_dict(sd, "none") is sd
+    assert set(flavored_state_dict(sd, "folded")) == set(fold_frcnn_trunk(sd))
     for flavor in ("int8", "int8u"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            apply_trunk_flavor(sd, flavor)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            FasterRCNN(FASTER_RCNN_TINY, device="cpu", trunk_quant=flavor)
+        with pytest.raises(ValueError, match="requires calibration images"):
+            flavored_state_dict(sd, flavor)
+        det = FasterRCNN(FASTER_RCNN_TINY, device="cpu", trunk_quant=flavor)
+        assert det.trunk_quant == flavor
+        assert det.backbone.layer1_0.cb2.quant == flavor
+        assert det.backbone.stem_conv.bias is not None
     with pytest.raises(ValueError, match="unknown trunk_quant"):
-        apply_trunk_flavor(sd, "fp8")
+        flavored_state_dict(sd, "fp8")
