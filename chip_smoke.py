@@ -84,15 +84,26 @@ Phases, each fatal on failure:
      f32 flavor (a record); HRNet-W32 quantized by
      quantize_hrnet_from_batches in both act schemes on 64 seeded crops
      (heatmaps 0.0 from the plain versions, ms, the drift from folded
-     f32); then K6 (the int8 implicit-GEMM convolution) and K6q (its
+     f32); K6 once per int8 ConvBN, K6q once per distinct (input,
+     scales) (int8_quantizations: a bottleneck's cb1 and down, HRNet's
+     fuse layers on one branch and its stage-2 transitions share codes),
+     K6's mma.sync kernel and K6q's byte path only where C_in % 16 != 0;
+     then K6 (the int8 implicit-GEMM convolution on wgmma) and K6q (its
      activation quantizer) alone, exactly against their plain versions at
      every int8 ConvBN shape of both networks and on planted scenes
      (+-127 codes at K = 4608, C_in = 3, a 1x1 stride-2 conv on 25x25,
-     zero-point pads, half-steps and clip ends), timed warm and cold over
-     one ResNet-50 trunk (52 convolutions) and one HRNet-W32 forward,
-     beside torch._int_mm on the trunk's 1x1 convolutions (the
-     accumulator only); bound: per convolution, int8 operations at 1,979
-     TOP/s or its bytes, the longer, summed. Phase 4c also runs the vase
+     zero-point pads, half-steps and clip ends; the wgmma design's edges:
+     M past the M tile, C_out 32 and past the N tile, K stages past
+     Kpad, the deepest small-M shape, int8u pads on every border of a 3x3
+     stride-2 conv, 1x1 stride 1 by TMA and stride 2 gathered, a distinct
+     sw and bias per channel, bf16 out; K6q's tile kernel on odd pixel
+     counts, partial channel tiles and an input off 16 bytes), timed warm
+     and cold over one ResNet-50 trunk (52 convolutions; the first mma.sync
+     kernel over the same as parent_) and one HRNet-W32 forward, beside
+     torch._int_mm on the trunk's 1x1 convolutions (the accumulator
+     only), K6q also as the paths call it (shared codes); bound: per
+     convolution, int8 operations at 1,979 TOP/s or its bytes, the
+     longer, summed. Phase 4c also runs the vase
      engine with an int8 trunk at B = 1 and B = 8 (calibrated on its first
      batch; fused = host path, kernels = plain versions), and phase 5e's
      detector CLI runs 03 again with STLPOSE_FRCNN_TRUNK_QUANT=int8u (K6
@@ -1247,7 +1258,9 @@ def reset_counts(mods):
     mods["k3"].BACKWARD_LAUNCHES = 0
     mods["k6"].QUANTIZE_LAUNCHES = 0
     for by_type in (mods["k3"].LAUNCHES_BY_TYPE,
-                    mods["k1"].LAUNCHES_BY_KERNEL):
+                    mods["k1"].LAUNCHES_BY_KERNEL,
+                    mods["k6"].LAUNCHES_BY_KERNEL,
+                    mods["k6"].QUANTIZE_LAUNCHES_BY_KERNEL):
         for v in by_type:
             by_type[v] = 0
 
@@ -1271,7 +1284,11 @@ def launch_counts(mods):
               "box_nms_topk": mods["k5"].LAUNCHES,
               "roi_align_backward": mods["k3"].BACKWARD_LAUNCHES,
               "int8_conv": mods["k6"].LAUNCHES,
-              "quantize_activations": mods["k6"].QUANTIZE_LAUNCHES}
+              "quantize_activations": mods["k6"].QUANTIZE_LAUNCHES,
+              # K6's mma.sync kernel (C_in % 16 != 0) and K6q's byte path
+              "int8_conv_mma_sync": mods["k6"].LAUNCHES_BY_KERNEL["mma_sync"],
+              "quantize_activations_bytes":
+                  mods["k6"].QUANTIZE_LAUNCHES_BY_KERNEL["bytes"]}
     counts.update({ROI_RECORDS[v]: n
                    for v, n in mods["k3"].LAUNCHES_BY_TYPE.items()})
     return counts
@@ -1538,6 +1555,40 @@ def int8_convbns(model):
     return sum(1 for m in model.modules() if hasattr(m, "kernel_i8"))
 
 
+def off_fast_kernels(log, qlog):
+    """(K6 calls on its mma.sync kernel, K6q calls on its byte path)
+    that a forward with ConvBN calls ``log`` (``conv_shapes``) and K6q
+    calls ``qlog`` (``quantize_calls``) makes: those with C_in % 16 !=
+    0."""
+    return (sum(n for key, (n, _) in log.items() if key[1] % 16),
+            sum(1 for shape, *_ in qlog if shape[1] % 16))
+
+
+def int8_quantizations(model):
+    """K6q launches in one forward of ``model``: one per distinct (input,
+    scales), as ``models/hrnet.py::shared_codes`` makes them (the port's
+    own count, ``int8_quantizations``, over every module's share sites)."""
+    from stlpose_tpu_torch.models.hrnet import int8_quantizations as count
+    return count(model)
+
+
+@contextlib.contextmanager
+def quantize_calls(k6, log):
+    """Record each K6q call in ``log``: (x shape, x dtype, sx, zp, qlo,
+    qhi)."""
+    fn = k6.quantize_activations
+
+    def recorded(x, sx, zp=None, qlo=None, qhi=None):
+        log.append((tuple(x.shape), x.dtype, sx, zp, qlo, qhi))
+        return fn(x, sx, zp, qlo, qhi)
+
+    k6.quantize_activations = recorded
+    try:
+        yield
+    finally:
+        k6.quantize_activations = fn
+
+
 def int8_path(torch, mods, dev, args):
     """The int8 PTQ serving flavors at full width (phase 4d): the
     Faster R-CNN trunk quantized by ``flavored_state_dict`` on one seeded
@@ -1585,6 +1636,7 @@ def int8_path(torch, mods, dev, args):
     print(f"int8 set-up in {time.time() - t0:.1f} s", flush=True)
     paths, summary, trunk_shapes, hrnet_shapes, all_shapes = {}, {}, {}, \
         {}, {}
+    trunk_quants, hrnet_quants = [], []
     stack = None
     for tq, dname, roi8 in INT8_FLAVORS:
         dtype = getattr(torch, dname)
@@ -1598,22 +1650,24 @@ def int8_path(torch, mods, dev, args):
         det_q = mods["load_strict"](FRCNN(
             cfg, device=dev, dtype=dtype, roi_patch_quant=roi8,
             trunk_quant=tq), sd)
-        log = {}
+        log, qlog = {}, []
         with torch.inference_mode():
-            with conv_shapes(det_q, log):
+            with conv_shapes(det_q, log), quantize_calls(mods["k6"], qlog):
                 c = det_q.backbone(x01)
             with plain_versions(mods):
                 c_ref = det_q.backbone(x01)
         c_err = max(float((a.float() - b.float()).abs().max())
                     for a, b in zip(c, c_ref))
-        n_cb = int8_convbns(det_q)
-        if c_err != 0.0 or sum(v[0] for v in log.values()) != n_cb:
+        n_cb, n_q = int8_convbns(det_q), int8_quantizations(det_q)
+        if c_err != 0.0 or sum(v[0] for v in log.values()) != n_cb or \
+                len(qlog) != n_q:
             fail(f"{label}: C2-C5 on the kernels {c_err} from the plain "
-                 f"versions, or not every int8 ConvBN ran once")
+                 f"versions, or not every int8 ConvBN ran once, or not "
+                 f"{n_q} quantizations ({len(qlog)})")
         for key, v in log.items():
             all_shapes.setdefault(key, v)
         if (tq, dname) == ("int8", "float32"):
-            trunk_shapes = log
+            trunk_shapes, trunk_quants = log, qlog
         required = ("int8_conv", "quantize_activations", "heatmap_peaks",
                     "affine_crop") + (("quantize_levels", "roi_align_i8_bf16")
                                       if roi8 else ("roi_align",))
@@ -1621,16 +1675,22 @@ def int8_path(torch, mods, dev, args):
         launches, tput, out, n_valid = drive_fused(
             torch, mods, fused, images, required, label, args.iters)
         if launches["int8_conv"] != n_cb or \
-                launches["quantize_activations"] != n_cb:
+                launches["quantize_activations"] != n_q or \
+                (launches["int8_conv_mma_sync"],
+                 launches["quantize_activations_bytes"]) != \
+                off_fast_kernels(log, qlog):
             fail(f"{label}: K6 / K6q launched {launches['int8_conv']} / "
                  f"{launches['quantize_activations']} times, not once per "
-                 f"int8 ConvBN ({n_cb})")
+                 f"int8 ConvBN ({n_cb}) / per distinct input and scales "
+                 f"({n_q}), or off the wgmma / tile kernels where C_in % "
+                 f"16 == 0: {launches}")
         drift = flavor_drift(torch, out, ref)
         print(f"{label} vs f32 flavor, same weights (record):",
               json.dumps(drift), flush=True)
         key = f"serving_{tq}_{dname}" + ("_roi8" if roi8 else "")
         paths[key] = launches
         summary[key] = {"calibration_s": calib_s, "int8_convbns": n_cb,
+                        "quantizations": n_q,
                         "c2_c5_kernels_vs_plain": c_err, **tput,
                         "drift_from_f32": drift}
         if roi8:
@@ -1652,9 +1712,9 @@ def int8_path(torch, mods, dev, args):
             act_scheme=scheme)
         torch.cuda.synchronize()
         calib_s = time.time() - t
-        log = {}
+        log, qlog = {}, []
         with torch.inference_mode():
-            with conv_shapes(model, log):
+            with conv_shapes(model, log), quantize_calls(mods["k6"], qlog):
                 model(crops)
             torch.cuda.synchronize()
             reset_counts(mods)
@@ -1667,17 +1727,25 @@ def int8_path(torch, mods, dev, args):
         for key, v in log.items():
             all_shapes.setdefault(key, v)
         if quant == "int8":
-            hrnet_shapes = log
-        n_cb = int8_convbns(model)
+            hrnet_shapes, hrnet_quants = log, qlog
+        n_cb, n_q = int8_convbns(model), int8_quantizations(model)
         err = float((hm - hm_ref).abs().max())
+        # only the 3-channel stem takes K6's mma.sync kernel and K6q's
+        # byte path
         if (err != 0.0 or not bool(torch.isfinite(hm).all())
                 or launches["int8_conv"] != n_cb
-                or launches["quantize_activations"] != n_cb):
+                or launches["quantize_activations"] != n_q
+                or (launches["int8_conv_mma_sync"],
+                    launches["quantize_activations_bytes"]) !=
+                off_fast_kernels(log, qlog)):
             fail(f"HRNet-W32 {quant}: heatmaps {err} from the plain "
-                 f"versions, or K6 / K6q not once per int8 ConvBN ({n_cb}):"
-                 f" {launches}")
+                 f"versions, or K6 not once per int8 ConvBN ({n_cb}), or "
+                 f"K6q not once per distinct input and scales ({n_q}), or "
+                 f"off the wgmma / tile kernels where C_in % 16 == 0: "
+                 f"{launches}")
         paths[f"hrnet_{quant}"] = launches
         hr[quant] = {"calibration_s": calib_s, "int8_convbns": n_cb,
+                     "quantizations": n_q,
                      "kernels_vs_plain": err, "ms": ms,
                      "crops_per_s": INT8_CROPS / ms * 1e3,
                      "drift_from_folded_f32": rel_err(torch, hm, hm_f)}
@@ -1686,7 +1754,8 @@ def int8_path(torch, mods, dev, args):
         del model, hm, hm_ref
     summary["hrnet"] = hr
     checks = check_int8_kernels(torch, mods["k6"], all_shapes, trunk_shapes,
-                                hrnet_shapes, dev, args.seed + 52)
+                                hrnet_shapes, (trunk_quants, hrnet_quants),
+                                dev, args.seed + 52)
     summary["card_time_s"] = time.time() - t0
     print("int8:", json.dumps(summary), flush=True)
     return paths, summary, (checks, stack)
@@ -1767,6 +1836,64 @@ def int8_planted(torch, k6, dev):
             out[f"{case}_{str(dt)[6:]}"] = float(
                 (k6.int8_conv(*args).float() -
                  k6.int8_conv_plain(*args).float()).abs().max())
+    # the wgmma design's edges (csrc/int8_conv.cu): M past the M tile, O
+    # = 32 and O past the N tile, K stages past Kpad, the trunk's deepest
+    # small-M convolution (where a split-K would go; the design takes
+    # smaller tiles), int8u -zp pads on every border of a 3x3 stride-2
+    # convolution (odd sides), 1x1 stride 1 (codes by TMA) and stride 2
+    # (gathered), HRNet's branch 0 (BM 128, BN 32); each channel its own
+    # sw and bias, so a transposed fragment mapping shows; f32 and bf16
+    # out, ReLU on every other case
+    zq8u = (torch.tensor(128.0, device=dev), lo, hi)
+    sx_e = torch.tensor(1.0 / 64.0, device=dev)
+    edges = {  # name: N, C_in, H, W, C_out, kernel, stride, int8u
+        "m_tail_o_48": (3, 64, 11, 11, 48, 3, 1, False),
+        "o_32_kpad_288": (2, 32, 13, 13, 32, 3, 1, True),
+        "o_96_of_128": (2, 64, 20, 18, 96, 3, 1, False),
+        "1x1_tma_c_48": (2, 48, 9, 7, 40, 1, 1, True),
+        "1x1_tma_m_1352": (8, 256, 13, 13, 512, 1, 1, False),
+        "1x1_stride_2_gather": (8, 512, 25, 25, 1024, 1, 2, True),
+        "small_m_deep_k": (8, 512, 25, 25, 512, 3, 2, False),
+        "int8u_pads_3x3_s2": (3, 64, 9, 11, 64, 3, 2, True),
+        "hrnet_branch0": (64, 32, 64, 48, 32, 3, 1, True)}
+    for i, (case, (N, C, H, W, O, k, s, u)) in enumerate(edges.items()):
+        x = torch.rand((N, C, H, W), generator=g, device=dev) * 4.0 - \
+            (0.0 if u else 2.0)
+        zq = zq8u if u else (None, None, None)
+        q = k6.quantize_activations(x, sx_e, *zq)
+        w8 = k6.relayout_kernel_i8(torch.randint(
+            -127, 128, (O, C, k, k), generator=g, device=dev,
+            dtype=torch.int8))
+        sw = (torch.arange(O, device=dev) + 1.0) * 1e-4
+        b = torch.arange(O, device=dev) * 0.25 - O * 0.125
+        for dt in (f32, torch.bfloat16):
+            a = (q, w8, k, s, sx_e, sw, b, zq[0], i % 2 == 0, dt)
+            out[f"{case}_{str(dt)[6:]}"] = float(
+                (k6.int8_conv(*a).float() -
+                 k6.int8_conv_plain(*a).float()).abs().max())
+        if case == "m_tail_o_48":
+            # the mma.sync kernel, timed beside wgmma, on C_in % 16 == 0
+            out["mma_sync_route"] = float(
+                (k6.int8_conv(*a, route="mma_sync").float() -
+                 k6.int8_conv_plain(*a).float()).abs().max())
+    # K6q's tile kernel on a partial channel tile with an odd pixel count,
+    # on 4-aligned but not 8-aligned pixels (bf16 loads one at a time),
+    # and on an input that does not start on 16 bytes
+    for case, (N, C, H, W) in (("c_48_hw_625", (2, 48, 25, 25)),
+                               ("c_64_hw_2500", (2, 64, 50, 50)),
+                               ("misaligned", (2, 64, 8, 8))):
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn((N, C, H, W), generator=g, device=dev) *
+                 3.0).to(dt)
+            if case == "misaligned":
+                flat = torch.empty(x.numel() + 1, dtype=dt, device=dev)
+                flat[1:] = x.flatten()
+                x = flat[1:].view(N, C, H, W)
+            for quant, zq in (("int8", (None, None, None)), ("int8u", zq8u)):
+                q = k6.quantize_activations(x, sx, *zq)
+                qr = k6.quantize_activations_plain(x, sx, *zq)
+                out[f"k6q_{case}_{quant}_{str(dt)[6:]}"] = int(
+                    (q != qr).sum())
     # K6q: half-steps, exact steps and the clip ends, f32 and bf16 inputs
     # (sx 0.5: every planted value is exact in bf16)
     steps = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 127.5,
@@ -1790,8 +1917,81 @@ def int8_planted(torch, k6, dev):
     return out
 
 
-def check_int8_kernels(torch, k6, shapes, trunk_shapes, hrnet_shapes, dev,
-                       seed):
+# K6's timed variants: edited copies of csrc/int8_conv.cu that show what
+# its time over the trunk is made of (each edit must match once)
+NO_STORES = (("      if (whole) {", "      if (false) {"),
+             ("        for (int e = 0; e < VEC && m + e < p.M; ++e) {",
+              "        for (int e = 0; e < 0; ++e) {"))
+K6_VARIANTS = {
+    # the epilogue without its global stores
+    "nostore": NO_STORES,
+    # without its dequantize and staging too: the mainloop alone
+    "mainloop": NO_STORES + (
+        ("        tile[col * L::LD + row] = to_out",
+         "        if (p.N < 0) tile[col * L::LD + row] = to_out"),
+        ("        tile[col * L::LD + row + 8] = to_out",
+         "        if (p.N < 0) tile[col * L::LD + row + 8] = to_out"))}
+
+
+def build_variants(build, name, variants):
+    """Compile edited copies of kernel ``name``'s source (``variants``:
+    label -> (old, new) edits), one nvcc each, all started together, into
+    the build directory. Returns {label: library path}."""
+    with open(build._target(name)[0]) as f:
+        src = f.read()
+    out_dir = os.path.join(build.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for label, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                fail(f"{name} variant {label}: edit {old!r} matches "
+                     f"{text.count(old)} times")
+            text = text.replace(old, new)
+        cu = os.path.join(out_dir, f"{name}_{label}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        lib = os.path.join(out_dir, f"lib{name}_{label}.so")
+        procs[label] = (subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for label, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"{name} variant {label} does not build:\n{log[-3000:]}")
+        libs[label] = lib
+    return libs
+
+
+def on_library(build, name, path, fn):
+    """``fn`` with kernel ``name``'s launches routed to the library at
+    ``path`` (a variant) for the length of each call."""
+    import ctypes
+    lib = ctypes.CDLL(path)
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+
+    def call():
+        own = build._loaded.get(name)
+        saved = {k: v for k, v in build._launchers.items() if k[0] == name}
+        for k in saved:
+            del build._launchers[k]
+        build._loaded[name] = lib
+        try:
+            return fn()
+        finally:
+            for k in [k for k in build._launchers if k[0] == name]:
+                del build._launchers[k]
+            build._launchers.update(saved)
+            build._loaded[name] = own
+
+    return call
+
+
+def check_int8_kernels(torch, k6, shapes, trunk_shapes, hrnet_shapes, quants,
+                       dev, seed):
     """K6 and K6q against their plain versions at every int8 ConvBN shape
     the paths gave them (``shapes``: ResNet-50 at 400x400, B = 8, in each
     flavor, and HRNet-W32 at INT8_CROPS crops), on random activations in
@@ -1803,9 +2003,14 @@ def check_int8_kernels(torch, k6, shapes, trunk_shapes, hrnet_shapes, dev,
     forward (``hrnet_shapes``, one input per distinct shape); the plain
     versions over the trunk; ``torch._int_mm`` on the trunk's 1x1
     stride-1 convolutions (the accumulator only) beside K6 on the same
-    ones. Bound: per convolution, int8 operations at INT8_OPS or the bytes
-    it must move, whichever is longer, summed over the trunk. Returns
-    [(K6 record, fns), (K6q record, fns)]."""
+    ones; the first, mma.sync kernel (``route="mma_sync"``) over the trunk
+    as K6's ``parent_``. Bound: per convolution, int8 operations at
+    INT8_OPS or the bytes it must move, whichever is longer, summed over
+    the trunk. K6q like for like (one call per ConvBN, 52 a trunk, as PR
+    15 timed it) and as the paths call it (``quants``: the recorded calls
+    of the trunk's and of the HRNet-W32 forward, codes shared, each call
+    on an input of its own: ``shared_``, ``hrnet_shared_``), each with
+    its own byte bound. Returns [(K6 record, fns), (K6q record, fns)]."""
     g = torch.Generator(device=dev).manual_seed(seed)
     bad, n_checked = [], 0
     for key, (_, mod) in shapes.items():
@@ -1878,15 +2083,44 @@ def check_int8_kernels(torch, k6, shapes, trunk_shapes, hrnet_shapes, dev,
 
     tb, tbytes, to, n_bytes, n_ops, q_bytes = bounds(trunk)
     hb, _, _, _, _, hq_bytes = bounds(hrnet)
+
+    def recorded(calls):
+        """(fn, bytes) of K6q over recorded calls, each on an input of its
+        own in its scales' range (non-negative where the zero point is
+        128)."""
+        xs = []
+        for shape, dtype, sx, zp, qlo, qhi in calls:
+            x = torch.randn(shape, generator=g, device=dev) * (
+                float(sx) * 60.0)
+            if zp is not None and float(zp) == 128.0:
+                x = x.abs()
+            xs.append((x.to(dtype), sx, zp, qlo, qhi))
+        nb = sum(x.numel() * (x.element_size() + 1) + 4 for x, *_ in xs)
+        return (lambda: [k6.quantize_activations(*a) for a in xs]), nb
+
+    shared_fn, sq_bytes = recorded(quants[0])
+    hshared_fn, hsq_bytes = recorded(quants[1])
+
+    def parent(*a):
+        return k6.int8_conv(*a, route="mma_sync")
+
     k6_fns = {"": run(k6.int8_conv, trunk, k6_args),
               "plain_": run(k6.int8_conv_plain, trunk, k6_args),
               "library_": lambda: [torch._int_mm(a, b) for a, b in mm],
+              "parent_": run(parent, trunk, k6_args),
               "onebyone_": run(k6.int8_conv, ones, k6_args),
               "hrnet_": run(k6.int8_conv, hrnet, k6_args)}
+    for label, lib in build_variants(k6._build, "int8_conv",
+                                     K6_VARIANTS).items():
+        for part, cs in (("", trunk), ("onebyone_", ones)):
+            k6_fns[f"{label}_{part}"] = on_library(
+                k6._build, "int8_conv", lib, run(k6.int8_conv, cs, k6_args))
     k6q_fns = {"": run(k6.quantize_activations, trunk, qargs),
                "plain_": run(k6.quantize_activations_plain, trunk, qargs),
                "library_": None,
-               "hrnet_": run(k6.quantize_activations, hrnet, qargs)}
+               "shared_": shared_fn,
+               "hrnet_": run(k6.quantize_activations, hrnet, qargs),
+               "hrnet_shared_": hshared_fn}
     common = dict(route="cuda",
                   source="stlpose_tpu_torch/kernels/csrc/int8_conv.cu",
                   replaces="stlpose_tpu/models/hrnet.py:96",
@@ -1908,6 +2142,11 @@ def check_int8_kernels(torch, k6, shapes, trunk_shapes, hrnet_shapes, dev,
         library="torch._int_mm on the trunk's 1x1 stride-1 convolutions "
                 "(the int32 accumulator only; K6 on the same convolutions "
                 "is onebyone_)", onebyone_convs=len(ones),
+        parent="the first, mma.sync kernel (route mma_sync) over the trunk",
+        variants="K6 built from edited copies of its source, over the trunk "
+                 "and its 1x1 convolutions (onebyone_): nostore_ without the "
+                 "epilogue's global stores, mainloop_ without its "
+                 "dequantize and staging too (K6_VARIANTS)",
         **event_times(torch, k6_fns, iters=5, cold=True))
     k6q_rec = dict(
         name="quantize_activations", **common,
@@ -1915,7 +2154,13 @@ def check_int8_kernels(torch, k6, shapes, trunk_shapes, hrnet_shapes, dev,
                       "(hrnet.py:94-95, :116-118); no Pallas original",
         bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         bytes=q_bytes, hrnet_bound_ms=hq_bytes / HBM_BYTES_PER_S * 1e3,
-        library=None, **event_times(torch, k6q_fns, iters=5, cold=True))
+        shared_calls=len(quants[0]), hrnet_shared_calls=len(quants[1]),
+        shared_bound_ms=sq_bytes / HBM_BYTES_PER_S * 1e3,
+        hrnet_shared_bound_ms=hsq_bytes / HBM_BYTES_PER_S * 1e3,
+        library=None,
+        library_note="none: torch.quantize_per_tensor rounds x * (1 / "
+                     "scale), not x / scale, and keeps NCHW",
+        **event_times(torch, k6q_fns, iters=5, cold=True))
     return [(k6_rec, k6_fns), (k6q_rec, k6q_fns)]
 
 
@@ -2254,6 +2499,7 @@ def vase_path(torch, mods, dev, args, tmp, state):
             key = f"vase_int8_b{b}"
             paths[key] = launch_counts(mods)
             n_cb = int8_convbns(evq.detector)
+            n_q = int8_quantizations(evq.detector)
             hostq = evq.process_images(imgs, use_fused=False)
             vsq = result_diffs(outq, hostq)
             print(f"vase int8 engine, B = {b}: launches",
@@ -2262,7 +2508,7 @@ def vase_path(torch, mods, dev, args, tmp, state):
             if min(paths[key][k] for k in ("heatmap_peaks", "affine_crop",
                                             "roi_align")) < 1 or \
                     paths[key]["int8_conv"] != n_cb or \
-                    paths[key]["quantize_activations"] != n_cb or \
+                    paths[key]["quantize_activations"] != n_q or \
                     paths[key]["box_nms_topk"] != 2 or \
                     not results_ok(outq, b) or \
                     not sum(len(r["boxes"]) for r in outq):
@@ -5578,7 +5824,8 @@ def main():
         torch, lambda: i8_fused(i8_images),
         int8["serving_int8_bfloat16_roi8"]["ms_per_call"], args.out,
         "one int8 fused call (int8 trunk, bf16, int8 RoI)",
-        expect=("int8_conv_kernel", "act_quant_kernel", "absmax_kernel",
+        expect=("int8_conv_wgmma_kernel", "act_quant_tile_kernel",
+                "absmax_kernel",
                 "quantize_kernel", "roi_align_kernel"))
     del i8_fused, int8_stack
     train["profile"] = profile_program(

@@ -22,11 +22,18 @@ written NCHW. Kernels 1 and 3, ``pad = k // 2``, strides 1 and 2. The
 scales (``sx``, ``zp``, ``qlo``, ``qhi``) are 0-d f32 tensors on the
 device: the kernels read them there, so a forward needs no host sync.
 
+Each has two kernels (``csrc/int8_conv.cu`` says how each works): K6 runs
+``wgmma`` on a TMA / ``cp.async`` ring for C_in % 16 == 0 and the first
+design's ``mma.sync`` kernel otherwise (HRNet's 3-channel stem); K6q stores 16
+channel bytes a thread for C % 16 == 0 and bytes otherwise.
+``LAUNCHES_BY_KERNEL`` and ``QUANTIZE_LAUNCHES_BY_KERNEL`` count each.
+
 On CPU tensors each wrapper runs its plain version: the same formula in
 torch ops for K6q; for K6, ``F.conv2d`` in float64 on the integer codes
 (exact: every partial sum is an integer below 2^53), cast to int32, then
 the same epilogue in torch ops. A CUDA tensor reaches the kernel or
-raises. ``QUANTIZE_LAUNCHES`` counts K6q's launches, ``LAUNCHES`` K6's.
+raises. ``QUANTIZE_LAUNCHES`` counts K6q's launches, ``LAUNCHES`` K6's
+(once per call).
 """
 
 from __future__ import annotations
@@ -39,7 +46,10 @@ from stlpose_tpu_torch.kernels._build import I32, P
 
 LAUNCHES = 0
 QUANTIZE_LAUNCHES = 0
-K_MULTIPLE = 32           # K of one mma.sync m16n8k32
+LAUNCHES_BY_KERNEL = {"wgmma": 0, "mma_sync": 0}
+QUANTIZE_LAUNCHES_BY_KERNEL = {"tile": 0, "bytes": 0}
+K_MULTIPLE = 32           # K of one wgmma m64nNk32 (and mma.sync m16n8k32)
+ROUTES = ("wgmma", "mma_sync")
 KERNELS = (1, 3)
 STRIDES = (1, 2)
 CONV_SYMBOLS = {torch.float32: "int8_conv_f32",
@@ -142,13 +152,16 @@ def quantize_activations(x, sx, zp=None, qlo=None, qhi=None):
         launch(x.data_ptr(), q.data_ptr(), N, C, H * W, *ptrs,
                torch.cuda.current_stream().cuda_stream)
     QUANTIZE_LAUNCHES += 1
+    QUANTIZE_LAUNCHES_BY_KERNEL["tile" if C % 16 == 0 else "bytes"] += 1
     return q
 
 
 def int8_conv(xq, w8, kernel: int, stride: int, sx, sw, bias, zp=None,
-              relu: bool = True, out_dtype=torch.float32):
+              relu: bool = True, out_dtype=torch.float32, *, route=None):
     """K6: the int8 convolution and its epilogue; see
-    ``int8_conv_plain``."""
+    ``int8_conv_plain``. ``route`` None takes the ``wgmma`` kernel where
+    C_in % 16 == 0 and the ``mma_sync`` one elsewhere; "mma_sync" forces
+    the first design's kernel (timed beside the new one)."""
     if xq.device.type == "cpu":
         return int8_conv_plain(xq, w8, kernel, stride, sx, sw, bias, zp,
                                relu, out_dtype)
@@ -164,6 +177,8 @@ def int8_conv(xq, w8, kernel: int, stride: int, sx, sw, bias, zp=None,
                          f"supported: kernels {KERNELS}, strides {STRIDES}")
     if out_dtype not in CONV_SYMBOLS:
         raise ValueError(f"int8_conv: no kernel writes {out_dtype}")
+    if route not in (None, *ROUTES):
+        raise ValueError(f"int8_conv: route {route!r}; one of {ROUTES}")
     N, H, W, C = xq.shape
     O = w8.shape[0]
     if (w8.dtype != torch.int8 or w8.device != dev or not w8.is_contiguous()
@@ -190,12 +205,18 @@ def int8_conv(xq, w8, kernel: int, stride: int, sx, sw, bias, zp=None,
     out = torch.empty((N, O, Ho, Wo), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
+    if route is None:
+        route = "wgmma" if C % 16 == 0 else "mma_sync"
+    elif route == "wgmma" and C % 16:
+        raise ValueError(f"int8_conv: the wgmma kernel takes C_in % 16 == "
+                         f"0, got {C}")
     launch = _build.launcher("int8_conv", CONV_SYMBOLS[out_dtype],
-                             [P] * 6 + [I32] * 8 + [P, P])
+                             [P] * 6 + [I32] * 8 + [P, P, I32])
     with torch.cuda.device(dev):
         launch(xq.data_ptr(), w8.data_ptr(), sx_p, sw.data_ptr(),
                bias.data_ptr(), zp_p, N, H, W, C, O, kernel, stride,
                int(relu), out.data_ptr(),
-               torch.cuda.current_stream().cuda_stream)
+               torch.cuda.current_stream().cuda_stream, int(route == "wgmma"))
     LAUNCHES += 1
+    LAUNCHES_BY_KERNEL[route] += 1
     return out

@@ -93,6 +93,7 @@ class Conv2d(nn.Conv2d):
 
 
 QUANT_MODES = ("none", "calib", "int8", "int8u")
+INT8_MODES = ("int8", "int8u")
 # the quantile of |x| that calibration records beside its max
 CALIB_QUANTILE = 0.999
 
@@ -141,7 +142,12 @@ class ConvBN(nn.Module):
     The int8 modes hold buffers, not a conv: ``kernel_i8`` (int8, in K6's
     (C_out, Kpad) layout), ``sw`` (C_out,), ``sx`` (), ``bias`` (C_out,)
     and, for "int8u", ``zp``, ``qlo``, ``qhi`` (), all f32 but the
-    kernel, named as the Flax scope names its parameters."""
+    kernel, named as the Flax scope names its parameters. Their forward is
+    ``quantize`` (K6q) then ``conv_codes`` (K6); ``forward(x, codes)``
+    takes codes of ``x`` already made (``shared_codes``). ``share_key``
+    is (quant, sx[, zp, qlo, qhi]) as host floats, read when the module is
+    built and at every ``load_state_dict``: two ConvBNs with equal keys
+    code an input to the same bits. None outside the int8 modes."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True, folded: bool = False,
@@ -156,7 +162,8 @@ class ConvBN(nn.Module):
         self.relu = relu
         self.quant = quant
         self.calib_stats = None
-        if quant in ("int8", "int8u"):
+        self.share_key = None
+        if quant in INT8_MODES:
             self.conv = self.bn = None
             self.register_buffer("kernel_i8", torch.zeros(
                 (cout, int8_conv.padded_k(kernel, cin)), dtype=torch.int8))
@@ -167,10 +174,37 @@ class ConvBN(nn.Module):
                 self.register_buffer("zp", torch.zeros(()))
                 self.register_buffer("qlo", torch.full((), -127.0))
                 self.register_buffer("qhi", torch.full((), 127.0))
+            self.share_key = self._scale_key()
             return
         self.conv = Conv2d(cin, cout, kernel, stride, kernel // 2,
                            bias=folded)
         self.bn = None if folded else FlaxBatchNorm2d(cout)
+
+    def _scale_key(self):
+        names = ("sx", "zp", "qlo", "qhi") if self.quant == "int8u" \
+            else ("sx",)
+        return (self.quant, *torch.stack(
+            [getattr(self, n).float() for n in names]).tolist())
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        if self.quant in INT8_MODES:
+            self.share_key = self._scale_key()
+
+    def _zero_point(self):
+        return ((self.zp, self.qlo, self.qhi) if self.quant == "int8u"
+                else (None, None, None))
+
+    def quantize(self, x):
+        """K6q: the int8 NHWC codes of the NCHW input ``x``."""
+        return int8_conv.quantize_activations(x, self.sx,
+                                              *self._zero_point())
+
+    def conv_codes(self, xq, dtype):
+        """K6 on the codes ``xq``: the output in ``dtype``, NCHW."""
+        return int8_conv.int8_conv(xq, self.kernel_i8, self.kernel,
+                                   self.stride, self.sx, self.sw, self.bias,
+                                   self._zero_point()[0], self.relu, dtype)
 
     def _record(self, x):
         ax = x.abs().float().flatten()
@@ -185,20 +219,48 @@ class ConvBN(nn.Module):
             k: (torch.minimum if k == "in_min" else torch.maximum)(old[k], v)
             for k, v in new.items()}
 
-    def forward(self, x):
-        if self.quant in ("int8", "int8u"):
-            zq = ((self.zp, self.qlo, self.qhi) if self.quant == "int8u"
-                  else (None, None, None))
-            xq = int8_conv.quantize_activations(x, self.sx, *zq)
-            return int8_conv.int8_conv(xq, self.kernel_i8, self.kernel,
-                                       self.stride, self.sx, self.sw,
-                                       self.bias, zq[0], self.relu, x.dtype)
+    def forward(self, x, codes=None):
+        if self.quant in INT8_MODES:
+            return self.conv_codes(self.quantize(x) if codes is None
+                                   else codes, x.dtype)
         if self.quant == "calib":
             self._record(x)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x.float()).to(x.dtype)
         return F.relu(x) if self.relu else x
+
+
+def shared_codes(x, convbns):
+    """For each of ``convbns`` (ConvBNs or None) that reads ``x``: the
+    codes it should take, made once per ``share_key`` that two or more of
+    them hold (one K6q launch for the group); None where a ConvBN
+    quantizes ``x`` itself (a key of its own, or not int8)."""
+    keys = [None if cb is None else cb.share_key for cb in convbns]
+    made = {}
+    out = []
+    for cb, key in zip(convbns, keys):
+        if key is None or keys.count(key) < 2:
+            out.append(None)
+            continue
+        if key not in made:
+            made[key] = cb.quantize(x)
+        out.append(made[key])
+    return out
+
+
+def int8_quantizations(model: nn.Module) -> int:
+    """K6q launches in one forward of ``model``: its int8 ConvBNs less the
+    ones whose codes ``shared_codes`` hands on (over every module's
+    ``share_sites()``)."""
+    n = sum(1 for m in model.modules()
+            if isinstance(m, ConvBN) and m.share_key is not None)
+    for m in model.modules():
+        for site in getattr(m, "share_sites", lambda: ())():
+            keys = [cb.share_key for cb in site
+                    if cb is not None and cb.share_key is not None]
+            n -= len(keys) - len(set(keys))
+    return n
 
 
 class BasicBlock(nn.Module):
@@ -214,9 +276,15 @@ class BasicBlock(nn.Module):
         self.down = (ConvBN(cin, features, 1, stride, relu=False, **fq)
                      if downsample else None)
 
+    def share_sites(self):
+        """The groups of ConvBNs that read one tensor: ``cb1`` and
+        ``down`` read the block's input."""
+        return ([self.cb1, self.down],)
+
     def forward(self, x):
-        y = self.cb2(self.cb1(x))
-        residual = x if self.down is None else self.down(x)
+        q1, qd = shared_codes(x, *self.share_sites())
+        y = self.cb2(self.cb1(x, q1))
+        residual = x if self.down is None else self.down(x, qd)
         return F.relu(y + residual)
 
 
@@ -237,9 +305,14 @@ class Bottleneck(nn.Module):
                             relu=False, **fq)
                      if downsample else None)
 
+    def share_sites(self):
+        """``cb1`` and ``down`` read the block's input."""
+        return ([self.cb1, self.down],)
+
     def forward(self, x):
-        y = self.cb3(self.cb2(self.cb1(x)))
-        residual = x if self.down is None else self.down(x)
+        q1, qd = shared_codes(x, *self.share_sites())
+        y = self.cb3(self.cb2(self.cb1(x, q1)))
+        residual = x if self.down is None else self.down(x, qd)
         return F.relu(y + residual)
 
 
@@ -273,6 +346,17 @@ class HighResolutionModule(nn.Module):
                             ConvBN(chans[j], chans[i] if last else chans[j],
                                    3, 2, relu=not last, **fq))
 
+    def _readers(self, j):
+        """The fuse ConvBNs that read branch ``j``'s output: ``fuse{i}_{j}``
+        (i < j) and the first of each chain ``fuse{i}_{j}_0`` (i > j)."""
+        return [getattr(self, f"fuse{i}_{j}" if j > i else f"fuse{i}_{j}_0")
+                for i in range(self.n_out) if i != j]
+
+    def share_sites(self):
+        return tuple(self._readers(j)
+                     for j in range(self.stage.num_branches)) \
+            if self.n_out else ()
+
     def forward(self, xs):
         st = self.stage
         ys = []
@@ -283,6 +367,10 @@ class HighResolutionModule(nn.Module):
             ys.append(y)
         if st.num_branches == 1:
             return ys
+        codes = {}
+        for j in range(st.num_branches):
+            readers = self._readers(j)
+            codes.update(zip(map(id, readers), shared_codes(ys[j], readers)))
         fused = []
         for i in range(self.n_out):
             acc = None
@@ -290,11 +378,13 @@ class HighResolutionModule(nn.Module):
                 if j == i:
                     z = ys[j]
                 elif j > i:
-                    z = _upsample_nearest(getattr(self, f"fuse{i}_{j}")(ys[j]),
+                    cb = getattr(self, f"fuse{i}_{j}")
+                    z = _upsample_nearest(cb(ys[j], codes[id(cb)]),
                                           2 ** (j - i))
                 else:
-                    z = ys[j]
-                    for k in range(i - j):
+                    cb = getattr(self, f"fuse{i}_{j}_0")
+                    z = cb(ys[j], codes[id(cb)])
+                    for k in range(1, i - j):
                         z = getattr(self, f"fuse{i}_{j}_{k}")(z)
                 acc = z if acc is None else acc + z
             fused.append(F.relu(acc))
@@ -359,6 +449,23 @@ class PoseHighResolutionNet(nn.Module):
         compute_in(self.to(device), param_dtype or dtype)
         self.eval()
 
+    def _last_readers(self, s, n_prev, num_branches):
+        """The transition ConvBNs of stage ``s`` that read the last branch
+        of the stage before: ``transition{s-1}_{n_prev-1}`` (None where the
+        widths match) and ``transition{s-1}_{i}_0`` of each new branch."""
+        return [getattr(self, f"transition{s - 1}_{n_prev - 1}", None)] + [
+            getattr(self, f"transition{s - 1}_{i}_0")
+            for i in range(n_prev, num_branches)]
+
+    def share_sites(self):
+        cfg = self.config
+        sites, n_prev = [], 1
+        for s, stage in enumerate((cfg.stage2, cfg.stage3, cfg.stage4),
+                                  start=2):
+            sites.append(self._last_readers(s, n_prev, stage.num_branches))
+            n_prev = stage.num_branches
+        return tuple(sites)
+
     def forward(self, x):
         cfg = self.config
         x = x.permute(0, 3, 1, 2).contiguous().to(self.dtype)
@@ -369,14 +476,18 @@ class PoseHighResolutionNet(nn.Module):
         n_prev = 1
         for s, stage in enumerate((cfg.stage2, cfg.stage3, cfg.stage4),
                                   start=2):
+            readers = self._last_readers(s, n_prev, stage.num_branches)
+            codes = shared_codes(xs[-1], readers)
             nxt = []
             for i in range(stage.num_branches):
                 if i < n_prev:
                     t = getattr(self, f"transition{s - 1}_{i}", None)
-                    nxt.append(xs[i] if t is None else t(xs[i]))
+                    q = codes[0] if i == n_prev - 1 else None
+                    nxt.append(xs[i] if t is None else t(xs[i], q))
                 else:
-                    z = xs[-1]
-                    for j in range(i + 1 - n_prev):
+                    z = getattr(self, f"transition{s - 1}_{i}_0")(
+                        xs[-1], codes[1 + i - n_prev])
+                    for j in range(1, i + 1 - n_prev):
                         z = getattr(self, f"transition{s - 1}_{i}_{j}")(z)
                     nxt.append(z)
             xs = nxt
