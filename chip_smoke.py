@@ -241,6 +241,21 @@ Phases, each fatal on failure:
      detector CLI 01 --detector_name efficientdet -> 02_train_faster_rcnn
      (2 epochs, B = 8) -> resume -> 03 on phase 5e's canvases from
      memory; one EFFICIENTDET_D3 predict (896x896, B = 2);
+  5h. serving export (serving/export.py; the serving kernels are
+     ``stlpose`` operators, their counters rising in the operators' CUDA
+     implementations, which a loaded program calls without the
+     dispatcher as an eager forward does): HRNet-W32 256x192 bf16 folded (seeded weights and
+     BatchNorm) exported with a symbolic batch, reloaded from its bytes
+     and run at B = 8 and 64; the same program exported on the CPU and
+     loaded onto the card; the f32 two-stage program at phase 4's
+     serving configuration; the full int8 stack (bf16, int8 trunk, int8
+     RoI pyramid, uint8 ingest, packed output); 01 -> 08 --quant int8u
+     --calib_images <seeded .npy> -> load_pose_server. For each: counters
+     at 0, every kernel of the manifest launched by the reloaded run (K1
+     through its bulk kernel); its outputs against the live eager call
+     and the live call on the plain versions (indices exact, keypoints
+     and boxes 1e-3 px, maxima 1e-4; 0.0 expected from the live call);
+     export s, artifact bytes, reloaded and live ms per call in turns;
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
      same function, over 20 repeats with the inputs warm in L2, and for
@@ -5391,6 +5406,288 @@ def retrieval_path(torch, mods, dev, args, tmp, state):
     return launches, summary, (one_batch, batch_ms)
 
 
+# ---------------------------------------------------- serving export (5h)
+# torch.export artifacts of the serving programs (serving/export.py): each
+# written, reloaded from its bytes and run on the card, against the live
+# eager call and the plain versions. The kernels are ``stlpose`` operators
+# in the graph; their launch counters rise in the operators' CUDA
+# implementations, so a reloaded program's run counts its own launches.
+SERVE_POSE_CONFIG = "w32_256x192"
+SERVE_POSE_BATCHES = (8, 64)
+SERVE_CLI_CROPS = 16
+# manifest "kernels" name -> launch_counts() record names, any of which
+# rising shows the operator ran its kernel
+OP_RECORDS = {"heatmap_peaks": ("heatmap_peaks",),
+              "affine_crop": ("affine_crop",),
+              "roi_align": tuple(ROI_RECORDS.values()),
+              "quantize_levels": ("quantize_levels",),
+              "box_nms_topk": ("box_nms_topk",),
+              "int8_conv": ("int8_conv",),
+              "quantize_activations": ("quantize_activations",)}
+
+
+def artifact_bytes(path):
+    """{file name: bytes} of an artifact directory, read once."""
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def serving_outputs(torch, out):
+    """An artifact's or live call's outputs (tensors, or numpy from a
+    packed buffer's host unpack) as {key: f32 tensor on the host}."""
+    return {k: v.detach().float().cpu() if torch.is_tensor(v)
+            else torch.from_numpy(np.asarray(v, np.float32))
+            for k, v in out.items()}
+
+
+def serving_diffs(torch, got, ref):
+    """Max abs differences under the paths' bounds: for pose outputs
+    keypoints and refined peaks (px) and maxima; for two-stage outputs the
+    index and valid outputs (must be 0), boxes, keypoints and maxima over
+    the slots valid in both."""
+    got, ref = serving_outputs(torch, got), serving_outputs(torch, ref)
+    if "keypoints" in ref:
+        return {"keypoints": float((got["keypoints"] - ref["keypoints"])
+                                   .abs().max()),
+                "heatmaps": float((got["heatmaps"] - ref["heatmaps"])
+                                  .abs().max()),
+                "maxvals": float((got["scores"] - ref["scores"])
+                                 .abs().max())}
+    d = {k: float((got[k] - ref[k]).abs().max())
+         for k in ("sel_valid", "picked_valid", "img_idx")}
+    both = (got["picked_valid"] > 0.5) & (ref["picked_valid"] > 0.5)
+    sv = (got["sel_valid"] > 0.5) & (ref["sel_valid"] > 0.5)
+    d["sel_boxes"] = float((got["sel_boxes"][sv] - ref["sel_boxes"][sv])
+                           .abs().max())
+    d["sel_scores"] = float((got["sel_scores"][sv] - ref["sel_scores"][sv])
+                            .abs().max())
+    for k in ("crop_kpts", "img_kpts"):
+        d[k] = float((got[k][both][..., :2] - ref[k][both][..., :2])
+                     .abs().max())
+    d["maxvals"] = float((got["img_kpts"][both][..., 2] -
+                          ref["img_kpts"][both][..., 2]).abs().max())
+    return d
+
+
+def serving_within_bounds(d):
+    """The paths' bounds: indices and valid masks exact, keypoints and
+    boxes 1e-3 px, maxima 1e-4 (scores as maxima)."""
+    exact = ("sel_valid", "picked_valid", "img_idx")
+    return all((v == 0.0 if k in exact else
+                v <= (1e-4 if k in ("maxvals", "sel_scores") else 1e-3))
+               for k, v in d.items())
+
+
+def check_artifact(torch, mods, label, serve, manifest, live, inputs,
+                   iters):
+    """Run the reloaded program ``serve`` with every counter at 0 first:
+    each kernel of its manifest launched (K1 through its bulk kernel);
+    its outputs against the live eager call and against the live call on
+    the plain versions, within the paths' bounds (printed; 0.0 expected
+    from the live call); then the reloaded and live ms per call (host
+    clock, synchronised, after warm-up) in turns. Returns (launches,
+    record)."""
+    with torch.inference_mode():
+        serve(*inputs)                                   # warm-up
+        torch.cuda.synchronize()
+        reset_counts(mods)
+        got = serve(*inputs)
+        torch.cuda.synchronize()
+        launches = launch_counts(mods)
+        k1_took_bulk(mods, label)
+        ref = live(*inputs)
+        with plain_versions(mods):
+            plain = live(*inputs)
+        torch.cuda.synchronize()
+    missing = [op for op in manifest["kernels"]
+               if not any(launches[r] for r in OP_RECORDS[op])]
+    print(f"{label}: launches of the reloaded run:",
+          json.dumps({k: v for k, v in launches.items() if v}), flush=True)
+    if missing or not manifest["kernels"]:
+        fail(f"{label}: the manifest's kernels {missing} did not launch "
+             f"in the reloaded run: {launches}")
+    diffs = {"live": serving_diffs(torch, got, ref),
+             "plain_versions": serving_diffs(torch, got, plain)}
+    print(f"{label}: reloaded vs live, vs plain versions (max abs):",
+          json.dumps(diffs), flush=True)
+    if not all(serving_within_bounds(d) for d in diffs.values()):
+        fail(f"{label}: the reloaded program disagrees: {diffs}")
+
+    def timed(fn):
+        def call():
+            with torch.inference_mode():
+                fn(*inputs)
+        return call
+
+    ms = in_turns(torch, {"reloaded": timed(serve), "live": timed(live)},
+                  iters)
+    return launches, {"kernels": manifest["kernels"], "diffs": diffs,
+                      "ms_per_call": ms}
+
+
+def serving_export_path(torch, mods, dev, args, tmp, state):
+    """Phase 5h: the serving artifacts at full width, each exported on the
+    card, reloaded from its bytes and checked by ``check_artifact``:
+    (a) HRNet-W32 256x192 bf16 folded pose (seeded weights and BatchNorm,
+    symbolic batch) at B = 8 and 64, and the same program exported on the
+    CPU and loaded onto the card (outputs equal to the card's artifact,
+    K1 launched); (b) the f32 two-stage program at the serving
+    configuration (phase 4's models, BatchNorm folded by the export); (c)
+    the full int8 stack (bf16, int8 trunk calibrated on phase 4d's batch,
+    int8 RoI pyramid, uint8 ingest, packed output); (d) 01 -> 08
+    ``--quant int8u --calib_images <seeded .npy>`` -> the loader.
+    Returns ({artifact: launches}, summary)."""
+    from stlpose_tpu_torch.serving import export as serving
+
+    t_phase = time.time()
+    FRCNN, HRNet = mods["FasterRCNN"], mods["PoseHighResolutionNet"]
+    cfg = mods["FasterRCNNConfig"]()
+    hcfg = mods["get_hrnet_config"](SERVE_POSE_CONFIG)
+    pose_live = seeded_bn_statistics(torch, seeded_weights(
+        torch, HRNet(hcfg, device=dev), args.seed + 8), args.seed + 9)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 60)
+    launches, summary = {}, {}
+
+    def export(label, fn, *a, **kw):
+        t = time.time()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        blob = artifact_bytes(out)
+        rec = {"export_s": time.time() - t,
+               "artifact_bytes": len(blob["model.pt2"])}
+        t = time.time()
+        loader = (serving.load_two_stage_server if "two_stage" in label
+                  else serving.load_pose_server)
+        serve, manifest = loader(blob, device=dev)
+        rec["load_s"] = time.time() - t
+        print(f"{label}: exported in {rec['export_s']:.1f} s, "
+              f"{rec['artifact_bytes']} bytes, loaded in "
+              f"{rec['load_s']:.1f} s; kernels {manifest['kernels']}",
+              flush=True)
+        return serve, manifest, rec
+
+    def pose_inputs(n):
+        crops = torch.randint(0, 256, (n, 256, 192, 3), generator=g,
+                              device=dev, dtype=torch.uint8)
+        centers = torch.rand((n, 2), generator=g, device=dev) * 300 + 50
+        scales = torch.rand((n, 2), generator=g, device=dev) + 0.5
+        return crops, centers, scales
+
+    # (a) the pose artifact, exported on the card and on the CPU
+    serve, manifest, rec = export(
+        "pose (bf16 folded)", serving.export_pose_server, pose_live,
+        os.path.join(tmp, "pose"), config_name=SERVE_POSE_CONFIG,
+        device=dev)
+    live = serving.PoseServer(serving.pose_server_model(
+        pose_live, SERVE_POSE_CONFIG, device=dev))
+    for n in SERVE_POSE_BATCHES:
+        inputs = pose_inputs(n)
+        launches[f"pose_b{n}"], rec[f"b{n}"] = check_artifact(
+            torch, mods, f"pose artifact, B = {n}", serve, manifest, live,
+            inputs, args.iters)
+    cpu_sd = {k: v.cpu() for k, v in pose_live.state_dict().items()}
+    t = time.time()
+    serving.export_pose_server(cpu_sd, os.path.join(tmp, "pose_cpu"),
+                               config_name=SERVE_POSE_CONFIG, device="cpu")
+    rec["cpu_export_s"] = time.time() - t
+    moved, moved_manifest = serving.load_pose_server(
+        artifact_bytes(os.path.join(tmp, "pose_cpu")), device=dev)
+    if moved_manifest["device"] != "cpu":
+        fail("pose artifact exported on the CPU records the device "
+             f"{moved_manifest['device']}")
+    inputs = pose_inputs(SERVE_POSE_BATCHES[0])
+    launches["pose_from_cpu"], rec["exported_on_cpu"] = check_artifact(
+        torch, mods, "pose artifact exported on the CPU, loaded on the card",
+        moved, moved_manifest, live, inputs, args.iters)
+    with torch.inference_mode():
+        d = serving_diffs(torch, moved(*inputs), serve(*inputs))
+    print("pose artifact exported on the CPU vs exported on the card:",
+          json.dumps(d), flush=True)
+    if not serving_within_bounds(d):
+        fail(f"the pose artifact exported on the CPU disagrees on the card "
+             f"with the one exported there: {d}")
+    rec["exported_on_cpu"]["vs_card_export"] = d
+    summary["pose"] = rec
+    del serve, moved, live, cpu_sd
+
+    # (b) the f32 two-stage program at the serving configuration
+    det, pose, _, images, _ = state
+    kw = dict(det_config=det.config, pose_config_name=SERVE_POSE_CONFIG,
+              bbox_thr=BBOX_THR, max_dets=MAX_DETS, crop_budget=BUDGET,
+              static_batch=B, device=dev)
+    serve, manifest, rec = export(
+        "two_stage f32", serving.export_two_stage_server, det, pose,
+        os.path.join(tmp, "two_stage"), **kw)
+    live, _ = serving.two_stage_server_model(det, pose, **kw)
+    images01 = images.float() / 255.0
+    launches["two_stage_f32"], res = check_artifact(
+        torch, mods, "two_stage f32 artifact", serve, manifest, live,
+        (images01,), args.iters)
+    if launches["two_stage_f32"]["box_nms_topk"] != 2:
+        fail("two_stage f32 artifact: K5 not twice a call")
+    summary["two_stage_f32"] = {**rec, **res}
+    del serve, live
+
+    # (c) the full int8 stack: bf16, int8 trunk, int8 RoI, uint8, packed
+    det_live = seeded_bn_statistics(torch, seeded_weights(
+        torch, FRCNN(cfg, device=dev), args.seed + 6), args.seed + 7)
+    calib = serving_images(torch, dev, args.seed + 50).float() / 255.0
+    kw = dict(det_config=cfg, pose_config_name=SERVE_POSE_CONFIG,
+              bbox_thr=BBOX_THR, max_dets=MAX_DETS, crop_budget=BUDGET,
+              static_batch=B, device=dev, dtype=torch.bfloat16,
+              trunk_quant="int8", roi_patch_quant=True, packed_output=True,
+              calib_batches=[calib])
+    serve, manifest, rec = export(
+        "two_stage int8 stack", serving.export_two_stage_server, det_live,
+        pose_live, os.path.join(tmp, "int8_stack"), image_dtype="uint8",
+        **kw)
+    live, _ = serving.two_stage_server_model(det_live, pose_live, **kw)
+
+    def live_unpacked(x):
+        return serving._unpack_fused_outputs(live(x).cpu().numpy(),
+                                             live.spec)
+
+    launches["two_stage_int8_stack"], res = check_artifact(
+        torch, mods, "two_stage int8 stack artifact", serve, manifest,
+        live_unpacked, (images,), args.iters)
+    summary["two_stage_int8_stack"] = {**rec, **res}
+    del serve, live, det_live
+
+    # (d) the CLI: 01 -> 08 --quant int8u --calib_images <.npy> -> loader
+    with engine_environment(mods, tmp):
+        exp = mods["scripts"]["01_create_experiment"].main(["-d", "serve"])
+        npy = os.path.join(tmp, "calib_crops.npy")
+        calib_crops = torch.randint(0, 256, (SERVE_CLI_CROPS, 256, 192, 3),
+                                    generator=g, device=dev,
+                                    dtype=torch.uint8).cpu().numpy()
+        np.save(npy, calib_crops)
+        script = mods["scripts"]["08_export_serving"]
+        out = os.path.join(tmp, "cli")
+        t = time.time()
+        script.main(["-d", exp, "--quant", "int8u", "--calib_images", npy,
+                     "--out", out, "--device", dev.type])
+        torch.cuda.synchronize()
+        rec = {"export_s": time.time() - t,
+               "artifact_bytes": os.path.getsize(os.path.join(
+                   out, "model.pt2"))}
+        serve, manifest = serving.load_pose_server(out, device=dev)
+        weights = script.pose_weights(exp, None, ENGINE_CONFIG, None, dev)
+    live = serving.PoseServer(serving.pose_server_model(
+        weights, ENGINE_CONFIG, dev, quant="int8u", calib_crops=calib_crops))
+    if manifest["quant"] != "int8u" or "accuracy_caveat" not in manifest:
+        fail(f"08 --quant int8u: manifest {manifest}")
+    launches["cli_pose_int8u"], res = check_artifact(
+        torch, mods, "08 pose int8u artifact", serve, manifest, live,
+        pose_inputs(SERVE_POSE_BATCHES[0]), args.iters)
+    summary["cli_pose_int8u"] = {**rec, **res}
+    summary["card_time_s"] = time.time() - t_phase
+    print("serving export:", json.dumps(summary), flush=True)
+    return launches, summary
+
+
 def forbidden_ops(prof, ops, shapes):
     """[(op, input shapes)] of the profiled ops named in ``ops`` that took
     an input of one of ``shapes`` (the profile must record shapes)."""
@@ -5629,7 +5926,7 @@ def main():
          "aux_create_offline_perceptual_loss", "02_train_faster_rcnn",
          "03_evaluate_faster_rcnn", "aux_map_characters_to_narratives",
          "05_create_archdata_retrieval_db", "06_fit_knn_tree",
-         "07_retrieval_experiments")}
+         "07_retrieval_experiments", "08_export_serving")}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5778,6 +6075,10 @@ def main():
     nms_k["efficientdet_events_ms"] = effdet_nms["events_ms"]
     nms_k["efficientdet_cold_events_ms"] = effdet_nms["cold_events_ms"]
     nms_fns["efficientdet_"] = effdet_nms_fn
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_launches, serving_export = serving_export_path(
+            torch, mods, dev, args, tmp, state)
+    serving_export["card"] = card
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
@@ -5794,7 +6095,9 @@ def main():
                    "style": style_launches[k["name"]],
                    **{p: n[k["name"]] for p, n in det_launches.items()},
                    "retrieval": ret_launches[k["name"]],
-                   **{p: n[k["name"]] for p, n in effdet_launches.items()}}
+                   **{p: n[k["name"]] for p, n in effdet_launches.items()},
+                   **{f"serving_export_{p}": n[k["name"]]
+                      for p, n in serve_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         kernels.append(k)
@@ -5900,7 +6203,8 @@ def main():
                       "training": train,
                       "eval": evaluation, "trainer": trainer,
                       "style": style, "detector_training": det_train,
-                      "retrieval": retrieval, "efficientdet": effdet}))
+                      "retrieval": retrieval, "efficientdet": effdet,
+                      "serving_export": serving_export}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

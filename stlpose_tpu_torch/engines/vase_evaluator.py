@@ -1,9 +1,11 @@
 """Two-stage detect -> pose qualitative evaluation engine.
 
 Port of ``stlpose_tpu/engines/vase_evaluator.py``: the fused serving
-program (``_fused_pack_spec``, ``_pack_fused_outputs``,
-``_unpack_fused_outputs``, ``build_fused_two_stage``) and ``VaseEvaluator``,
-the engine behind ``04_evaluate_vases_qualitatively.py``.
+program (``build_fused_two_stage`` around the ``FusedTwoStage`` module;
+its packed wire format ``_fused_pack_spec``, ``_pack_fused_outputs`` and
+``_unpack_fused_outputs`` lives in ``serving/packing.py``, which loads
+without model code) and ``VaseEvaluator``, the engine behind
+``04_evaluate_vases_qualitatively.py``.
 
 The fused program: detector predict -> on-device class/score/
 top-``max_dets`` filter -> cross-batch crop compaction -> affine crops
@@ -48,6 +50,9 @@ from stlpose_tpu_torch.ops.decode import decode_heatmaps, heatmap_argmax
 from stlpose_tpu_torch.ops.nms import top_k
 from stlpose_tpu_torch.ops.warp import crop_from_center_scale_batched
 from stlpose_tpu_torch.parallel.steps import make_infer_fn
+from stlpose_tpu_torch.serving.packing import (_fused_pack_spec,
+                                               _pack_fused_outputs,
+                                               _unpack_fused_outputs)
 from stlpose_tpu_torch.train.state import create_train_state
 from stlpose_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                 load_detector_checkpoint,
@@ -58,79 +63,39 @@ from stlpose_tpu_torch.utils.visualization import draw_pose, visualize_bbox
 CROP_W, CROP_H = 192, 256
 
 
-def _fused_pack_spec(B: int, m: int, budget: int, J: int = 17):
-    """Static (key, shape, dtype) layout of the fused outputs when
-    flattened into one f32 buffer (one device-to-host copy per call)."""
-    return (("sel_boxes", (B, m, 4), np.float32),
-            ("sel_scores", (B, m), np.float32),
-            ("sel_valid", (B, m), np.bool_),
-            ("img_idx", (budget,), np.int32),
-            ("picked_valid", (budget,), np.bool_),
-            ("crop_kpts", (budget, J, 3), np.float32),
-            ("img_kpts", (budget, J, 3), np.float32))
+class FusedTwoStage(torch.nn.Module):
+    """The fused program as a module: ``forward(images) -> dict``, its
+    models and constants held as submodules and buffers, so that
+    ``torch.export`` can trace it (``serving/export.py``). See
+    ``build_fused_two_stage`` for the arguments and outputs."""
 
+    def __init__(self, detector, pose_model, *, bbox_thr: float,
+                 max_dets: int, budget: int, device):
+        super().__init__()
+        self.detector = detector
+        self.pose_model = pose_model
+        self.bbox_thr = bbox_thr
+        self.max_dets = max_dets
+        self.budget = budget
+        for name, value in (("mean", IMAGENET_MEAN), ("std", IMAGENET_STD),
+                            ("unit_box", (0.0, 0.0, 32.0, 32.0))):
+            self.register_buffer(name, torch.as_tensor(
+                value, dtype=torch.float32, device=device), persistent=False)
 
-def _pack_fused_outputs(out, spec):
-    """Flatten + cast every output to f32 and concatenate (bool -> {0,1};
-    int32 image indices are exact in f32)."""
-    return torch.cat([out[k].to(torch.float32).reshape(-1)
-                      for k, _, _ in spec])
-
-
-def _unpack_fused_outputs(buf: np.ndarray, spec):
-    """Host inverse of :func:`_pack_fused_outputs`; a layout mismatch
-    fails loudly instead of mis-splitting."""
-    total = sum(int(np.prod(shape)) for _, shape, _ in spec)
-    if buf.size != total:
-        raise ValueError(
-            f"packed buffer has {buf.size} elements but the spec "
-            f"describes {total} — pack/spec layout mismatch")
-    out, off = {}, 0
-    for k, shape, dt in spec:
-        n = int(np.prod(shape))
-        v = buf[off:off + n].reshape(shape)
-        off += n
-        if dt == np.bool_:
-            v = v > 0.5
-        elif dt == np.int32:
-            v = np.rint(v).astype(np.int32)
-        out[k] = v
-    return out
-
-
-def build_fused_two_stage(detector, pose_model, *, bbox_thr: float,
-                          max_dets: int, budget: int, device="cuda"):
-    """The whole two-stage pass as one function ``fused(images) -> dict``.
-
-    ``detector`` is a ``models.faster_rcnn.FasterRCNN`` or a
-    ``models.efficientdet.EfficientDet`` and ``pose_model`` a
-    ``models.hrnet.PoseHighResolutionNet``, both on ``device``, in any of
-    their flavors. ``images`` is (B, S, S, 3), uint8 0-255 or float in
-    [0, 1]; it is moved to ``device``. Outputs: sel_boxes (B, m, 4),
-    sel_scores (B, m) in the detector's dtype, sel_valid (B, m), img_idx
-    (budget,), picked_valid (budget,), crop_kpts / img_kpts (budget, J, 3)
-    as (x, y, score)."""
-    device = resolve_device(device)
-    for name, mod in (("detector", detector), ("pose_model", pose_model)):
-        dev = next(mod.parameters()).device
-        if dev.type != device.type:
-            raise ValueError(f"{name} is on {dev}, the program on {device}")
-    mean = torch.as_tensor(IMAGENET_MEAN, device=device)
-    std = torch.as_tensor(IMAGENET_STD, device=device)
-
-    @torch.inference_mode()
-    def fused(images):
+    def forward(self, images):
+        device = self.mean.device
         images = torch.as_tensor(images, device=device)
         # uint8 ingest: clients ship 0-255 bytes, [0, 1] is made here
         if images.dtype == torch.uint8:
             images01 = images.to(torch.float32) / 255.0
         else:
             images01 = images.to(torch.float32)
-        dets = detector.predict(images01)
+        dets = self.detector.predict(images01)
         boxes, scores = dets["boxes"], dets["scores"]
-        keep = dets["valid"] & (dets["labels"] == 1) & (scores >= bbox_thr)
+        keep = (dets["valid"] & (dets["labels"] == 1) &
+                (scores >= self.bbox_thr))
         masked = torch.where(keep, scores, -torch.inf)
-        m = min(max_dets, masked.shape[1])
+        m = min(self.max_dets, masked.shape[1])
         top_s, top_i = top_k(masked, m)                            # (B, m)
         sel_boxes = torch.gather(boxes, 1,
                                  top_i[..., None].expand(-1, -1, 4))
@@ -140,21 +105,20 @@ def build_fused_two_stage(detector, pose_model, *, bbox_thr: float,
         # summed in the scores' dtype
         key_flat = ((sel_valid.reshape(-1) * 10.0).to(top_s.dtype) +
                     torch.where(sel_valid, top_s, 0.0).reshape(-1))
-        _, idx = top_k(key_flat, budget)
+        _, idx = top_k(key_flat, self.budget)
         img_idx = (idx // m).to(torch.int32)
         flat_boxes = sel_boxes.reshape(-1, 4)[idx]
         picked_valid = sel_valid.reshape(-1)[idx]
         # invalid slots get a unit box: their crops are discarded, but a
         # degenerate box must not feed non-finite math to the warp
-        flat_boxes = torch.where(
-            picked_valid[:, None], flat_boxes,
-            torch.tensor([0.0, 0.0, 32.0, 32.0], device=device))
+        flat_boxes = torch.where(picked_valid[:, None], flat_boxes,
+                                 self.unit_box)
         centers, scales = coords_to_center_scale(flat_boxes,
                                                  CROP_W / CROP_H)
         crops = crop_from_center_scale_batched(
             images01 * 255.0, centers, scales, img_idx, (CROP_W, CROP_H))
-        x = (crops / 255.0 - mean) / std
-        hm = pose_model(x).permute(0, 3, 1, 2)                # (K, J, H, W)
+        x = (crops / 255.0 - self.mean) / self.std
+        hm = self.pose_model(x).permute(0, 3, 1, 2)           # (K, J, H, W)
         Hh, Hw = hm.shape[2], hm.shape[3]
         # one K1 launch gives both the unrefined crop-space peaks and the
         # quarter-pixel shift of the refined image-space ones
@@ -170,6 +134,34 @@ def build_fused_two_stage(detector, pose_model, *, bbox_thr: float,
                 "picked_valid": picked_valid, "crop_kpts": crop_kpts,
                 "img_kpts": img_kpts}
 
+
+def build_fused_two_stage(detector, pose_model, *, bbox_thr: float,
+                          max_dets: int, budget: int, device="cuda"):
+    """The whole two-stage pass as one function ``fused(images) -> dict``,
+    run under ``torch.inference_mode`` (``fused.module`` is the
+    ``FusedTwoStage`` it calls).
+
+    ``detector`` is a ``models.faster_rcnn.FasterRCNN`` or a
+    ``models.efficientdet.EfficientDet`` and ``pose_model`` a
+    ``models.hrnet.PoseHighResolutionNet``, both on ``device``, in any of
+    their flavors. ``images`` is (B, S, S, 3), uint8 0-255 or float in
+    [0, 1]; it is moved to ``device``. Outputs: sel_boxes (B, m, 4),
+    sel_scores (B, m) in the detector's dtype, sel_valid (B, m), img_idx
+    (budget,), picked_valid (budget,), crop_kpts / img_kpts (budget, J, 3)
+    as (x, y, score)."""
+    device = resolve_device(device)
+    for name, mod in (("detector", detector), ("pose_model", pose_model)):
+        dev = next(mod.parameters()).device
+        if dev.type != device.type:
+            raise ValueError(f"{name} is on {dev}, the program on {device}")
+    module = FusedTwoStage(detector, pose_model, bbox_thr=bbox_thr,
+                           max_dets=max_dets, budget=budget, device=device)
+
+    @torch.inference_mode()
+    def fused(images):
+        return module(images)
+
+    fused.module = module
     return fused
 
 

@@ -9,19 +9,20 @@ then reduces it with float4 reads and a (value, lowest index) merge; any
 other strides go to the strided kernel (a warp per map, rows then
 columns).
 
-``heatmap_peaks`` runs ``heatmap_peaks_plain`` (the same function in
-plain PyTorch) for a CPU tensor. For a CUDA tensor it launches the bulk
-kernel when the maps are contiguous (unit column stride, row stride W),
-their bytes a multiple of 16 and at most 48 KB, and every map starts on
-16 bytes; otherwise the strided kernel. ``LAUNCHES`` counts launches of
-either, ``LAUNCHES_BY_KERNEL`` each one.
+``heatmap_peaks`` calls operator ``stlpose::heatmap_peaks``
+(``kernels/_ops.py``), which runs ``heatmap_peaks_plain`` (the same
+function in plain PyTorch) for a CPU tensor. For a CUDA tensor it
+launches the bulk kernel when the maps are contiguous (unit column
+stride, row stride W), their bytes a multiple of 16 and at most 48 KB,
+and every map starts on 16 bytes; otherwise the strided kernel.
+``LAUNCHES`` counts launches of either, ``LAUNCHES_BY_KERNEL`` each one.
 """
 
 from __future__ import annotations
 
 import torch
 
-from stlpose_tpu_torch.kernels import _build
+from stlpose_tpu_torch.kernels import _build, _ops
 from stlpose_tpu_torch.kernels._build import I32, I64, P
 
 LAUNCHES = 0
@@ -75,12 +76,8 @@ def takes_bulk_kernel(heatmaps) -> bool:
             and heatmaps.data_ptr() % 16 == 0)
 
 
-def heatmap_peaks(heatmaps):
-    """Peaks of (N, J, H, W) f32 heatmaps; any strides (the NHWC model
-    output viewed as NJHW is read in place). See ``heatmap_peaks_plain``
-    for the outputs."""
-    if heatmaps.device.type == "cpu":
-        return heatmap_peaks_plain(heatmaps)
+def _heatmap_peaks_cuda(heatmaps):
+    """The CUDA implementation of operator ``stlpose::heatmap_peaks``."""
     global LAUNCHES
     if heatmaps.device.type != "cuda" or heatmaps.dtype != torch.float32 \
             or heatmaps.dim() != 4:
@@ -114,3 +111,22 @@ def heatmap_peaks(heatmaps):
     LAUNCHES += 1
     LAUNCHES_BY_KERNEL[kernel] += 1
     return coords, maxvals, shift
+
+
+def _heatmap_peaks_fake(heatmaps):
+    N, J = heatmaps.shape[:2]
+    return (heatmaps.new_empty((N, J, 2), dtype=torch.float32),
+            heatmaps.new_empty((N, J), dtype=torch.float32),
+            heatmaps.new_empty((N, J, 2), dtype=torch.float32))
+
+
+OP = _ops.define("heatmap_peaks(Tensor heatmaps) -> (Tensor, Tensor, Tensor)",
+                 heatmap_peaks_plain, _heatmap_peaks_cuda,
+                 _heatmap_peaks_fake)
+
+
+def heatmap_peaks(heatmaps):
+    """Peaks of (N, J, H, W) f32 heatmaps; any strides (the NHWC model
+    output viewed as NJHW is read in place). See ``heatmap_peaks_plain``
+    for the outputs. Calls operator ``stlpose::heatmap_peaks``."""
+    return OP(heatmaps)

@@ -28,7 +28,9 @@ design's ``mma.sync`` kernel otherwise (HRNet's 3-channel stem); K6q stores 16
 channel bytes a thread for C % 16 == 0 and bytes otherwise.
 ``LAUNCHES_BY_KERNEL`` and ``QUANTIZE_LAUNCHES_BY_KERNEL`` count each.
 
-On CPU tensors each wrapper runs its plain version: the same formula in
+Each wrapper calls its operator (``stlpose::int8_conv``,
+``stlpose::quantize_activations``; ``kernels/_ops.py``). On CPU tensors
+the operator runs the plain version: the same formula in
 torch ops for K6q; for K6, ``F.conv2d`` in float64 on the integer codes
 (exact: every partial sum is an integer below 2^53), cast to int32, then
 the same epilogue in torch ops. A CUDA tensor reaches the kernel or
@@ -41,7 +43,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from stlpose_tpu_torch.kernels import _build
+from stlpose_tpu_torch.kernels import _build, _ops
 from stlpose_tpu_torch.kernels._build import I32, P
 
 LAUNCHES = 0
@@ -123,11 +125,9 @@ def _scalar_ptr(t, dev, name):
     return t.data_ptr()
 
 
-def quantize_activations(x, sx, zp=None, qlo=None, qhi=None):
-    """K6q: int8 NHWC codes of NCHW f32 or bf16 activations; see
-    ``quantize_activations_plain``."""
-    if x.device.type == "cpu":
-        return quantize_activations_plain(x, sx, zp, qlo, qhi)
+def _quantize_activations_cuda(x, sx, zp, qlo, qhi):
+    """The CUDA implementation of operator
+    ``stlpose::quantize_activations``."""
     global QUANTIZE_LAUNCHES
     dev = x.device
     if dev.type != "cuda" or x.dtype not in QUANTIZE_SYMBOLS or x.dim() != 4:
@@ -156,15 +156,28 @@ def quantize_activations(x, sx, zp=None, qlo=None, qhi=None):
     return q
 
 
-def int8_conv(xq, w8, kernel: int, stride: int, sx, sw, bias, zp=None,
-              relu: bool = True, out_dtype=torch.float32, *, route=None):
-    """K6: the int8 convolution and its epilogue; see
-    ``int8_conv_plain``. ``route`` None takes the ``wgmma`` kernel where
-    C_in % 16 == 0 and the ``mma_sync`` one elsewhere; "mma_sync" forces
-    the first design's kernel (timed beside the new one)."""
-    if xq.device.type == "cpu":
-        return int8_conv_plain(xq, w8, kernel, stride, sx, sw, bias, zp,
-                               relu, out_dtype)
+def _quantize_activations_fake(x, sx, zp, qlo, qhi):
+    N, C, H, W = x.shape
+    return x.new_empty((N, H, W, C), dtype=torch.int8)
+
+
+QUANTIZE_OP = _ops.define(
+    "quantize_activations(Tensor x, Tensor? sx, Tensor? zp, Tensor? qlo, "
+    "Tensor? qhi) -> Tensor",
+    quantize_activations_plain, _quantize_activations_cuda,
+    _quantize_activations_fake)
+
+
+def quantize_activations(x, sx, zp=None, qlo=None, qhi=None):
+    """K6q: int8 NHWC codes of NCHW f32 or bf16 activations; see
+    ``quantize_activations_plain``. Calls operator
+    ``stlpose::quantize_activations``."""
+    return QUANTIZE_OP(x, sx, zp, qlo, qhi)
+
+
+def _int8_conv_cuda(xq, w8, kernel, stride, sx, sw, bias, zp, relu,
+                    out_dtype, route):
+    """The CUDA implementation of operator ``stlpose::int8_conv``."""
     global LAUNCHES
     dev = xq.device
     if (dev.type != "cuda" or xq.dtype != torch.int8 or xq.dim() != 4
@@ -220,3 +233,36 @@ def int8_conv(xq, w8, kernel: int, stride: int, sx, sw, bias, zp=None,
     LAUNCHES += 1
     LAUNCHES_BY_KERNEL[route] += 1
     return out
+
+
+def _int8_conv_cpu(xq, w8, kernel, stride, sx, sw, bias, zp, relu,
+                   out_dtype, route):
+    return int8_conv_plain(xq, w8, kernel, stride, sx, sw, bias, zp, relu,
+                           out_dtype)
+
+
+def _int8_conv_fake(xq, w8, kernel, stride, sx, sw, bias, zp, relu,
+                    out_dtype, route):
+    N, H, W, _ = xq.shape
+    pad = kernel // 2
+    return xq.new_empty((N, w8.shape[0], (H + 2 * pad - kernel) // stride + 1,
+                         (W + 2 * pad - kernel) // stride + 1),
+                        dtype=out_dtype)
+
+
+OP = _ops.define(
+    "int8_conv(Tensor xq, Tensor w8, int kernel, int stride, Tensor? sx, "
+    "Tensor sw, Tensor bias, Tensor? zp, bool relu, ScalarType out_dtype, "
+    "str? route) -> Tensor",
+    _int8_conv_cpu, _int8_conv_cuda, _int8_conv_fake)
+
+
+def int8_conv(xq, w8, kernel: int, stride: int, sx, sw, bias, zp=None,
+              relu: bool = True, out_dtype=torch.float32, *, route=None):
+    """K6: the int8 convolution and its epilogue; see
+    ``int8_conv_plain``. ``route`` None takes the ``wgmma`` kernel where
+    C_in % 16 == 0 and the ``mma_sync`` one elsewhere; "mma_sync" forces
+    the first design's kernel (timed beside the new one). Calls operator
+    ``stlpose::int8_conv``."""
+    return OP(xq, w8, kernel, stride, sx, sw, bias, zp, relu, out_dtype,
+              route)

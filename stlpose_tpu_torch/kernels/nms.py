@@ -20,9 +20,10 @@ scatters the keep bits back to candidate order. The workspace (order,
 sorted boxes, alive counts, kept rows, B x M x ceil(M / 64) words of
 mask) is one ``torch.empty`` per call.
 
-``box_nms_topk`` launches the kernels for CUDA tensors and runs
-``box_nms_topk_plain`` for CPU tensors. ``LAUNCHES`` counts wrapper
-calls (three kernel launches each).
+``box_nms_topk`` calls operator ``stlpose::box_nms_topk``
+(``kernels/_ops.py``), which launches the kernels for CUDA tensors and
+runs ``box_nms_topk_plain`` for CPU tensors. ``LAUNCHES`` counts the
+calls that launch (three kernel launches each).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import ctypes
 
 import torch
 
-from stlpose_tpu_torch.kernels import _build
+from stlpose_tpu_torch.kernels import _build, _ops
 from stlpose_tpu_torch.kernels._build import F32, I32, P
 
 LAUNCHES = 0
@@ -78,15 +79,9 @@ def box_nms_topk_plain(boxes, scores, iou_threshold: float, valid_mask,
     return keep
 
 
-def box_nms_topk(boxes, scores, iou_threshold: float, valid_mask,
-                 max_keep: int):
-    """Greedy NMS keep mask; see ``box_nms_topk_plain``. On the card:
-    boxes contiguous float32 (B, M, 4), scores contiguous float32 or
-    bfloat16 (B, M), valid_mask contiguous bool (B, M) or None; three
-    kernel launches per call."""
-    if boxes.device.type == "cpu":
-        return box_nms_topk_plain(boxes, scores, iou_threshold, valid_mask,
-                                  max_keep)
+def _box_nms_topk_cuda(boxes, scores, iou_threshold, valid_mask,
+                       max_keep):
+    """The CUDA implementation of operator ``stlpose::box_nms_topk``."""
     global LAUNCHES
     dev = boxes.device
     B, M = scores.shape[:2] if scores.dim() == 2 else (-1, -1)
@@ -119,3 +114,22 @@ def box_nms_topk(boxes, scores, iou_threshold: float, valid_mask,
                workspace.data_ptr(), torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return keep
+
+
+def _box_nms_topk_fake(boxes, scores, iou_threshold, valid_mask, max_keep):
+    return scores.new_empty(scores.shape, dtype=torch.bool)
+
+
+OP = _ops.define("box_nms_topk(Tensor boxes, Tensor scores, "
+                 "float iou_threshold, Tensor? valid_mask, int max_keep) "
+                 "-> Tensor",
+                 box_nms_topk_plain, _box_nms_topk_cuda, _box_nms_topk_fake)
+
+
+def box_nms_topk(boxes, scores, iou_threshold: float, valid_mask,
+                 max_keep: int):
+    """Greedy NMS keep mask; see ``box_nms_topk_plain``. On the card:
+    boxes contiguous float32 (B, M, 4), scores contiguous float32 or
+    bfloat16 (B, M), valid_mask contiguous bool (B, M) or None; three
+    kernel launches per call. Calls operator ``stlpose::box_nms_topk``."""
+    return OP(boxes, scores, iou_threshold, valid_mask, max_keep)

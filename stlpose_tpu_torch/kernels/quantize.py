@@ -13,7 +13,8 @@ buffer), then a quantize pass (each thread 16 elements to one 16-byte int8
 store, true f32 divisions), which walks the pyramid in reverse to start on
 what the first pass left in L2.
 
-``quantize_levels`` launches the pair for CUDA tensors and runs
+``quantize_levels`` calls operator ``stlpose::quantize_levels``
+(``kernels/_ops.py``), which launches the pair for CUDA tensors and runs
 ``quantize_levels_plain`` for CPU tensors. The kernels read and write 16
 bytes at a time: a CUDA pyramid whose C is not a multiple of 16, or whose
 maps do not start on 16 bytes, raises. ``LAUNCHES`` counts the launches
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from stlpose_tpu_torch.kernels import _build
+from stlpose_tpu_torch.kernels import _build, _ops
 from stlpose_tpu_torch.kernels._build import I32, I64, P
 
 LAUNCHES = 0
@@ -68,19 +69,13 @@ def quantize_levels_plain(feature_levels):
     return q, torch.stack(scales)
 
 
-def quantize_levels(feature_levels):
-    """int8 levels and (L, C) f32 scales of 1..4 float32 or bfloat16
-    levels (B, h, w, C) of one C; see ``quantize_levels_plain``."""
-    _check_dtype(feature_levels)
-    if feature_levels[0].device.type == "cpu":
-        return quantize_levels_plain(feature_levels)
+def _quantize_levels_cuda(feature_levels):
+    """The CUDA implementation of operator ``stlpose::quantize_levels``."""
     global LAUNCHES
+    _check_dtype(feature_levels)
     L = len(feature_levels)
     f0 = feature_levels[0]
     dev, C = f0.device, f0.shape[-1]
-    if dev.type != "cuda":
-        raise ValueError(f"quantize_levels: expected CPU or CUDA levels, "
-                         f"got {dev}")
     if (not 1 <= L <= MAX_LEVELS or not 1 <= C <= MAX_CHANNELS
             or C % CHANNEL_MULTIPLE):
         raise ValueError(f"quantize_levels: 1..{MAX_LEVELS} levels of a "
@@ -109,3 +104,26 @@ def quantize_levels(feature_levels):
                scales.data_ptr(), torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return qs, scales
+
+
+def _quantize_levels_fake(feature_levels):
+    _check_dtype(feature_levels)
+    f0 = feature_levels[0]
+    return ([f.new_empty(f.shape, dtype=torch.int8) for f in feature_levels],
+            f0.new_empty((len(feature_levels), f0.shape[-1]),
+                         dtype=torch.float32))
+
+
+OP = _ops.define("quantize_levels(Tensor[] feature_levels) -> "
+                 "(Tensor[], Tensor)",
+                 quantize_levels_plain, _quantize_levels_cuda,
+                 _quantize_levels_fake)
+
+
+def quantize_levels(feature_levels):
+    """int8 levels and (L, C) f32 scales of 1..4 float32 or bfloat16
+    levels (B, h, w, C) of one C; see ``quantize_levels_plain``. Calls
+    operator ``stlpose::quantize_levels``."""
+    _check_dtype(feature_levels)
+    q, scales = OP(list(feature_levels))
+    return list(q), scales

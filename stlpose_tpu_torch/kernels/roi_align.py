@@ -17,7 +17,8 @@ are widened to f32, all arithmetic runs in f32, an int8 pyramid's result
 is multiplied by its level's (L, C) f32 scales, and the result is rounded
 once to the output type.
 
-``roi_align`` launches the instantiation that matches the tensors for CUDA
+``roi_align`` calls operator ``stlpose::roi_align`` (``kernels/_ops.py``),
+which launches the instantiation that matches the tensors for CUDA
 tensors and runs ``roi_align_plain`` for CPU tensors. ``LAUNCHES`` counts
 kernel launches, ``LAUNCHES_BY_TYPE`` the launches of each instantiation.
 The level of each box is an input: the caller computes it once
@@ -47,7 +48,7 @@ import ctypes
 
 import torch
 
-from stlpose_tpu_torch.kernels import _build
+from stlpose_tpu_torch.kernels import _build, _ops
 from stlpose_tpu_torch.kernels._build import F32, I32, P
 
 LAUNCHES = 0
@@ -151,12 +152,9 @@ def roi_align_plain(feature_levels, boxes, levels, strides, scales=None,
     return out.to(out_dtype).reshape(B, P, OUTPUT_SIZE, OUTPUT_SIZE, C)
 
 
-def roi_align(feature_levels, boxes, levels, strides, scales=None,
-              out_dtype=torch.float32):
-    """Multilevel RoIAlign; see ``roi_align_plain`` for the contract."""
-    if boxes.device.type == "cpu":
-        return roi_align_plain(feature_levels, boxes, levels, strides,
-                               scales, out_dtype)
+def _roi_align_cuda(feature_levels, boxes, levels, strides, scales,
+                    out_dtype):
+    """The CUDA implementation of operator ``stlpose::roi_align``."""
     global LAUNCHES
     B, NB = boxes.shape[:2]
     L = len(feature_levels)
@@ -204,6 +202,28 @@ def roi_align(feature_levels, boxes, levels, strides, scales=None,
     LAUNCHES += 1
     LAUNCHES_BY_TYPE[variant] += 1
     return out
+
+
+def _roi_align_fake(feature_levels, boxes, levels, strides, scales,
+                    out_dtype):
+    _variant(feature_levels[0].dtype, out_dtype, scales)
+    B, NB = boxes.shape[:2]
+    return boxes.new_empty((B, NB, OUTPUT_SIZE, OUTPUT_SIZE,
+                            feature_levels[0].shape[-1]), dtype=out_dtype)
+
+
+OP = _ops.define("roi_align(Tensor[] feature_levels, Tensor boxes, "
+                 "Tensor levels, float[] strides, Tensor? scales, "
+                 "ScalarType out_dtype) -> Tensor",
+                 roi_align_plain, _roi_align_cuda, _roi_align_fake)
+
+
+def roi_align(feature_levels, boxes, levels, strides, scales=None,
+              out_dtype=torch.float32):
+    """Multilevel RoIAlign; see ``roi_align_plain`` for the contract.
+    Calls operator ``stlpose::roi_align``."""
+    return OP(list(feature_levels), boxes, levels,
+              [float(s) for s in strides], scales, out_dtype)
 
 
 def roi_align_backward_plain(grad, level_shapes, boxes, levels, strides):

@@ -11,8 +11,9 @@ memory and written by one bulk copy; for unrotated crops (b == 0,
 decided per crop on the device) the column taps computed once per block
 and the row taps once per row; rotated crops sample directly.
 
-``affine_crop`` launches the kernel for CUDA tensors and runs
-``affine_crop_plain`` for CPU tensors. Inside the launch, the kernel's
+``affine_crop`` calls operator ``stlpose::affine_crop``
+(``kernels/_ops.py``), which launches the kernel for CUDA tensors and
+runs ``affine_crop_plain`` for CPU tensors. Inside the launch, the kernel's
 C = 3 instantiation takes three-channel images (any other C runs a loop
 over channels), and the band goes out by one bulk copy where dst_w*C is
 a multiple of 4 and a band fits in 24 KB (value by value otherwise). ``LAUNCHES`` counts kernel
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from stlpose_tpu_torch.kernels import _build
+from stlpose_tpu_torch.kernels import _build, _ops
 from stlpose_tpu_torch.kernels._build import I32, P
 
 LAUNCHES = 0
@@ -70,10 +71,8 @@ def affine_crop_plain(images, params, img_idx, output_size):
             tap(y0i + 1, x0i) * w10 + tap(y0i + 1, x0i + 1) * w11)
 
 
-def affine_crop(images, params, img_idx, output_size):
-    """K crops of (B, H, W, C) images; see ``affine_crop_plain``."""
-    if images.device.type == "cpu":
-        return affine_crop_plain(images, params, img_idx, output_size)
+def _affine_crop_cuda(images, params, img_idx, output_size):
+    """The CUDA implementation of operator ``stlpose::affine_crop``."""
     global LAUNCHES
     B, H, W, C = images.shape
     K = params.shape[0]
@@ -98,3 +97,20 @@ def affine_crop(images, params, img_idx, output_size):
                torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     return out
+
+
+def _affine_crop_fake(images, params, img_idx, output_size):
+    dst_w, dst_h = output_size
+    return images.new_empty((params.shape[0], dst_h, dst_w,
+                             images.shape[-1]), dtype=torch.float32)
+
+
+OP = _ops.define("affine_crop(Tensor images, Tensor params, Tensor img_idx, "
+                 "int[] output_size) -> Tensor",
+                 affine_crop_plain, _affine_crop_cuda, _affine_crop_fake)
+
+
+def affine_crop(images, params, img_idx, output_size):
+    """K crops of (B, H, W, C) images; see ``affine_crop_plain``. Calls
+    operator ``stlpose::affine_crop``."""
+    return OP(images, params, img_idx, list(output_size))

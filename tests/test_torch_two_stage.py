@@ -174,7 +174,9 @@ def test_port_imports_nothing_of_jax():
         "scripts/06_fit_knn_tree.py", "scripts/07_retrieval_experiments.py",
         "scripts/07_retrieval_test.py",
         "scripts/07_display_database_skeletons.py",
-        "models/efficientnet.py", "models/efficientdet.py")} <= names
+        "models/efficientnet.py", "models/efficientdet.py",
+        "serving/__init__.py", "serving/export.py", "serving/packing.py",
+        "kernels/_ops.py", "scripts/08_export_serving.py")} <= names
     assert (ROOT / "stlpose_tpu_torch" / "native" / "hnsw.cpp").exists()
     banned = {"jax", "jaxlib", "flax", "optax", "orbax", "stlpose_tpu"}
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & banned)
