@@ -38,7 +38,8 @@ Phases, each fatal on failure:
      training shape (B = 8, 256 boxes, C = 256, ``roi_scene``), on a
      planted scene (``roi_backward_scene``: every level, past every
      border, under one pixel, tall, wide) and at C = 36, each run twice
-     and the two runs equal bit for bit;
+     and the two runs equal bit for bit (K3b's bf16 instantiation is held
+     on the bf16 train step's own inputs, phase 5e2);
   4. drive the fused two-stage serving path end to end at full width
      (Faster R-CNN ResNet50-FPN 400x400 + HRNet-W32 256x192, float32,
      B = 8, seeded random weights) with every launch counter set to 0
@@ -198,6 +199,30 @@ Phases, each fatal on failure:
      scheduler stepped on AP) -> a resume from checkpoint 1 ->
      03_evaluate_faster_rcnn on "final" (12 stats, finite or -1), with ms
      per train and per validation epoch;
+  5e2. bf16 detector training on f32 master weights (``param_dtype``), as
+     the reference trains under STLPOSE_DTYPE=bfloat16: Faster R-CNN from
+     phase 5e's weights, statistics and batches, Adam; counters set to 0,
+     one bf16 step (finite terms, loss_classifier bf16 and the others
+     f32, every master still f32 and moved; K3 bf16_bf16, K3b bf16 and
+     K5 launched, K3 f32_f32 and K3b f32 not); K3 bf16_bf16 on the step's
+     RoIs 0.0 from its plain version; K3b bf16 on the step's inputs
+     against its plain version (each element within one bf16 step, or
+     within K3B_REL_TOL of the maps' max abs where the gradient cancels
+     to near 0; the shares of equal elements printed), run twice, timed
+     warm and cold beside K3b f32 on the same RoIs; the step on the
+     kernels against the plain versions (terms 1e-5 relative; gradients
+     within the bf16 backward's own rounding, measured by the f32 step
+     on the same proposals and draws); ms per step and samples/s beside
+     the f32 step's on the same weights and batch (CUDA events, in
+     turns), split into forward + loss and backward + update, and the
+     terms' drift from the f32 step's (records). EfficientDet-D0 (512 x
+     512, seeded, on phase 5e's canvases): one bf16 step (finite f32
+     terms, f32 masters moved where their gradients are not 0), ms beside
+     its f32 step's, the terms' drift. The detector CLI with
+     STLPOSE_DTYPE=bfloat16: 01 -> 02_train_faster_rcnn (one epoch; K3
+     bf16_bf16, K3b bf16 and K5 launched; the trained detector bf16 on
+     f32 masters; the final checkpoint f32 tensors only) -> 03 in bf16
+     (12 stats, finite or -1);
   5f. pose retrieval at full width: an arch_data experiment through 01,
      phase 4's seeded HRNet-W32 as its checkpoint "final", 1,024 seeded
      640x320 figure images read from memory (one figure and one of 12
@@ -277,7 +302,7 @@ Phases, each fatal on failure:
      K6's, K6q's, K3q's and K3's kernels in its trace); one stylizer call
      at B = 32 on 256x192 crops and one style engine iteration (host
      warp, crops stylized) likewise; one detector train step likewise
-     (K3, K3b and K5 in its trace); one EfficientDet-D0 fused call
+     (K3, K3b and K5 in its trace), in f32 and in bf16; one EfficientDet-D0 fused call
      likewise (K5's, K2's and K1's kernels in its trace); one retrieval
      extraction batch likewise (K1's bulk kernel in its trace).
 All host-clock and CUDA-event times are taken before the first profiler
@@ -1273,6 +1298,7 @@ def reset_counts(mods):
     mods["k3"].BACKWARD_LAUNCHES = 0
     mods["k6"].QUANTIZE_LAUNCHES = 0
     for by_type in (mods["k3"].LAUNCHES_BY_TYPE,
+                    mods["k3"].BACKWARD_LAUNCHES_BY_TYPE,
                     mods["k1"].LAUNCHES_BY_KERNEL,
                     mods["k6"].LAUNCHES_BY_KERNEL,
                     mods["k6"].QUANTIZE_LAUNCHES_BY_KERNEL):
@@ -1297,7 +1323,10 @@ def launch_counts(mods):
               "quantize_levels": mods["k3q"].LAUNCHES,
               "warp_two_pass": mods["k4"].LAUNCHES,
               "box_nms_topk": mods["k5"].LAUNCHES,
-              "roi_align_backward": mods["k3"].BACKWARD_LAUNCHES,
+              "roi_align_backward":
+                  mods["k3"].BACKWARD_LAUNCHES_BY_TYPE["f32"],
+              "roi_align_backward_bf16":
+                  mods["k3"].BACKWARD_LAUNCHES_BY_TYPE["bf16"],
               "int8_conv": mods["k6"].LAUNCHES,
               "quantize_activations": mods["k6"].QUANTIZE_LAUNCHES,
               # K6's mma.sync kernel (C_in % 16 != 0) and K6q's byte path
@@ -2327,13 +2356,14 @@ def host_ms(torch, fn, iters):
     return (time.perf_counter() - t) * 1e3 / iters
 
 
-def in_turns(torch, fns, iters, rounds=2):
-    """Host ms per call of each of ``fns`` (label -> function), timed in
-    turns a, b, b, a, ... so that drift falls on each alike."""
+def in_turns(torch, fns, iters, rounds=2, timer=host_ms):
+    """ms per call of each of ``fns`` (label -> function) by ``timer``
+    (host clock; ``elapsed_ms`` for CUDA events), timed in turns a, b, b,
+    a, ... so that drift falls on each alike."""
     times = {k: [] for k in fns}
     for order in (list(fns), list(fns)[::-1]) * rounds:
         for k in order:
-            times[k].append(host_ms(torch, fns[k], iters))
+            times[k].append(timer(torch, fns[k], iters))
     return {k: float(np.mean(v)) for k, v in times.items()}
 
 
@@ -4293,6 +4323,19 @@ def detection_dataset(root, seed):
     return canvases
 
 
+def detection_batches(mods, canvases, data, image_size, dev):
+    """The train step's batches (B = DET_B) of the train split of
+    ``detection_dataset`` at ``data``, letterboxed to ``image_size``, its
+    canvases read from memory."""
+    exp = mods["default_experiment_args"]()
+    exp["training"]["batch_size"] = DET_B
+    exp["dataset"]["image_size"] = image_size
+    with detection_canvases_in_memory(mods, canvases):
+        pipe = mods["get_detection_dataset"](exp, "train", data_path=data,
+                                             num_workers=4, device=dev)
+        return [mods["detector_device_batch"](b, dev) for b in pipe]
+
+
 @contextlib.contextmanager
 def environment(**values):
     """Environment variables set for the block, restored after."""
@@ -4397,51 +4440,114 @@ def first_varying_op(torch, fn):
             f"them (a kernel of the port)")
 
 
+def bf16_steps(torch, got, ref):
+    """|got - ref| per element in bf16 steps of ``ref`` (its unit in the
+    last place, 2^-7 of its leading power of two); 0 where the two are
+    equal, inf where ``ref`` is 0 and ``got`` is not."""
+    r, g = ref.float().contiguous(), got.float()
+    lead = (r.abs().view(torch.int32) & 0x7F800000).view(torch.float32)
+    return torch.where(g == r, 0.0, (g - r).abs() / (lead * 2.0 ** -7))
+
+
 def roi_backward_on_step(torch, k3, log):
     """K3b on the inputs it got in a detector train step (``log``: one
     ``calls_to`` record): the RoIs the step sampled, clustered around the
-    people, unlike ``roi_scene``'s spread boxes. Against its plain version
-    (within K3B_REL_TOL of the plain maps' max abs) and against itself (0.0
-    run to run); CUDA-event ms warm and cold, the plain version's warm."""
+    people, unlike ``roi_scene``'s spread boxes, in the step's dtype.
+    Against its plain version (f32: within K3B_REL_TOL of the plain maps'
+    max abs; bf16: every map element within one bf16 step of the plain
+    version's, or, where the gradient cancels to near 0 and the two f32
+    sums' orders move it by more than a step of its own, within
+    K3B_REL_TOL of the maps' max abs, as the f32 instantiation is held;
+    the shares of exactly equal elements and of those within one step
+    recorded) and against
+    itself (0.0 run to run); CUDA-event ms warm and cold, the plain
+    version's warm, and for a bf16 step K3b f32 on the same RoIs with the
+    gradient widened (``f32_``). Returns (record, timed functions)."""
     (args, kw, _), = log
     args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
     got = k3.roi_align_backward(*args, **kw)
     again = k3.roi_align_backward(*args, **kw)
     ref = k3.roi_align_backward_plain(*args, **kw)
-    rel = max(float((a - r).abs().max()) for a, r in zip(got, ref)) / max(
-        float(r.abs().max()) for r in ref)
-    rerun = max(float((a - b).abs().max()) for a, b in zip(got, again))
-    if rel > K3B_REL_TOL or rerun:
-        fail(f"K3b on the train step's inputs: {rel} of the maps' max abs "
-             f"from its plain version, {rerun} from itself run to run")
+    err = max(float((a.float() - r.float()).abs().max())
+              for a, r in zip(got, ref))
+    rel = err / max(float(r.float().abs().max()) for r in ref)
+    rerun = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, again))
+    rec = {"dtype": str(args[0].dtype), "max_abs_err": err, "rel_err": rel,
+           "run_to_run_max_abs": rerun}
+    fns = {"": lambda: k3.roi_align_backward(*args, **kw),
+           "plain_": lambda: k3.roi_align_backward_plain(*args, **kw)}
+    if args[0].dtype == torch.bfloat16:
+        n = sum(r.numel() for r in ref)
+        top = max(float(r.float().abs().max()) for r in ref)
+        steps = [bf16_steps(torch, a, r) for a, r in zip(got, ref)]
+        rec.update(
+            bf16_steps_max=max(float(t.max()) for t in steps),
+            share_equal=sum(int((a == r).sum())
+                            for a, r in zip(got, ref)) / n,
+            share_within_one_step=sum(int((t <= 1.0).sum())
+                                      for t in steps) / n,
+            beyond_one_step_max_abs=max(
+                float(torch.where(t > 1.0, (a.float() - r.float()).abs(),
+                                  0.0).max())
+                for t, a, r in zip(steps, got, ref)),
+            maps_max_abs=top, elements=n)
+        ok = rec["beyond_one_step_max_abs"] <= K3B_REL_TOL * top and all(
+            a.dtype == torch.bfloat16 for a in got)
+        g32 = args[0].float()
+        fns["f32_"] = lambda: k3.roi_align_backward(g32, *args[1:], **kw)
+    else:
+        ok = rel <= K3B_REL_TOL
+    if not ok or rerun:
+        fail(f"K3b on the train step's inputs: {rec}")
     levels = args[3]
-    return {"boxes_by_level": torch.bincount(
+    rec.update(boxes_by_level=torch.bincount(
         levels.flatten().long() + 1, minlength=5).tolist()[1:],
-            "rel_err": rel, "run_to_run_max_abs": rerun,
-            "inside_samples": inside_samples(
-                torch, args[2], levels, [s[1] for s in args[1]], args[4]),
-            **event_times(torch, {
-                "": lambda: k3.roi_align_backward(*args, **kw),
-                "plain_": lambda: k3.roi_align_backward_plain(*args, **kw)},
-                cold=True)}
+        inside_samples=inside_samples(
+            torch, args[2], levels, [s[1] for s in args[1]], args[4]),
+        **event_times(torch, fns, cold=True))
+    return rec, fns
 
 
-def detector_step_vs_plain(torch, mods, base, batch, seed):
+def grad_errs(ga, gb, scale=None):
+    """Each gradient's max abs difference over the max abs of ``scale``'s
+    (default ``gb``'s); a gradient that is exactly 0 there (EfficientDet's
+    regressor BatchNorms of levels with no positive anchor) has no scale:
+    its max abs difference."""
+    scale = scale or gb
+    return {n: float((ga[n] - gb[n]).abs().max() / scale[n].abs().max())
+            if bool(scale[n].any()) else float((ga[n] - gb[n]).abs().max())
+            for n in gb}
+
+
+def detector_step_vs_plain(torch, mods, base, batch, seed, f32_base=None):
     """FasterRCNN.loss_fn and its backward from the weights of ``base``
     and the same draws, on the kernels and on the plain versions (cuDNN
     deterministic): loss terms within STEP_LOSS_REL_TOL relative, every
     parameter's gradient within STEP_GRAD_TOL of its max abs. The kernels
     run twice: their gradients' run-to-run difference is recorded beside
     and, where it is not 0.0, the op that sums in a varying order
-    (``first_varying_op``)."""
-    import copy
-    runs = {}
+    (``first_varying_op``).
 
-    def run(mode=contextlib.nullcontext()):
-        model = copy.deepcopy(base)
+    A bf16 ``base`` comes with ``f32_base``, the same weights in f32: its
+    loss and gradient on the same draws, with the proposals pinned to the
+    kernels run's (``loss_fn(proposals=...)``), measure the bf16
+    backward's own rounding. K3b bf16 rounds a few map elements one bf16
+    step away from its plain version, and the trunk's bf16 backward
+    rounds on from there, so the gradients are held to that measure:
+    the largest and the median over the tensors of the kernels-vs-plain
+    difference no larger than those of the kernels-vs-f32 difference
+    (each of the f32 gradient's max abs); the terms stay within
+    STEP_LOSS_REL_TOL (the forward is the same bits)."""
+    import copy
+    runs, props = {}, []
+    frcnn = sys.modules[mods["FasterRCNN"].__module__]
+
+    def run(mode=contextlib.nullcontext(), model=base, **kw):
+        model = copy.deepcopy(model)
         gen = torch.Generator(device=batch["image"].device).manual_seed(seed)
         with mode:
-            total, terms = model.loss_fn(batch, gen)
+            total, terms = model.loss_fn(batch, gen, **kw)
             total.backward()
         return ({"total": float(total.detach()), **{
             k: float(v) for k, v in terms.items()}},
@@ -4449,10 +4555,13 @@ def detector_step_vs_plain(torch, mods, base, batch, seed):
 
     torch.backends.cudnn.deterministic = True
     try:
-        for label in ("kernels", "kernels_again", "plain"):
-            with (plain_versions(mods) if label == "plain"
-                  else contextlib.nullcontext()):
-                runs[label] = run()
+        with calls_to(frcnn, "roi_targets", props):
+            runs["kernels"] = run()
+        runs["kernels_again"] = run()
+        with plain_versions(mods):
+            runs["plain"] = run()
+        if f32_base is not None:
+            runs["f32"] = run(model=f32_base, proposals=props[0][0][1])
         varying = None
         if any(not torch.equal(runs["kernels_again"][1][n], g)
                for n, g in runs["kernels"][1].items()):
@@ -4461,23 +4570,38 @@ def detector_step_vs_plain(torch, mods, base, batch, seed):
         torch.backends.cudnn.deterministic = False
     (tk, gk), (tp, gp) = runs["kernels"], runs["plain"]
     loss_rel = {k: abs(tk[k] - tp[k]) / abs(tp[k]) for k in tp}
-
-    def worst_grad(ga, gb):
-        # a gradient that is exactly 0 (EfficientDet's regressor
-        # BatchNorms of levels with no positive anchor) has no scale
-        err = {n: float((ga[n] - gb[n]).abs().max() / gb[n].abs().max())
-               if bool(gb[n].any()) else float((ga[n] - gb[n]).abs().max())
-               for n in gb}
-        worst = max(err, key=err.get)
-        return worst, err[worst]
-
-    worst, err = worst_grad(gk, gp)
-    again, again_err = worst_grad(runs["kernels_again"][1], gk)
-    rec = {"loss_rel_errs": loss_rel, "grad_max_err_of_max_abs": err,
+    err = grad_errs(gk, gp)
+    again = grad_errs(runs["kernels_again"][1], gk)
+    worst, again_worst = max(err, key=err.get), max(again, key=again.get)
+    rec = {"loss_rel_errs": loss_rel, "grad_max_err_of_max_abs": err[worst],
            "grad_worst": worst, "kernels_run_to_run_grad_of_max_abs":
-           again_err, "run_to_run_worst": again,
+           again[again_worst], "run_to_run_worst": again_worst,
            "run_to_run_varying_op": varying, "losses": tk}
-    if max(loss_rel.values()) > STEP_LOSS_REL_TOL or err > STEP_GRAD_TOL:
+    ok = err[worst] <= STEP_GRAD_TOL
+    if f32_base is not None:
+        gf = runs["f32"][1]
+        kp = list(grad_errs(gk, gp, gf).values())
+        kf = list(grad_errs(gk, gf).values())
+
+        def cosine(names):
+            a, b = (torch.cat([g[n].flatten().float() for n in names])
+                    for g in (gk, gf))
+            return float((a @ b) / (a.norm() * b.norm()))
+
+        modules = sorted({n.split(".")[0] for n in gf})
+        rec.update(f32_losses=runs["f32"][0],
+                   grad_max_err_of_f32_max_abs=max(kp),
+                   grad_median_err_of_f32_max_abs=float(np.median(kp)),
+                   bf16_vs_f32_grad_max_err_of_max_abs=max(kf),
+                   bf16_vs_f32_grad_median_err_of_max_abs=float(
+                       np.median(kf)),
+                   bf16_vs_f32_grad_cosine=cosine(sorted(gf)),
+                   bf16_vs_f32_grad_cosine_by_module={
+                       m: cosine([n for n in sorted(gf)
+                                  if n.split(".")[0] == m])
+                       for m in modules})
+        ok = max(kp) <= max(kf) and np.median(kp) <= np.median(kf)
+    if max(loss_rel.values()) > STEP_LOSS_REL_TOL or not ok:
         fail(f"detector train step, kernels vs plain: {rec}")
     return rec
 
@@ -4492,7 +4616,8 @@ def detector_train_path(torch, mods, dev, args, tmp):
     samples/s, split into forward + loss and backward + update; one step
     of the torchvision-parity detector (K5 at M = 6,529);
     then the detector CLI in-process (01 -> 02 -> resume -> 03) with its
-    epochs timed. Returns (launches by path, summary, (step, ms))."""
+    epochs timed. Returns (launches by path, summary, (step, ms), (the
+    CLI's canvases, their data directory, the train batches))."""
     import copy
     t0 = time.time()
     k3, k5 = mods["k3"], mods["k5"]
@@ -4502,13 +4627,7 @@ def detector_train_path(torch, mods, dev, args, tmp):
     cfg = mods["FasterRCNNConfig"]()
     data = os.path.join(tmp, "detection_data")
     canvases = detection_dataset(data, args.seed + 32)
-    exp = mods["default_experiment_args"]()
-    exp["training"]["batch_size"] = DET_B
-    exp["dataset"]["image_size"] = cfg.image_size
-    with detection_canvases_in_memory(mods, canvases):
-        pipe = mods["get_detection_dataset"](exp, "train", data_path=data,
-                                             num_workers=4, device=dev)
-        batches = [mods["detector_device_batch"](b, dev) for b in pipe]
+    batches = detection_batches(mods, canvases, data, cfg.image_size, dev)
     if len(batches) != DET_TRAIN_IMAGES // DET_B:
         fail(f"detector training: {len(batches)} batches")
     det = seeded_bn_statistics(torch, seeded_weights(
@@ -4545,7 +4664,7 @@ def detector_train_path(torch, mods, dev, args, tmp):
              f"{still[:8]}, launches {n}")
     vs_plain = detector_step_vs_plain(torch, mods, base, batches[2],
                                       args.seed + 36)
-    k3b_step = roi_backward_on_step(torch, k3, k3b_log)
+    k3b_step, _ = roi_backward_on_step(torch, k3, k3b_log)
     del k3b_log
     del base
 
@@ -4601,23 +4720,25 @@ def detector_train_path(torch, mods, dev, args, tmp):
                    "ms_per_step": parity_ms, "nms_check": parity_nms},
         "cli": cli}
     print("detector training:", json.dumps(summary), flush=True)
-    return launches, summary, ((lambda: step(state, b, gen)), step_ms)
+    return launches, summary, ((lambda: step(state, b, gen)), step_ms), (
+        canvases, data, batches)
 
 
 def detector_cli(torch, mods, tmp, name, canvases, data, detector_config,
                  create_args, must_launch, check, start=None,
-                 int8_03=None):
+                 int8_03=None, epochs=2, env=None):
     """The detector CLI in-process on ``canvases`` from memory, its epochs
     timed: 01_create_experiment (``create_args`` added) ->
-    02_train_faster_rcnn (2 epochs, a checkpoint each) -> a resume from
-    checkpoint 1 -> 03_evaluate_faster_rcnn, with STLPOSE_DETECTOR_CONFIG
-    at ``detector_config``. With a ``start`` detector, 02 begins from it
-    (saved as the experiment's checkpoint "seeded"), and every valid AP
-    and 03's AP must score detections (lie in [0, 1]). Holds: 2 finite
-    train losses and 2 valid APs, the checkpoints, the resume's epoch and
-    step, 03's 12 stats (each -1 or in [0, 1]), the counters
-    ``must_launch`` risen in 02's first run, and what ``check(trainer,
-    logs)`` adds. With ``int8_03`` ("int8" or "int8u"), 03 runs again with
+    02_train_faster_rcnn (``epochs`` epochs, a checkpoint each) -> with 2
+    or more epochs a resume from checkpoint 1 -> 03_evaluate_faster_rcnn,
+    with STLPOSE_DETECTOR_CONFIG at ``detector_config`` and the variables
+    of ``env`` set. With a ``start`` detector, 02 begins from it (saved as
+    the experiment's checkpoint "seeded"), and every valid AP and 03's AP
+    must score detections (lie in [0, 1]). Holds: a finite train loss and
+    a valid AP an epoch, the checkpoints, the resume's epoch and step,
+    03's 12 stats (each -1 or in [0, 1]), the counters ``must_launch``
+    risen in 02's first run, and what ``check(trainer, logs)`` adds. With
+    ``int8_03`` ("int8" or "int8u"), 03 runs again with
     STLPOSE_FRCNN_TRUNK_QUANT at it, the counters at 0 first: K6 and K6q
     launched, 12 stats each -1 or in [0, 1], and a detection scored (AP
     not -1). Returns (02's launches, summary; 03's int8 launches under
@@ -4627,12 +4748,12 @@ def detector_cli(torch, mods, tmp, name, canvases, data, detector_config,
     low = 0.0 if start is not None else -1.0
     with engine_environment(mods, tmp), \
             environment(STLPOSE_DETECTOR_CONFIG=detector_config,
-                        STLPOSE_DETECTOR_PRETRAINED=""), \
+                        STLPOSE_DETECTOR_PRETRAINED="", **(env or {})), \
             detection_canvases_in_memory(mods, canvases), \
             detector_epoch_clock(torch, mods["DetectorTrainer"], times):
         exp_path = scripts["01_create_experiment"].main(
             ["-d", name, "--dataset_name", "coco", "--batch_size",
-             str(DET_B), "--num_epochs", "2", "--save_frequency", "1",
+             str(DET_B), "--num_epochs", str(epochs), "--save_frequency", "1",
              *create_args])
         from_start = []
         if start is not None:
@@ -4649,24 +4770,27 @@ def detector_cli(torch, mods, tmp, name, canvases, data, detector_config,
             logs = json.load(f)
         ckpts = sorted(mods["list_checkpoints"](exp_path, detector=True))
         held = {
-            "2 finite train losses": len(logs["train_loss"]) == 2 and
-            all(np.isfinite(logs["train_loss"])),
-            "2 valid APs": len(logs["valid_ap"]) == 2 and
+            f"{epochs} finite train losses": len(logs["train_loss"]) ==
+            epochs and all(np.isfinite(logs["train_loss"])),
+            f"{epochs} valid APs": len(logs["valid_ap"]) == epochs and
             all(low <= v <= 1.0 for v in logs["valid_ap"]),
-            "checkpoints 0, 1, final": ckpts == sorted(
-                ["0", "1", "final"] + (["seeded"] if from_start else [])),
+            "a checkpoint an epoch, final": ckpts == sorted(
+                [str(e) for e in range(epochs)] + ["final"] +
+                (["seeded"] if from_start else [])),
             "launched: " + ", ".join(must_launch): all(
                 launches[k] for k in must_launch),
             **check(trainer, logs)}
         del trainer
-        resumed = scripts["02_train_faster_rcnn"].main(
-            ["-d", exp_path, "--checkpoint", "1", "--resume_training",
-             "true", "--data_path", data])
-        held["resume from checkpoint 1"] = (
-            times["start"][-1]["epoch"] == 1 and
-            times["start"][-1]["step"] == 2 * DET_TRAIN_IMAGES // DET_B and
-            resumed.state.step == 3 * DET_TRAIN_IMAGES // DET_B)
-        del resumed
+        if epochs >= 2:
+            resumed = scripts["02_train_faster_rcnn"].main(
+                ["-d", exp_path, "--checkpoint", "1", "--resume_training",
+                 "true", "--data_path", data])
+            per_epoch = DET_TRAIN_IMAGES // DET_B
+            held["resume from checkpoint 1"] = (
+                times["start"][-1]["epoch"] == 1 and
+                times["start"][-1]["step"] == 2 * per_epoch and
+                resumed.state.step == (epochs + 1) * per_epoch)
+            del resumed
         stats = scripts["03_evaluate_faster_rcnn"].main(
             ["-d", exp_path, "--checkpoint", "final", "--data_path", data])
         held["12 stats, each -1 or in [0, 1]"] = len(stats) == 12 and all(
@@ -4695,6 +4819,242 @@ def detector_cli(torch, mods, tmp, name, canvases, data, detector_config,
         summary[f"stats_03_{int8_03}"] = list(stats8)
         summary["int8_03_launches"] = launches8
     return launches, summary
+
+
+# ---------------------------------------- bf16 detector training (5e2)
+# bf16 training of both detector families on f32 master weights, as the
+# reference trains under STLPOSE_DTYPE=bfloat16: Faster R-CNN at phase
+# 5e's configuration, weights, statistics and batches (RoIAlign on K3
+# bf16_bf16, its gradient on K3b bf16); EfficientDet-D0 at its widths on
+# phase 5e's canvases letterboxed to 512 x 512; the detector CLI in bf16
+
+
+def masters_check(torch, det, before, label, all_move=True):
+    """After a bf16 step: every parameter still f32, and moved (with
+    ``all_move``) or moved exactly where its gradient is not 0."""
+    wrong = [n for n, p in det.named_parameters()
+             if p.dtype != torch.float32 or torch.equal(p, before[n]) !=
+             (False if all_move else not bool(p.grad.any()))]
+    if wrong:
+        fail(f"{label}: masters not f32 or not moved as their gradients "
+             f"say: {wrong[:8]}")
+
+
+def term_drift(torch, a, b, batch, seed):
+    """Relative drift of each loss term of detector ``a`` (bf16) from
+    ``b``'s (f32), both fresh copies on ``batch`` with the same draws."""
+    import copy
+    out = []
+    for det in (a, b):
+        gen = torch.Generator(device=batch["image"].device).manual_seed(seed)
+        with torch.no_grad():
+            _, terms = copy.deepcopy(det).loss_fn(batch, gen)
+        out.append({k: float(v) for k, v in terms.items()})
+    return {k: abs(out[0][k] - out[1][k]) / abs(out[1][k]) for k in out[1]}
+
+
+def detector_bf16_path(torch, mods, dev, args, tmp, det_data):
+    """bf16 detector training (phase 5e2). Faster R-CNN at phase 5e's
+    configuration from phase 5e's seeded weights and statistics, B = 8,
+    Adam: one bf16 step with every counter set to 0 first (finite terms,
+    loss_classifier bf16 and the others f32, every master still f32 and
+    moved; K3 bf16_bf16, K3b bf16 and K5 launched, K3 f32 and K3b f32
+    not); K3 bf16_bf16 on the step's RoIs exactly against its plain
+    version; K3b bf16 on the step's inputs within one bf16 step of its
+    plain version (``roi_backward_on_step``), timed beside K3b f32; the
+    bf16 loss and its gradient on the kernels against the plain versions
+    (terms STEP_LOSS_REL_TOL, gradients within the bf16 backward's own
+    rounding: ``detector_step_vs_plain`` with ``f32_base``); ms per step and samples/s beside the f32 step's on the same
+    weights and batch (CUDA events, in turns), split into forward + loss
+    and backward + update; the terms' drift from the f32 step's (a
+    record). EfficientDet-D0: one bf16 step at B = 8 (finite f32 terms,
+    f32 masters moved where their gradients are not 0), its ms beside
+    the f32 step's, its drift. Then the detector CLI with
+    STLPOSE_DTYPE=bfloat16: 01 -> 02 (one epoch; K3 bf16_bf16, K3b bf16
+    and K5 launched; the trained detector computes in bf16 on f32
+    masters; the final checkpoint holds f32 tensors only) -> 03 in bf16.
+    Returns (launches by path, summary, (step, ms), (K3b bf16 record,
+    its timed functions), K3 bf16_bf16 at the step's RoIs)."""
+    import copy
+    t0 = time.time()
+    canvases, data, batches = det_data
+    k3 = mods["k3"]
+    bf16 = torch.bfloat16
+    exp_t = {"training": {"learning_rate": DET_LR, "optimizer": "adam"},
+             "dataset": {"dataset_name": "coco"}}
+    step = mods["make_detector_train_step"]()
+    cfg = mods["FasterRCNNConfig"]()
+    base = seeded_bn_statistics(torch, seeded_weights(
+        torch, mods["FasterRCNN"](cfg, dev), args.seed + 33), args.seed + 34)
+    det = mods["FasterRCNN"](cfg, dev, dtype=bf16, param_dtype=torch.float32)
+    det.load_state_dict(base.state_dict())
+    start = copy.deepcopy(det)
+    state = mods["create_train_state"](det, exp_t)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 70)
+    step(state, batches[0], gen)                   # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in det.named_parameters()}
+    reset_counts(mods)
+    fwd_log, bwd_log = [], []
+    with calls_to(k3, "roi_align", fwd_log), \
+            calls_to(k3, "roi_align_backward", bwd_log):
+        metrics = step(state, batches[1], gen)
+    torch.cuda.synchronize()
+    launches = {"detector_training_bf16": launch_counts(mods)}
+    n = launches["detector_training_bf16"]
+    dtypes = {k: str(v.dtype).replace("torch.", "")
+              for k, v in metrics.items()}
+    metrics = {k: float(v) for k, v in metrics.items()}
+    print("bf16 detector train step launches:", json.dumps(
+        {k: v for k, v in n.items() if v}), "dtypes:", json.dumps(dtypes),
+        flush=True)
+    want = {"loss_classifier": "bfloat16", "loss": "float32",
+            "loss_objectness": "float32", "loss_rpn_box_reg": "float32",
+            "loss_box_reg": "float32"}
+    if not all(np.isfinite(v) for v in metrics.values()) or \
+            metrics["finite"] != 1.0 or \
+            any(dtypes[k] != v for k, v in want.items()) or \
+            not (n["roi_align_bf16_bf16"] and n["roi_align_backward_bf16"]
+                 and n["box_nms_topk"]) or \
+            n["roi_align"] or n["roi_align_backward"]:
+        fail(f"bf16 detector train step: metrics {metrics}, dtypes "
+             f"{dtypes}, launches {n}")
+    masters_check(torch, det, before, "bf16 detector train step")
+
+    (a3, kw3, _), = fwd_log
+    a3 = ([f.detach() for f in a3[0]],) + tuple(a3[1:])
+    got = k3.roi_align(*a3, **kw3)
+    ref = k3.roi_align_plain(*a3, **kw3)
+    k3_err = float((got.float() - ref.float()).abs().max())
+    if got.dtype != bf16 or k3_err != 0.0:
+        fail(f"K3 bf16_bf16 at the bf16 train step's RoIs: {got.dtype}, "
+             f"{k3_err} from its plain version")
+    k3_step = {"shape": list(got.shape), "max_abs_err": k3_err,
+               **event_times(torch, {
+                   "": lambda: k3.roi_align(*a3, **kw3),
+                   "plain_": lambda: k3.roi_align_plain(*a3, **kw3)},
+                   cold=True)}
+    del got, ref, fwd_log
+    k3b_step, k3b_fns = roi_backward_on_step(torch, k3, bwd_log)
+    print("K3 bf16_bf16 at the bf16 step's RoIs:", json.dumps(k3_step),
+          "K3b bf16 on its inputs:", json.dumps(k3b_step), flush=True)
+    (g, shapes, boxes, levels, strides), _, _ = bwd_log[0]
+    del bwd_log
+    n_bytes = (g.numel() * 2 + sum(int(np.prod(s)) * 2 for s in shapes) +
+               boxes.numel() * 4 + levels.numel() * 4)
+    b, by = bound_ms(n_bytes, flops=9.0 * k3b_step["inside_samples"] *
+                     shapes[0][-1])
+    k3b_rec = dict(
+        name="roi_align_backward_bf16", route="cuda",
+        source="stlpose_tpu_torch/kernels/csrc/roi_align_backward.cu",
+        replaces="stlpose_tpu/ops/roi_align.py:143 (no Pallas original: "
+                 "the VJP of multilevel_roi_align in bf16, differentiated "
+                 "at stlpose_tpu/models/faster_rcnn.py:515-517)",
+        instantiation="bf16", max_abs_err=k3b_step["max_abs_err"],
+        tolerance="one bf16 step of each plain element, or K3B_REL_TOL "
+                  "of the maps' max abs where the f32 sums' order moves "
+                  "an element by more",
+        share_within_one_step=k3b_step["share_within_one_step"],
+        beyond_one_step_max_abs=k3b_step["beyond_one_step_max_abs"],
+        bf16_steps_max=k3b_step["bf16_steps_max"],
+        share_equal=k3b_step["share_equal"],
+        run_to_run_max_abs=k3b_step["run_to_run_max_abs"],
+        bound_ms=b, bound_by=by, bytes=n_bytes,
+        inside_samples=k3b_step["inside_samples"],
+        library="none (torchvision, whose roi_align has a backward, is "
+                "not on the card's machine)", library_events_ms=None,
+        shape=[*boxes.shape[:2], shapes[0][-1], *[s[1] for s in shapes]],
+        **{k: v for k, v in k3b_step.items() if "events_ms" in k})
+    k3b_fns = {**k3b_fns, "library_": None}
+
+    vs_plain = detector_step_vs_plain(torch, mods, start, batches[2],
+                                      args.seed + 71, f32_base=base)
+    det32 = copy.deepcopy(base)
+    state32 = mods["create_train_state"](det32, exp_t)
+    step(state32, batches[0], gen)                 # warm-up
+    bt = batches[3]
+    step_ms = in_turns(torch, {
+        "f32": lambda: step(state32, bt, gen),
+        "bf16": lambda: step(state, bt, gen)}, 5, timer=elapsed_ms)
+    fwd_ms = in_turns(torch, {
+        "f32": lambda: det32.loss_fn(bt, gen),
+        "bf16": lambda: det.loss_fn(bt, gen)}, 5, timer=elapsed_ms)
+    drift = term_drift(torch, start, base, bt, args.seed + 73)
+    del det32, state32
+    frcnn = {
+        "config": "faster_rcnn (ResNet-50-FPN, C = 256, 400x400), bf16 on "
+                  "f32 masters", "batch": DET_B,
+        "train_step_metrics": metrics, "metric_dtypes": dtypes,
+        "launches_per_step": {k: v for k, v in n.items() if v},
+        "kernels_vs_plain": vs_plain, "k3_bf16_at_step_rois": k3_step,
+        "roi_backward_on_step": k3b_step, "ms_per_step": step_ms,
+        "samples_per_s": {k: DET_B / v * 1e3 for k, v in step_ms.items()},
+        "forward_loss_ms": fwd_ms,
+        "backward_update_ms": {k: step_ms[k] - fwd_ms[k] for k in step_ms},
+        "term_drift_from_f32": drift}
+    print("bf16 Faster R-CNN training:", json.dumps(frcnn), flush=True)
+
+    ecfg = mods["EFFICIENTDET_D0"]
+    ebase = seeded_efficientdet(torch, mods, ecfg, dev, args.seed + 74)
+    ebatches = detection_batches(mods, canvases, data, ecfg.image_size, dev)
+    edet = mods["EfficientDet"](ecfg, dev, dtype=bf16,
+                                param_dtype=torch.float32)
+    edet.load_state_dict(ebase.state_dict())
+    estart = copy.deepcopy(edet)
+    e32 = copy.deepcopy(ebase)
+    estate = mods["create_train_state"](edet, exp_t)
+    estate32 = mods["create_train_state"](e32, exp_t)
+    step(estate, ebatches[0])                      # warm-up
+    step(estate32, ebatches[0])
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in edet.named_parameters()}
+    reset_counts(mods)
+    em = step(estate, ebatches[1])
+    torch.cuda.synchronize()
+    launches["efficientdet_training_bf16"] = launch_counts(mods)
+    edtypes = {k: str(v.dtype).replace("torch.", "") for k, v in em.items()}
+    em = {k: float(v) for k, v in em.items()}
+    if not all(np.isfinite(v) for v in em.values()) or em["finite"] != 1.0 \
+            or any(v != "float32" for v in edtypes.values()):
+        fail(f"bf16 EfficientDet train step: {em}, dtypes {edtypes}")
+    masters_check(torch, edet, before, "bf16 EfficientDet train step",
+                  all_move=False)
+    e_ms = in_turns(torch, {
+        "f32": lambda: step(estate32, ebatches[2]),
+        "bf16": lambda: step(estate, ebatches[2])}, 5, timer=elapsed_ms)
+    effdet = {"config": "EFFICIENTDET_D0 (512x512), bf16 on f32 masters",
+              "batch": DET_B, "train_step_metrics": em,
+              "metric_dtypes": edtypes, "ms_per_step": e_ms,
+              "samples_per_s": {k: DET_B / v * 1e3 for k, v in e_ms.items()},
+              "term_drift_from_f32": term_drift(torch, estart, ebase,
+                                                ebatches[3], args.seed + 75)}
+    print("bf16 EfficientDet-D0 training:", json.dumps(effdet), flush=True)
+    del ebase, edet, estart, e32, estate, estate32, ebatches
+
+    def bf16_masters(trainer, logs):
+        ck = mods["checkpoint_path"](trainer.exp_path, "final",
+                                     detector=True) + ".pt"
+        sd = torch.load(ck, map_location="cpu",
+                        weights_only=True)["model_state_dict"]
+        return {"02 trains bf16 on f32 masters":
+                trainer.detector.dtype == bf16 and all(
+                    p.dtype == torch.float32
+                    for p in trainer.detector.parameters()),
+                "the final checkpoint holds f32 tensors": all(
+                    v.dtype == torch.float32 for k, v in sd.items()
+                    if not k.endswith("num_batches_tracked"))}
+
+    launches["detector_cli_bf16"], cli = detector_cli(
+        torch, mods, tmp, "detector_cli_bf16", canvases, data, DET_CONFIG,
+        [], ("roi_align_bf16_bf16", "roi_align_backward_bf16",
+             "box_nms_topk"), bf16_masters, epochs=1,
+        env={"STLPOSE_DTYPE": "bfloat16"})
+    summary = {"faster_rcnn": frcnn, "efficientdet_d0": effdet, "cli": cli,
+               "phase_s": time.time() - t0}
+    print("bf16 detector training:", json.dumps(
+        {"cli": cli, "phase_s": summary["phase_s"]}), flush=True)
+    return launches, summary, ((lambda: step(state, bt, gen)),
+                               step_ms["bf16"]), (k3b_rec, k3b_fns), k3_step
 
 
 # ------------------------------------------------------ EfficientDet (5g)
@@ -4896,13 +5256,7 @@ def effdet_cli(torch, mods, dev, args, tmp, base):
     cfg = base.config
     data = os.path.join(tmp, "effdet_detection_data")
     canvases = detection_dataset(data, args.seed + 62)
-    exp = mods["default_experiment_args"]()
-    exp["training"]["batch_size"] = DET_B
-    exp["dataset"]["image_size"] = cfg.image_size
-    with detection_canvases_in_memory(mods, canvases):
-        pipe = mods["get_detection_dataset"](exp, "train", data_path=data,
-                                             num_workers=4, device=dev)
-        batches = [mods["detector_device_batch"](b, dev) for b in pipe]
+    batches = detection_batches(mods, canvases, data, cfg.image_size, dev)
     vs_plain = detector_step_vs_plain(torch, mods, base, batches[0],
                                       args.seed + 63)
     det = copy.deepcopy(base)
@@ -6045,9 +6399,17 @@ def main():
                                                         args, tmp)
     style["card"] = card
     with tempfile.TemporaryDirectory() as tmp:
-        det_launches, det_train, (det_step, det_step_ms) = \
+        det_launches, det_train, (det_step, det_step_ms), det_data = \
             detector_train_path(torch, mods, dev, args, tmp)
+        (bf16_launches, det_bf16, (bf16_step, bf16_step_ms), k3b_bf16,
+         k3_bf16_step) = detector_bf16_path(torch, mods, dev, args, tmp,
+                                            det_data)
+        del det_data
     det_train["card"] = card
+    det_bf16["card"] = card
+    checks.append(k3b_bf16)
+    next(k for k, _ in checks if k["name"] == "roi_align_bf16_bf16")[
+        "bf16_train_step_rois"] = k3_bf16_step
     next(k for k, _ in checks if k["name"] == "box_nms_topk")["shapes"][
         "train_parity"] = det_train["parity"]["nms_check"]
     next(k for k, _ in checks if k["name"] == "roi_align_backward")[
@@ -6094,6 +6456,7 @@ def main():
                    "trainer": trainer_launches[k["name"]],
                    "style": style_launches[k["name"]],
                    **{p: n[k["name"]] for p, n in det_launches.items()},
+                   **{p: n[k["name"]] for p, n in bf16_launches.items()},
                    "retrieval": ret_launches[k["name"]],
                    **{p: n[k["name"]] for p, n in effdet_launches.items()},
                    **{f"serving_export_{p}": n[k["name"]]
@@ -6174,6 +6537,14 @@ def main():
                 "roi_backward_gather_kernel", "nms_sort_kernel",
                 "nms_mask_kernel", "nms_scan_kernel"))
     del det_step
+    det_bf16["profile"] = profile_program(
+        torch, bf16_step, bf16_step_ms, args.out,
+        f"one bf16 detector train step (B = {DET_B}, ResNet-50-FPN, bf16 "
+        "on f32 masters)",
+        expect=("roi_align_kernel", "roi_backward_footprint_kernel",
+                "roi_backward_gather_kernel", "nms_sort_kernel",
+                "nms_mask_kernel", "nms_scan_kernel"))
+    del bf16_step
 
     effdet["profile"] = profile_program(
         torch, effdet_call, effdet_ms, args.out,
@@ -6203,6 +6574,7 @@ def main():
                       "training": train,
                       "eval": evaluation, "trainer": trainer,
                       "style": style, "detector_training": det_train,
+                      "detector_training_bf16": det_bf16,
                       "retrieval": retrieval, "efficientdet": effdet,
                       "serving_export": serving_export}))
     print(json.dumps({"ok": True, "device": {

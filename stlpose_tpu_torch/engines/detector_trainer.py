@@ -16,7 +16,10 @@ One device, ``device`` ("cuda" unless the caller asks for the CPU). The
 serving flavors are arguments, where the JAX factory and detector read
 ``STLPOSE_DTYPE``, ``STLPOSE_FRCNN_TRUNK_QUANT`` and
 ``STLPOSE_PALLAS_ROI_INT8``; the scripts read those names and pass them
-on. Training runs the live trunk in f32. ``DetectorEvaluator`` serves
+on. Training runs the live trunk on f32 weights, computing in the
+trainer's ``dtype`` (f32, or bf16 on f32 master weights as the reference
+trains under ``STLPOSE_DTYPE=bfloat16``); its checkpoints hold f32
+weights either way. ``DetectorEvaluator`` serves
 every trunk flavor: live, folded, and the int8 PTQ trunks, calibrated on
 the first validation batch. Both reference families build here: Faster
 R-CNN and EfficientDet (``efficientdet`` with ``model.detector_type`` d0
@@ -80,11 +83,13 @@ DETECTOR_CONFIGS = {
 
 def build_detector(exp_data: dict, config_name: str | None = None, *,
                    dtype=torch.float32, trunk_quant: str = "none",
-                   roi_patch_quant: bool = False, device="cuda"):
+                   roi_patch_quant: bool = False, device="cuda",
+                   param_dtype=None):
     """(detector, config) for ``config_name``, or the experiment's
     ``model.detector_name`` (with ``model.detector_type`` d0/d3 naming an
     EfficientDet), built on ``device`` in the given flavor with the
-    default initialisation of its modules. ``trunk_quant`` and
+    default initialisation of its modules; ``param_dtype`` stores its
+    weights (None: ``dtype``; float32 to train). ``trunk_quant`` and
     ``roi_patch_quant`` are Faster R-CNN flavors: EfficientDet has no
     ResNet trunk and no RoIAlign, and refuses them."""
     name = config_name or exp_data["model"].get("detector_name",
@@ -98,24 +103,26 @@ def build_detector(exp_data: dict, config_name: str | None = None, *,
     cfg = DETECTOR_CONFIGS[name]
     if isinstance(cfg, FasterRCNNConfig):
         return FasterRCNN(cfg, device, dtype, roi_patch_quant,
-                          trunk_quant), cfg
+                          trunk_quant, param_dtype), cfg
     if trunk_quant != "none" or roi_patch_quant:
         raise ValueError(
             f"Detector '{name}': trunk_quant={trunk_quant!r} and "
             f"roi_patch_quant={roi_patch_quant!r} are Faster R-CNN flavors; "
             "EfficientDet serves only in its dtype")
-    return EfficientDet(cfg, device, dtype), cfg
+    return EfficientDet(cfg, device, dtype, param_dtype), cfg
 
 
 def live_template_detector(exp_data: dict, detector_config=None,
-                           device="cuda"):
-    """``build_detector``'s (detector, config) with the live f32 trunk,
-    its weights from the experiment's seed: checkpoints hold live-BN
-    weights, so they are restored into this template even when serving
-    wants another flavor."""
+                           device="cuda", dtype=torch.float32):
+    """``build_detector``'s (detector, config) with the live trunk on f32
+    weights computing in ``dtype`` (the trained detector), its weights
+    from the experiment's seed: checkpoints hold live-BN f32 weights, so
+    they are restored into this template even when serving wants another
+    flavor."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(CONFIG["random_seed"])
-        return build_detector(exp_data, detector_config, device=device)
+        return build_detector(exp_data, detector_config, device=device,
+                              dtype=dtype, param_dtype=torch.float32)
 
 
 def apply_trunk_flavor(detector, det_cfg, state_dict, calib_batch_fn=None):
@@ -159,14 +166,18 @@ def _device_batch(batch, device) -> dict:
 
 
 class DetectorTrainer:
-    """Engine behind 02_train_faster_rcnn.py, on ``device``."""
+    """Engine behind 02_train_faster_rcnn.py, on ``device``, training in
+    ``dtype`` (float32, or bfloat16 on f32 master weights; validation
+    predicts in it too)."""
 
     def __init__(self, exp_path: str, checkpoint=None,
                  resume_training: bool = False, dataset_name=None,
                  data_path=None, num_workers=None,
                  use_perceptual_loss: bool = False,
-                 detector_config: str | None = None, device="cuda"):
+                 detector_config: str | None = None, device="cuda",
+                 dtype=torch.float32):
         self.device = resolve_device(device)
+        self.dtype = dtype
         self.exp_path = exp_path
         self.exp_data = load_experiment_parameters(exp_path)
         if dataset_name:
@@ -180,9 +191,9 @@ class DetectorTrainer:
         self.cur_epoch = 0
 
     def load_dataset(self):
-        """The detector (live f32 trunk, weights from the experiment's
-        seed) and the train and valid detection pipelines at its canvas
-        size."""
+        """The detector (live trunk, f32 weights from the experiment's seed,
+        computing in the trainer's dtype) and the train and valid
+        detection pipelines at its canvas size."""
         ploss = None
         try:
             ploss = load_perceptual_loss_dict(
@@ -191,7 +202,7 @@ class DetectorTrainer:
         except FileNotFoundError as e:
             print_(str(e), type="warning")
         self.detector, self.det_cfg = live_template_detector(
-            self.exp_data, self.detector_config, self.device)
+            self.exp_data, self.detector_config, self.device, self.dtype)
         kw = dict(num_workers=self.num_workers, data_path=self.data_path,
                   device=self.device)
         self.train_pipe = _detection_pipeline(

@@ -1,5 +1,8 @@
 // K3b: the gradient of multilevel FPN RoIAlign with respect to the feature
-// maps, for Hopper (sm_90a): a deterministic gather, no atomics.
+// maps, for Hopper (sm_90a): a deterministic gather, no atomics. Two
+// instantiations: f32 (f32 pooled gradient, f32 maps' gradient) and bf16
+// (bf16 pooled gradient, bf16 maps' gradient), the backward of K3's
+// f32_f32 and bf16_bf16.
 //
 // Has no Pallas original: the JAX package differentiates XLA's
 // stlpose_tpu/ops/roi_align.py::multilevel_roi_align (:143) by autodiff
@@ -41,10 +44,19 @@
 //    registers. Each pixel is stored once; pixels that no box reaches get
 //    0, so the maps need no zero fill.
 //
+// The bf16 instantiation loads the pooled gradient packed (8 elements to
+// a 16-byte word, the next bin's word in flight while a bin is summed)
+// and widens each element to f32 (exact) where the walk reads it, runs
+// the f32 instantiation's operations in the same order, and rounds each
+// map element once to bf16 (nearest even) at its store: its result is
+// the f32 instantiation's on the widened gradient, rounded once. It reads
+// and writes half the f32 instantiation's bytes.
+//
 // On an H100 (NVIDIA H100 80GB HBM3, 700 W) it is bound by the latency of
 // that walk and its per-sample bookkeeping, not by bytes: several times
-// its byte bound (chip_smoke.py's K3b record).
+// its byte bound (chip_smoke.py's K3b records).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,7 +73,7 @@ constexpr int kBatch = 32;       // kept boxes whose samples are staged
 constexpr int kPrepassThreads = 128;
 
 struct Levels {
-  float* grad[kMaxLevels];
+  void* grad[kMaxLevels];  // float or __nv_bfloat16, the gradient's type
   int h[kMaxLevels];
   int w[kMaxLevels];
   float scale[kMaxLevels];
@@ -133,8 +145,9 @@ __global__ void __launch_bounds__(kPrepassThreads)
   level_out[box] = hi[0] < 0 || hi[1] < 0 ? -1 : l;
 }
 
-// VEC adjacent channels of one pixel: load (from g, read-only) and add
-// v * w to a thread's sums, one rounding per product and per sum.
+// VEC adjacent channels of one pixel: load f32 (from g, read-only), add
+// v * w to a thread's sums (one rounding per product and per sum), and
+// store the sums (rounded once to the map's type).
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
   if constexpr (VEC % 4 == 0) {
@@ -148,6 +161,78 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
     }
   } else {
     v[0] = __ldg(p);
+  }
+}
+
+// VEC adjacent elements of the pooled gradient as loaded: load() issues
+// the loads and at(e) first reads their registers, so that a bin's load
+// stays in flight while the walk sums the bin before it. f32 elements are
+// loaded as they are; bf16 ones stay packed (8 to a 16-byte word) until
+// at(e) widens one, exactly: a bf16 value is the upper half of the f32
+// of the same value.
+template <typename T, int VEC>
+struct Pooled;
+
+template <int VEC>
+struct Pooled<float, VEC> {
+  float v[VEC];
+  __device__ __forceinline__ void load(const float* p) { load_vec<VEC>(p, v); }
+  __device__ __forceinline__ float at(int e) const { return v[e]; }
+};
+
+template <int VEC>
+struct Pooled<__nv_bfloat16, VEC> {
+  static_assert(VEC == 1 || VEC % 8 == 0, "8 bf16 elements to a word");
+  uint4 q[VEC / 8 > 0 ? VEC / 8 : 1];
+  unsigned short one;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    if constexpr (VEC % 8 == 0) {
+#pragma unroll
+      for (int i = 0; i < VEC / 8; ++i)
+        q[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    } else {
+      one = __ldg(reinterpret_cast<const unsigned short*>(p));
+    }
+  }
+  __device__ __forceinline__ float at(int e) const {
+    if constexpr (VEC % 8 == 0) {
+      const uint4& w = q[e / 8];
+      const int k = (e % 8) / 2;
+      const unsigned u = k == 0 ? w.x : k == 1 ? w.y : k == 2 ? w.z : w.w;
+      return __uint_as_float(e % 2 == 0 ? u << 16 : u & 0xffff0000u);
+    } else {
+      return __uint_as_float((unsigned)one << 16);
+    }
+  }
+};
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* dst, const float (&a)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 4; ++i)
+      reinterpret_cast<float4*>(dst)[i] =
+          make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+  } else {
+    dst[0] = a[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst,
+                                          const float (&a)[VEC]) {
+  if constexpr (VEC % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC / 8; ++i) {
+      uint4 t;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        h[j] = __floats2bfloat162_rn(a[8 * i + 2 * j], a[8 * i + 2 * j + 1]);
+      reinterpret_cast<uint4*>(dst)[i] = t;
+    }
+  } else {
+    dst[0] = __float2bfloat16_rn(a[0]);
   }
 }
 
@@ -204,18 +289,19 @@ struct BinWalk {
   }
 
   // The bin's pooled gradient for channel c of box `box`.
-  __device__ __forceinline__ const float* at(const float* grad_out, int box,
-                                             int C, int c) const {
+  template <typename T>
+  __device__ __forceinline__ const T* at(const T* grad_out, int box, int C,
+                                         int c) const {
     return grad_out + ((long long)box * kBins + by * kOut + bx) * C + c;
   }
 };
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
     roi_backward_gather_kernel(Levels lv, int L, int C, const float* boxes,
                                int P, const int4* __restrict__ range,
                                const int* __restrict__ level_of,
-                               const float* __restrict__ grad_out) {
+                               const T* __restrict__ grad_out) {
   __shared__ int2 s_taps[kBatch][2 * kNs];  // x samples, then y samples
   __shared__ float2 s_w[kBatch][2 * kNs];   // tap weights (1 - f, f)
   __shared__ Ranges s_rng[kBatch];
@@ -290,16 +376,15 @@ __global__ void __launch_bounds__(kThreads)
       // summed
       BinWalk cur;
       bool more = has_c && cur.first(s_rng, warp, 0, nb);
-      float vn[VEC];
-      if (more) load_vec<VEC>(cur.at(grad_out, s_box[k0 + cur.k], C, c), vn);
+      Pooled<T, VEC> vn;
+      if (more) vn.load(cur.at(grad_out, s_box[k0 + cur.k], C, c));
       while (more) {
         const BinWalk it = cur;
         float v[VEC];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) v[e] = vn[e] * 0.25f;
+        for (int e = 0; e < VEC; ++e) v[e] = vn.at(e) * 0.25f;
         more = cur.next(s_rng, warp, nb);
-        if (more)
-          load_vec<VEC>(cur.at(grad_out, s_box[k0 + cur.k], C, c), vn);
+        if (more) vn.load(cur.at(grad_out, s_box[k0 + cur.k], C, c));
         const int k = it.k;
         const int2 xr = s_rng[k][warp], yr = s_rng[k][kTile];
         const int sxa = max(xr.x, kSr * it.bx);
@@ -330,38 +415,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (!has_c || px >= W) return;
-  float* dst = pick(lv.grad, l) + (((long long)img * H + py) * W + px) * C + c;
-  if constexpr (VEC % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < VEC / 4; ++i)
-      reinterpret_cast<float4*>(dst)[i] = make_float4(
-          acc[4 * i], acc[4 * i + 1], acc[4 * i + 2], acc[4 * i + 3]);
-  } else {
-    dst[0] = acc[0];
-  }
+  T* dst = static_cast<T*>(pick(lv.grad, l)) +
+           (((long long)img * H + py) * W + px) * C + c;
+  store_vec<VEC>(dst, acc);
 }
 
-}  // namespace
-
-// Bytes of the scratch that roi_align_backward_f32 takes for n_boxes boxes.
-extern "C" long long roi_align_backward_scratch_bytes(int n_boxes) {
-  return (long long)n_boxes * (sizeof(int4) + sizeof(int));
-}
-
-// d_maps (B, h_l, w_l, C) f32 per level, every element written: the
-// gradient of K3's f32 pooling of boxes (B, P, 4) at levels (B, P) int32,
-// from grad_out (B, P, 7, 7, C) f32; scratch of
-// roi_align_backward_scratch_bytes(B * P) bytes, 16-byte aligned. Two
-// launches. Returns a cudaError_t.
-extern "C" int roi_align_backward_f32(
-    void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1, int w1,
-    int h2, int w2, int h3, int w3, float s0, float s1, float s2, float s3,
-    int L, int C, const float* boxes, const int* levels, int B, int P,
-    const float* grad_out, void* scratch, void* stream) {
+// Both launches of one call, the maps' gradient and the pooled gradient of
+// type T.
+template <typename T>
+int roi_align_backward(void* g0, void* g1, void* g2, void* g3, int h0,
+                       int w0, int h1, int w1, int h2, int w2, int h3, int w3,
+                       float s0, float s1, float s2, float s3, int L, int C,
+                       const float* boxes, const int* levels, int B, int P,
+                       const T* grad_out, void* scratch, void* stream) {
   if (B == 0 || C == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  Levels lv{{static_cast<float*>(g0), static_cast<float*>(g1),
-             static_cast<float*>(g2), static_cast<float*>(g3)},
+  Levels lv{{g0, g1, g2, g3},
             {h0, h1, h2, h3},
             {w0, w1, w2, w3},
             {s0, s1, s2, s3}};
@@ -387,12 +456,48 @@ extern "C" int roi_align_backward_f32(
   const int vec = C % 8 == 0 ? 8 : 1;
   const dim3 grid((unsigned)(tiles * B), (C + 32 * vec - 1) / (32 * vec));
   if (vec == 8)
-    roi_backward_gather_kernel<8><<<grid, kThreads, 0, s>>>(
+    roi_backward_gather_kernel<T, 8><<<grid, kThreads, 0, s>>>(
         lv, L, C, boxes, P, range, level_of, grad_out);
   else
-    roi_backward_gather_kernel<1><<<grid, kThreads, 0, s>>>(
+    roi_backward_gather_kernel<T, 1><<<grid, kThreads, 0, s>>>(
         lv, L, C, boxes, P, range, level_of, grad_out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Bytes of the scratch that roi_align_backward_{f32,bf16} take for n_boxes
+// boxes.
+extern "C" long long roi_align_backward_scratch_bytes(int n_boxes) {
+  return (long long)n_boxes * (sizeof(int4) + sizeof(int));
+}
+
+// d_maps (B, h_l, w_l, C) f32 per level, every element written: the
+// gradient of K3's f32 pooling of boxes (B, P, 4) at levels (B, P) int32,
+// from grad_out (B, P, 7, 7, C) f32; scratch of
+// roi_align_backward_scratch_bytes(B * P) bytes, 16-byte aligned. Two
+// launches. Returns a cudaError_t.
+extern "C" int roi_align_backward_f32(
+    void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1, int w1,
+    int h2, int w2, int h3, int w3, float s0, float s1, float s2, float s3,
+    int L, int C, const float* boxes, const int* levels, int B, int P,
+    const float* grad_out, void* scratch, void* stream) {
+  return roi_align_backward<float>(g0, g1, g2, g3, h0, w0, h1, w1, h2, w2,
+                                   h3, w3, s0, s1, s2, s3, L, C, boxes,
+                                   levels, B, P, grad_out, scratch, stream);
+}
+
+// The same with grad_out (B, P, 7, 7, C) bf16 and d_maps bf16: the
+// gradient of K3's bf16_bf16 pooling, summed in f32 and rounded once.
+extern "C" int roi_align_backward_bf16(
+    void* g0, void* g1, void* g2, void* g3, int h0, int w0, int h1, int w1,
+    int h2, int w2, int h3, int w3, float s0, float s1, float s2, float s3,
+    int L, int C, const float* boxes, const int* levels, int B, int P,
+    const void* grad_out, void* scratch, void* stream) {
+  return roi_align_backward<__nv_bfloat16>(
+      g0, g1, g2, g3, h0, w0, h1, w1, h2, w2, h3, w3, s0, s1, s2, s3, L, C,
+      boxes, levels, B, P, static_cast<const __nv_bfloat16*>(grad_out),
+      scratch, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

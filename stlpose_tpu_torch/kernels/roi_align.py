@@ -25,21 +25,27 @@ The level of each box is an input: the caller computes it once
 (``ops/roi_align.py::_assign_levels``) and hands the same vector to either
 version, since a level flip is a large error, not a rounding one.
 
-K3b (``csrc/roi_align_backward.cu``) is the gradient of the f32
-instantiation with respect to the maps, for detector training. It has no
-Pallas original: the JAX package differentiates XLA's
-``stlpose_tpu/ops/roi_align.py::multilevel_roi_align`` by autodiff.
-``roi_align_backward`` launches it for CUDA tensors (f32 only) and runs
-``roi_align_backward_plain``, the autograd of ``roi_align_plain``, for CPU
-tensors; ``BACKWARD_LAUNCHES`` counts its wrapper calls. It is a
+K3b (``csrc/roi_align_backward.cu``) is the gradient of the f32_f32 and
+bf16_bf16 instantiations with respect to the maps, for detector training
+in f32 and in bf16. It has no Pallas original: the JAX package
+differentiates XLA's ``stlpose_tpu/ops/roi_align.py::multilevel_roi_align``
+by autodiff. ``roi_align_backward`` launches the instantiation of the
+gradient's dtype for CUDA tensors and runs ``roi_align_backward_plain``,
+the autograd of ``roi_align_plain`` on the gradient widened to f32, rounded
+once to the gradient's dtype, for CPU tensors; ``BACKWARD_LAUNCHES``
+counts its wrapper calls, ``BACKWARD_LAUNCHES_BY_TYPE`` those of each
+instantiation. The bf16 one sums in f32 and rounds each map element once,
+so it returns bf16 itself and writes half the f32 one's bytes. It is a
 deterministic gather with no atomics, two launches a call: a pre-pass
 gives each box the pixel range of its taps on its level (its taps fall
 on at most 28 columns and 28 rows), then a block per (image, level, 8
 pixels of a row) keeps the boxes whose range reaches them, and a warp
 per pixel sums the pixel's contributions in registers (8 channels a
 lane) in a fixed order (box index, bin, sample, tap) and writes each
-element once: the same bits on every run, and no zero fill. ``RoIAlignFunction`` ties the two into autograd:
-forward K3 ``f32_f32``, backward K3b; boxes and levels get no gradient.
+element once: the same bits on every run, and no zero fill.
+``RoIAlignFunction`` ties the two into autograd: forward K3 ``f32_f32`` or
+``bf16_bf16``, backward K3b of the same type; boxes and levels get no
+gradient.
 """
 
 from __future__ import annotations
@@ -63,6 +69,9 @@ VARIANTS = {(torch.float32, torch.float32): "f32_f32",
             (torch.int8, torch.float32): "i8_f32",
             (torch.int8, torch.bfloat16): "i8_bf16"}
 LAUNCHES_BY_TYPE = dict.fromkeys(VARIANTS.values(), 0)
+# gradient dtype -> K3b instantiation
+BACKWARD_VARIANTS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+BACKWARD_LAUNCHES_BY_TYPE = dict.fromkeys(BACKWARD_VARIANTS.values(), 0)
 
 
 def _variant(level_dtype, out_dtype, scales):
@@ -226,33 +235,43 @@ def roi_align(feature_levels, boxes, levels, strides, scales=None,
               [float(s) for s in strides], scales, out_dtype)
 
 
+def _backward_variant(grad):
+    name = BACKWARD_VARIANTS.get(grad.dtype)
+    if name is None:
+        raise ValueError(f"roi_align_backward: float32 or bfloat16 "
+                         f"gradients only, got {grad.dtype}")
+    return name
+
+
 def roi_align_backward_plain(grad, level_shapes, boxes, levels, strides):
     """Plain PyTorch version of K3b: the gradient of
     ``roi_align_plain(maps, boxes, levels, strides)`` (f32 maps, f32 out)
-    with respect to the maps, by autograd. grad (B, P, 7, 7, C) f32;
-    level_shapes: the (B, h_l, w_l, C) of each level. Returns one f32 map
-    per level. The function is linear in the maps, so its gradient does
-    not depend on their values."""
-    if grad.dtype != torch.float32:
-        raise ValueError(f"roi_align_backward: float32 gradients only, got "
-                         f"{grad.dtype}")
+    with respect to the maps, by autograd, on ``grad`` widened to f32,
+    rounded once to ``grad``'s dtype. grad (B, P, 7, 7, C) float32 or
+    bfloat16; level_shapes: the (B, h_l, w_l, C) of each level. Returns
+    one map per level in ``grad``'s dtype. The function is linear in the
+    maps, so its gradient does not depend on their values (nor on their
+    dtype: K3 widens bf16 taps to f32 exactly)."""
+    _backward_variant(grad)
     with torch.enable_grad():
         maps = [torch.zeros(tuple(s), dtype=torch.float32,
                             device=grad.device, requires_grad=True)
                 for s in level_shapes]
         out = roi_align_plain(maps, boxes, levels, strides)
-        grads = torch.autograd.grad(out, maps, grad, allow_unused=True)
+        grads = torch.autograd.grad(out, maps, grad.float(),
+                                    allow_unused=True)
     # a level that no box reads has no gradient: zeros
-    return [torch.zeros_like(m) if g is None else g
+    return [(torch.zeros_like(m) if g is None else g).to(grad.dtype)
             for m, g in zip(maps, grads)]
 
 
 def roi_align_backward(grad, level_shapes, boxes, levels, strides):
-    """K3b: the gradient of K3's f32 pooling with respect to the maps; see
-    ``roi_align_backward_plain`` for the contract. On the card: float32
-    CUDA grad (B, P, 7, 7, C), boxes (B, P, 4) and levels (B, P) on the
-    same device, 1-4 levels; two kernel launches, every map element
-    written by the second."""
+    """K3b: the gradient of K3's f32_f32 or bf16_bf16 pooling with respect
+    to the maps; see ``roi_align_backward_plain`` for the contract. On the
+    card: float32 or bfloat16 CUDA grad (B, P, 7, 7, C), float32 boxes
+    (B, P, 4) and levels (B, P) on the same device, 1-4 levels; two kernel
+    launches of the gradient's instantiation, every map element written
+    by the second, in the gradient's dtype."""
     if boxes.device.type == "cpu":
         return roi_align_backward_plain(grad, level_shapes, boxes, levels,
                                         strides)
@@ -268,9 +287,7 @@ def roi_align_backward(grad, level_shapes, boxes, levels, strides):
         raise ValueError("roi_align_backward: expected float32 CUDA boxes "
                          "(B, P, 4), levels (B, P) and grad (B, P, 7, 7, C) "
                          "on one device")
-    if grad.dtype != torch.float32:
-        raise ValueError(f"roi_align_backward: float32 gradients only, got "
-                         f"{grad.dtype}")
+    variant = _backward_variant(grad)
     if not 1 <= L <= MAX_LEVELS or len(strides) < L or any(
             len(s) != 4 or s[0] != B or s[-1] != C for s in level_shapes):
         raise ValueError(f"roi_align_backward: 1..{MAX_LEVELS} levels of "
@@ -278,7 +295,7 @@ def roi_align_backward(grad, level_shapes, boxes, levels, strides):
     grad = grad.contiguous()
     boxes = boxes.contiguous()
     lv32 = levels.to(torch.int32).contiguous()
-    maps = [torch.empty(tuple(s), dtype=torch.float32, device=dev)
+    maps = [torch.empty(tuple(s), dtype=grad.dtype, device=dev)
             for s in level_shapes]
     scratch_bytes = _build.function(
         "roi_align_backward", "roi_align_backward_scratch_bytes", [I32],
@@ -291,7 +308,7 @@ def roi_align_backward(grad, level_shapes, boxes, levels, strides):
         hw += ([level_shapes[i][1], level_shapes[i][2]] if i < L else [0, 0])
     inv = [1.0 / s for s in strides[:L]] + [0.0] * (MAX_LEVELS - L)
     launch = _build.launcher(
-        "roi_align_backward", "roi_align_backward_f32",
+        "roi_align_backward", f"roi_align_backward_{variant}",
         [P] * MAX_LEVELS + [I32] * (2 * MAX_LEVELS) + [F32] * MAX_LEVELS +
         [I32] * 2 + [P] * 2 + [I32] * 2 + [P] * 3)
     with torch.cuda.device(dev):
@@ -299,26 +316,30 @@ def roi_align_backward(grad, level_shapes, boxes, levels, strides):
                B, NB, grad.data_ptr(), scratch.data_ptr(),
                torch.cuda.current_stream().cuda_stream)
     BACKWARD_LAUNCHES += 1
+    BACKWARD_LAUNCHES_BY_TYPE[variant] += 1
     return maps
 
 
 class RoIAlignFunction(torch.autograd.Function):
-    """Multilevel RoIAlign of f32 maps with a gradient for the maps:
-    forward K3 ``f32_f32`` (``roi_align``), backward K3b
-    (``roi_align_backward``); each takes its plain version for CPU
-    tensors. ``apply(boxes, levels, strides, *maps)``; boxes and levels
-    get no gradient (the detector's proposals and ground truth are
-    constants of the loss)."""
+    """Multilevel RoIAlign of f32 or bf16 maps with a gradient for the
+    maps: forward K3 ``f32_f32`` or ``bf16_bf16`` (``roi_align``, the
+    output in the maps' dtype), backward K3b of the same type
+    (``roi_align_backward``, the maps' gradient in that dtype); each takes
+    its plain version for CPU tensors. ``apply(boxes, levels, strides,
+    *maps)``; boxes and levels get no gradient (the detector's proposals
+    and ground truth are constants of the loss)."""
 
     @staticmethod
     def forward(ctx, boxes, levels, strides, *feature_levels):
-        if any(f.dtype != torch.float32 for f in feature_levels):
-            raise ValueError("RoIAlignFunction: float32 maps only, got "
-                             f"{sorted({str(f.dtype) for f in feature_levels})}")
+        dtypes = {f.dtype for f in feature_levels}
+        if len(dtypes) != 1 or not dtypes <= set(BACKWARD_VARIANTS):
+            raise ValueError("RoIAlignFunction: float32 or bfloat16 maps of "
+                             f"one dtype only, got {sorted(map(str, dtypes))}")
         ctx.save_for_backward(boxes, levels)
         ctx.strides = tuple(strides)
         ctx.level_shapes = [tuple(f.shape) for f in feature_levels]
-        return roi_align(list(feature_levels), boxes, levels, strides)
+        return roi_align(list(feature_levels), boxes, levels, strides,
+                         out_dtype=feature_levels[0].dtype)
 
     @staticmethod
     def backward(ctx, grad):

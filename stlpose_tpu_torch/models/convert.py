@@ -237,8 +237,9 @@ def hrnet_from_jax(variables_np, config: HRNetConfig, device="cuda",
 def faster_rcnn_from_jax(variables_np, config: FasterRCNNConfig,
                          device="cuda", dtype=torch.float32,
                          roi_patch_quant: bool = False,
-                         trunk_quant: str = "none"):
-    """A fresh ``FasterRCNN`` holding the JAX detector's weights; with
+                         trunk_quant: str = "none", param_dtype=None):
+    """A fresh ``FasterRCNN`` holding the JAX detector's weights (stored in
+    ``param_dtype``, None: ``dtype``); with
     ``trunk_quant="folded"``, live-BatchNorm variables are folded first;
     with "int8" / "int8u", the variables are the JAX package's quantized
     ones (``quantize_frcnn_trunk``), which go in as they are."""
@@ -246,13 +247,15 @@ def faster_rcnn_from_jax(variables_np, config: FasterRCNNConfig,
     if _live_bn(variables_np) and trunk_quant == "folded":
         sd = flavored_state_dict(sd, trunk_quant)
     return load_strict(FasterRCNN(config, device, dtype, roi_patch_quant,
-                                  trunk_quant), sd)
+                                  trunk_quant, param_dtype), sd)
 
 
 def efficientdet_from_jax(variables_np, config: EfficientDetConfig,
-                          device="cuda", dtype=torch.float32):
-    """A fresh ``EfficientDet`` holding the JAX detector's parameters and
-    BatchNorm statistics, strictly (no key missing, none left over). The
+                          device="cuda", dtype=torch.float32,
+                          param_dtype=None):
+    """A fresh ``EfficientDet`` holding the JAX detector's parameters
+    (stored in ``param_dtype``, None: ``dtype``) and BatchNorm
+    statistics, strictly (no key missing, none left over). The
     BiFPN fusion weights (``bifpn_{l}/w_td_{i}``, ``w_bu_{i}``) are
     vectors held by the layer itself and go across as they are."""
     params, fusion = {}, {}
@@ -269,7 +272,7 @@ def efficientdet_from_jax(variables_np, config: EfficientDetConfig,
         {"params": params,
          "batch_stats": variables_np.get("batch_stats", {})})
     sd.update(fusion)
-    return load_strict(EfficientDet(config, device, dtype), sd)
+    return load_strict(EfficientDet(config, device, dtype, param_dtype), sd)
 
 
 def vgg_from_jax(variables_np, taps=(1, 3, 6, 9),

@@ -19,10 +19,13 @@ parameter names repeat the Flax tree (``backbone``, ``bifpn_{l}`` with
 its fusion weights ``w_td_{i}`` / ``w_bu_{i}``, ``classifier``,
 ``regressor``; the heads' per-level BatchNorms ``bn{r}_{level}``).
 
-``dtype=torch.bfloat16`` is the bf16 serving flavor, as the reference's
+``dtype=torch.bfloat16`` is the bf16 flavor, as the reference's
 ``EfficientDet(dtype=bfloat16)``: convolutions in bf16, BatchNorm, swish
 and the fast-attention fusion in f32, each layer's output cast back to
-bf16; the heads return bf16 and box decoding promotes to f32.
+bf16; the heads return bf16 and box decoding promotes to f32. Serving
+stores the convolutions in bf16; ``param_dtype=torch.float32`` keeps them
+as f32 masters, cast at each call (bf16 training: both loss terms and
+their sum in f32, as the reference's f32 targets promote them).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch.nn.functional as F
 from stlpose_tpu_torch import resolve_device
 from stlpose_tpu_torch.config import EFFICIENTDET_D0, EfficientDetConfig
 from stlpose_tpu_torch.models.efficientnet import (Conv2d, EfficientNet, bn,
-                                                   batch_norm, max_pool_same)
+                                                   max_pool_same)
 from stlpose_tpu_torch.models.faster_rcnn import bce_logits, gather_rows
 from stlpose_tpu_torch.models.hrnet import compute_in
 from stlpose_tpu_torch.ops.boxes import (box_iou, clip_boxes, decode_boxes,
@@ -109,11 +112,14 @@ class BiFPNLayer(nn.Module):
         w = w / (w.sum() + 1e-4)
         return sum(wi * x.to(w.dtype) for wi, x in zip(w, inputs))
 
-    def _conv_bn(self, conv, norm, x, dt):
-        return batch_norm(getattr(self, norm), getattr(self, conv)(x)).to(dt)
+    def _conv_bn(self, conv, norm, x):
+        """A convolution, then its BatchNorm (f32), rounded back to the
+        convolution's output dtype."""
+        h = getattr(self, conv)(x)
+        return getattr(self, norm)(h).to(h.dtype)
 
     def _down_channel(self, name, x):
-        return self._conv_bn(f"{name}_conv", f"{name}_bn", x, x.dtype)
+        return self._conv_bn(f"{name}_conv", f"{name}_bn", x)
 
     def forward(self, feats):
         if self.first_time:
@@ -128,7 +134,6 @@ class BiFPNLayer(nn.Module):
                         self._down_channel("dc5b", c5), p6, p7]
         else:
             residual = feats
-        dt = feats[0].dtype
         L = LEVELS
         td = [None] * L
         td[L - 1] = feats[L - 1]
@@ -136,7 +141,7 @@ class BiFPNLayer(nn.Module):
             fused = self._fuse([feats[i], _up(td[i + 1], feats[i])],
                                f"w_td_{i}")
             td[i] = self._conv_bn(f"conv_td_{i}", f"bn_td_{i}",
-                                  F.silu(fused), dt)
+                                  F.silu(fused))
         out = [None] * L
         out[0] = td[0]
         for i in range(1, L):
@@ -145,7 +150,7 @@ class BiFPNLayer(nn.Module):
                 ins = [residual[i], _down(out[i - 1], feats[i])]
             fused = self._fuse(ins, f"w_bu_{i}")
             out[i] = self._conv_bn(f"conv_bu_{i}", f"bn_bu_{i}",
-                                   F.silu(fused), dt)
+                                   F.silu(fused))
         return out
 
 
@@ -168,10 +173,9 @@ class HeadNet(nn.Module):
     def forward(self, feats):
         outs = []
         for li, x in enumerate(feats):
-            dt = x.dtype
             for r in range(self.repeats):
                 x = getattr(self, f"conv{r}")(x)
-                x = F.silu(batch_norm(getattr(self, f"bn{r}_{li}"), x)).to(dt)
+                x = F.silu(getattr(self, f"bn{r}_{li}")(x)).to(x.dtype)
             y = self.head(x).permute(0, 2, 3, 1)            # NHWC
             outs.append(y.reshape(y.shape[0], -1, self.out_per_anchor))
         return torch.cat(outs, dim=1)
@@ -218,12 +222,13 @@ class EfficientDet(nn.Module):
     """Backbone + BiFPN + class and box heads, the training loss
     ``loss_fn`` and the inference program ``predict``. Built in eval
     mode, on ``device``; ``dtype`` (float32 or bfloat16) is the compute
-    dtype. ``loss_fn`` puts the module in train mode and ``predict`` back
-    in eval mode, each only when it is not already in it; training needs
-    f32."""
+    dtype, ``param_dtype`` the storage of the convolutions (None:
+    ``dtype``; float32 for bf16 training). ``loss_fn`` puts the module in
+    train mode and ``predict`` back in eval mode, each only when it is not
+    already in it; training needs f32 weights."""
 
     def __init__(self, config: EfficientDetConfig = EFFICIENTDET_D0,
-                 device="cuda", dtype=torch.float32):
+                 device="cuda", dtype=torch.float32, param_dtype=None):
         super().__init__()
         device = resolve_device(device)
         self.config = cfg = config
@@ -240,7 +245,7 @@ class EfficientDet(nn.Module):
         self.regressor = HeadNet(4, n_anchors, cfg.head_repeats,
                                  cfg.fpn_channels)
         self._anchors = {}
-        compute_in(self.to(device), dtype)
+        compute_in(self.to(device), dtype, param_dtype)
         self.eval()
 
     def forward(self, images):

@@ -19,10 +19,12 @@ Two points where the JAX layers differ from PyTorch's defaults:
   * Every BatchNorm here is flax's with momentum 0.99 and eps 1e-3:
     ``FlaxBatchNorm2d(c, eps=1e-3, momentum=0.01)``.
 
-``Conv2d`` computes in its weights' dtype, casting its input, as a Flax
-``nn.Conv(dtype=...)`` does: the bf16 serving flavor stores the
-convolutions in bf16 (``models/hrnet.py::compute_in``) and keeps
-BatchNorm and swish in f32, each block's output cast back to bf16.
+``Conv2d`` computes in the dtype that ``models/hrnet.py::compute_in``
+gives it, casting its input and, where they are stored in another dtype
+(f32 master weights under bf16 training), its weights, as a Flax
+``nn.Conv(dtype=...)`` does. Under bf16 compute BatchNorm and swish run
+in f32 (``FlaxBatchNorm2d`` widens its input), each result rounded back
+to the convolution's output dtype.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stlpose_tpu_torch.models import hrnet
 from stlpose_tpu_torch.models.hrnet import FlaxBatchNorm2d
 
 # (expand_ratio, channels, repeats, stride, kernel)
@@ -81,9 +84,9 @@ def bn(channels: int) -> FlaxBatchNorm2d:
     return FlaxBatchNorm2d(channels, eps=1e-3, momentum=0.01)
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with TF-SAME padding, computing in its weights'
-    dtype (its input is cast to it)."""
+class Conv2d(hrnet.Conv2d):
+    """``models/hrnet.py::Conv2d`` (its compute dtype) with TF-SAME
+    padding."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = True):
@@ -91,15 +94,9 @@ class Conv2d(nn.Conv2d):
                          bias=bias)
 
     def forward(self, x):
-        x = pad_same(x.to(self.weight.dtype), self.kernel_size[0],
-                     self.stride[0])
-        return self._conv_forward(x, self.weight, self.bias)
-
-
-def batch_norm(norm, x):
-    """BatchNorm in its parameters' dtype on a conv output: f32 (flax's
-    ``dtype=float32``) also under bf16 compute."""
-    return norm(x.to(norm.weight.dtype))
+        x, w, b = self.cast(x)
+        return self._conv_forward(
+            pad_same(x, self.kernel_size[0], self.stride[0]), w, b)
 
 
 class MBConv(nn.Module):
@@ -125,16 +122,17 @@ class MBConv(nn.Module):
         self.bn2 = bn(cout)
 
     def forward(self, x):
-        dt = self.dw_conv.weight.dtype
         h = x
         if self.expand_conv is not None:
-            h = F.silu(batch_norm(self.bn0, self.expand_conv(h))).to(dt)
-        h = F.silu(batch_norm(self.bn1, self.dw_conv(h))).to(dt)
+            h = self.expand_conv(h)
+            h = F.silu(self.bn0(h)).to(h.dtype)
+        h = self.dw_conv(h)
+        h = F.silu(self.bn1(h)).to(h.dtype)
         # squeeze & excitation
         se = h.mean(dim=(2, 3), keepdim=True)
         se = torch.sigmoid(self.se_expand(F.silu(self.se_reduce(se))))
         h = self.project_conv(h * se)
-        h = batch_norm(self.bn2, h).to(dt)
+        h = self.bn2(h).to(h.dtype)
         if self.residual:
             h = h + x
         return h
@@ -165,8 +163,8 @@ class EfficientNet(nn.Module):
                              for i in self.taps]
 
     def forward(self, x):
-        dt = self.stem_conv.weight.dtype
-        x = F.silu(batch_norm(self.stem_bn, self.stem_conv(x))).to(dt)
+        x = self.stem_conv(x)
+        x = F.silu(self.stem_bn(x)).to(x.dtype)
         feats = []
         for i in range(self.n_blocks):
             x = getattr(self, f"block{i}")(x)

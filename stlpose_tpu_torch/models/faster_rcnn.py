@@ -19,7 +19,12 @@ Serving flavors, as constructor arguments (no environment switch):
 ``dtype=torch.bfloat16`` runs the convolutions and dense layers in bf16
 and follows the JAX package's bf16 ``predict`` op by op (RPN logits and
 box-head outputs stay bf16 into top-k, softmax and the score tests; box
-decoding promotes to f32 at its first f32 operand); ``roi_patch_quant``
+decoding promotes to f32 at its first f32 operand); with
+``param_dtype=torch.float32`` the weights stay f32 masters, cast at each
+call (bf16 training, as the reference trains with ``STLPOSE_DTYPE=
+bfloat16``: RoIAlign and its gradient on K3 ``bf16_bf16`` and K3b bf16,
+``loss_classifier`` in bf16, the other terms and the total in f32, as the
+reference's dtype promotion gives them); ``roi_patch_quant``
 pools from the int8 patch pyramid; ``trunk_quant="folded"`` takes a trunk
 with BatchNorm folded into its convolutions
 (``models/quantize.py::fold_frcnn_trunk``), and ``"int8"`` / ``"int8u"``
@@ -42,7 +47,7 @@ import torch.nn.functional as F
 
 from stlpose_tpu_torch import resolve_device
 from stlpose_tpu_torch.config import FasterRCNNConfig
-from stlpose_tpu_torch.models.hrnet import compute_in
+from stlpose_tpu_torch.models.hrnet import Conv2d, Linear, compute_in
 from stlpose_tpu_torch.models.quantize import check_trunk_flavor
 from stlpose_tpu_torch.models.resnet import ResNet
 from stlpose_tpu_torch.ops.boxes import (box_iou, clip_boxes, decode_boxes,
@@ -58,8 +63,8 @@ class FPN(nn.Module):
         super().__init__()
         self.n = len(in_channels)
         for i, cin in enumerate(in_channels):
-            self.add_module(f"lateral{i}", nn.Conv2d(cin, channels, 1))
-            self.add_module(f"out{i}", nn.Conv2d(channels, channels, 3, 1, 1))
+            self.add_module(f"lateral{i}", Conv2d(cin, channels, 1))
+            self.add_module(f"out{i}", Conv2d(channels, channels, 3, 1, 1))
 
     def forward(self, feats):
         laterals = [getattr(self, f"lateral{i}")(f)
@@ -79,9 +84,9 @@ class FPN(nn.Module):
 class RPNHead(nn.Module):
     def __init__(self, channels: int, num_anchors: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, 1, 1)
-        self.cls = nn.Conv2d(channels, num_anchors, 1)
-        self.reg = nn.Conv2d(channels, num_anchors * 4, 1)
+        self.conv = Conv2d(channels, channels, 3, 1, 1)
+        self.cls = Conv2d(channels, num_anchors, 1)
+        self.reg = Conv2d(channels, num_anchors * 4, 1)
 
     def forward(self, feats):
         logits, deltas = [], []
@@ -95,10 +100,10 @@ class RPNHead(nn.Module):
 class BoxHead(nn.Module):
     def __init__(self, in_features: int, num_classes: int):
         super().__init__()
-        self.fc6 = nn.Linear(in_features, 1024)
-        self.fc7 = nn.Linear(1024, 1024)
-        self.cls_score = nn.Linear(1024, num_classes)
-        self.bbox_pred = nn.Linear(1024, num_classes * 4)
+        self.fc6 = Linear(in_features, 1024)
+        self.fc7 = Linear(1024, 1024)
+        self.cls_score = Linear(1024, num_classes)
+        self.bbox_pred = Linear(1024, num_classes * 4)
 
     def forward(self, roi_feats):
         """roi_feats (N, 7, 7, C), flattened in that order."""
@@ -238,7 +243,8 @@ def rpn_loss(cfg, anchors, logits_flat, deltas_flat, gt_boxes, gt_mask,
     """RPN objectness and box regression, per image: logits (B, A),
     deltas (B, A, 4) over the anchors (A, 4); GT boxes (B, G, 4) and mask
     (B, G); ``uniforms`` the sampling's (u1, u2), each (B, A). Returns
-    ((B,), (B,))."""
+    ((B,), (B,)) in f32 also for bf16 logits and deltas: the targets are
+    f32, as the reference's, and the products promote."""
     labels, matched = match_to_gt(anchors, gt_boxes, gt_mask,
                                   cfg.rpn_fg_iou, cfg.rpn_bg_iou)
     no_gt = (gt_mask.sum(-1) == 0)[:, None]
@@ -249,7 +255,7 @@ def rpn_loss(cfg, anchors, logits_flat, deltas_flat, gt_boxes, gt_mask,
     sampled = pos_sel | neg_sel
     n_sampled = torch.clamp(sampled.sum(-1), min=1)
 
-    obj = bce_logits(logits_flat, pos_sel.to(logits_flat.dtype))
+    obj = bce_logits(logits_flat, pos_sel.to(torch.float32))
     loss_obj = torch.where(sampled, obj, 0.0).sum(-1) / n_sampled
 
     target_deltas = encode_boxes(gather_rows(gt_boxes, matched), anchors)
@@ -293,7 +299,9 @@ def roi_loss(cfg, cls_logits, box_deltas, labels, reg_targets, pos_mask,
              sampled_mask):
     """Box-head classification and class-specific regression, per image:
     logits (B, R, classes), deltas (B, R, 4 * classes). Returns ((B,),
-    (B,))."""
+    (B,)): the classification in the logits' dtype (bf16 under bf16
+    compute, as the reference's), the regression in f32 (its targets are
+    f32)."""
     n = torch.clamp(sampled_mask.sum(-1), min=1)
     logp = F.log_softmax(cls_logits, dim=-1)
     lab = labels.to(torch.int64)
@@ -313,18 +321,21 @@ class FasterRCNN(nn.Module):
     """Backbone + FPN + RPN head + box head, the training loss ``loss_fn``
     and the inference program ``predict``. Built in eval mode, on
     ``device``; ``dtype`` (float32 or bfloat16) is the compute dtype;
+    ``param_dtype`` the storage of the convolution and dense weights
+    (None: ``dtype``; float32 for bf16 training, flax's ``param_dtype``);
     ``roi_patch_quant`` pools RoIs from the int8 patch pyramid;
     ``trunk_quant`` is "none" (live BatchNorm), "folded", or "int8" /
     "int8u" (folded, every bottleneck ConvBN on the int8 kernels; weights
     from ``models/quantize.py::flavored_state_dict`` with calibration
     images). ``loss_fn``
     puts the module in train mode and ``predict`` back in eval mode, each
-    only when it is not already in it; training needs the live trunk in
-    f32."""
+    only when it is not already in it; training needs the live trunk and
+    f32 weights (``param_dtype=torch.float32`` under bf16 compute)."""
 
     def __init__(self, config: FasterRCNNConfig = FasterRCNNConfig(),
                  device="cuda", dtype=torch.float32,
-                 roi_patch_quant: bool = False, trunk_quant: str = "none"):
+                 roi_patch_quant: bool = False, trunk_quant: str = "none",
+                 param_dtype=None):
         super().__init__()
         check_trunk_flavor(trunk_quant)
         device = resolve_device(device)
@@ -341,7 +352,7 @@ class FasterRCNN(nn.Module):
         self.rpn_head = RPNHead(cfg.fpn_channels, len(cfg.anchor_ratios))
         self.box_head = BoxHead(7 * 7 * cfg.fpn_channels, cfg.num_classes)
         self._anchors = {}
-        compute_in(self.to(device), dtype)
+        compute_in(self.to(device), dtype, param_dtype)
         self.eval()
 
     def features(self, images_nchw):
@@ -379,7 +390,7 @@ class FasterRCNN(nn.Module):
         deltas = [d.permute(0, 2, 3, 1).reshape(B, -1, 4) for d in deltas]
         return feats, logits, deltas, anchors
 
-    def loss_fn(self, batch, generator=None, uniforms=None):
+    def loss_fn(self, batch, generator=None, uniforms=None, proposals=None):
         """Total loss and loss dict for a batch {image (B, S, S, 3) in [0,
         1], boxes (B, K, 4), labels (B, K), box_mask (B, K)} of tensors on
         the model's device: the torchvision loss dict that the reference
@@ -387,7 +398,11 @@ class FasterRCNN(nn.Module):
         (BatchNorm on batch statistics, running statistics updated in
         place). ``generator`` draws the sampling's uniforms; ``uniforms``
         hands them in instead: {"rpn": (u1, u2) each (B, A), "roi": (u1,
-        u2) each (B, post_nms_top_n_train + K)}."""
+        u2) each (B, post_nms_top_n_train + K)}. ``proposals`` (B,
+        post_nms_top_n_train, 4), if given, are the RoI stage's proposals
+        in place of those selected from the RPN's outputs: a comparison
+        pinned on another program's proposals, since bf16 logits tie in
+        the selection's top-k and NMS."""
         if self.trunk_quant != "none":
             raise ValueError(
                 "training requires the live-BN trunk; construct "
@@ -405,12 +420,12 @@ class FasterRCNN(nn.Module):
                                 torch.cat(deltas, dim=1), gt_boxes, gt_mask,
                                 uniforms.get("rpn"), generator)
         with torch.no_grad():       # the proposals are constants of the loss
-            props, _ = select_proposals(cfg, anchors_l,
-                                        [l.detach() for l in logits],
-                                        [d.detach() for d in deltas],
-                                        train=True)
+            if proposals is None:
+                proposals, _ = select_proposals(
+                    cfg, anchors_l, [l.detach() for l in logits],
+                    [d.detach() for d in deltas], train=True)
             boxes, labels, regs, pos, sampled = roi_targets(
-                cfg, props, gt_boxes, gt_labels, gt_mask,
+                cfg, proposals, gt_boxes, gt_labels, gt_mask,
                 uniforms.get("roi"), generator)
         cls_logits, box_deltas = self.roi_batched(feats[:4], boxes)
         l_cls, l_box = roi_loss(cfg, cls_logits, box_deltas, labels, regs,

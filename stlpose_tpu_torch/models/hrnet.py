@@ -52,9 +52,16 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 
     One statistics pass, ``F.batch_norm``'s own: its update gives
     ``rv' = keep*rv + (1-keep)*var*n/(n-1)``; taking back the excess,
-    ``rv' - (rv' - keep*rv)/n``, leaves flax's ``keep*rv + (1-keep)*var``."""
+    ``rv' - (rv' - keep*rv)/n``, leaves flax's ``keep*rv + (1-keep)*var``.
+
+    A bf16 input (bf16 compute) is widened to the parameters' f32 first:
+    statistics, running statistics and output in f32, as every BatchNorm
+    of the JAX package (``nn.BatchNorm(dtype=float32)``) computes them on
+    a bf16 convolution's output; the caller rounds the output back to its
+    compute dtype after the activation, where the reference does."""
 
     def forward(self, x):
+        x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
         n = x.numel() // x.shape[1]
@@ -68,28 +75,53 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def compute_in(module: nn.Module, dtype):
-    """Move the convolutions and dense layers of ``module`` to ``dtype``
-    (weights rounded once, to nearest even, as flax casts its f32 params at
-    each call); BatchNorm layers stay f32."""
+def compute_in(module: nn.Module, dtype, param_dtype=None):
+    """Make ``dtype`` the compute dtype of the convolutions and dense
+    layers of ``module`` (flax's ``dtype``) and store their weights in
+    ``param_dtype`` (flax's ``param_dtype``; None: ``dtype``, the weights
+    rounded once, to nearest even, to the values flax's cast gives at each
+    call). BatchNorm layers stay f32."""
+    stored = param_dtype or dtype
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            m.to(dtype)
+            m.to(stored)
+            m.compute_dtype = None if stored == dtype else dtype
     return module
 
 
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that runs in its input's dtype: weights stored in
-    another dtype (f32 master weights under bf16 compute) are cast at each
-    call, as flax casts its params; weights stored in the input's dtype
-    are used as they are."""
+class CastParams:
+    """The port's convolutions and dense layers compute in their
+    ``compute_dtype``, as a flax layer computes in its ``dtype``: the
+    input is cast to it, and weights stored in another dtype (f32 master
+    weights under bf16 compute) are cast at each call, so that their
+    gradients reach the stored weights in f32. ``compute_in`` sets it
+    where the weights are stored in another dtype; None computes in the
+    weights' own dtype (so a module moved with ``.double()`` computes in
+    float64)."""
+    compute_dtype = None
+
+    def cast(self, x):
+        """(input, weight, bias) in the compute dtype."""
+        dt = self.compute_dtype or self.weight.dtype
+        w, b = self.weight, self.bias
+        if w.dtype != dt:
+            w = w.to(dt)
+            b = None if b is None else b.to(dt)
+        return x.to(dt), w, b
+
+
+class Conv2d(CastParams, nn.Conv2d):
+    """``nn.Conv2d`` in its compute dtype (``CastParams``)."""
 
     def forward(self, x):
-        w, b = self.weight, self.bias
-        if w.dtype != x.dtype:
-            w = w.to(x.dtype)
-            b = None if b is None else b.to(x.dtype)
-        return self._conv_forward(x, w, b)
+        return self._conv_forward(*self.cast(x))
+
+
+class Linear(CastParams, nn.Linear):
+    """``nn.Linear`` in its compute dtype (``CastParams``)."""
+
+    def forward(self, x):
+        return F.linear(*self.cast(x))
 
 
 QUANT_MODES = ("none", "calib", "int8", "int8u")
@@ -227,7 +259,7 @@ class ConvBN(nn.Module):
             self._record(x)
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x.float()).to(x.dtype)
+            x = self.bn(x).to(x.dtype)
         return F.relu(x) if self.relu else x
 
 
@@ -446,7 +478,7 @@ class PoseHighResolutionNet(nn.Module):
         k = cfg.final_conv_kernel
         self.final_layer = Conv2d(cfg.stage4.num_channels[0],
                                   cfg.num_joints, k, 1, 1 if k == 3 else 0)
-        compute_in(self.to(device), param_dtype or dtype)
+        compute_in(self.to(device), dtype, param_dtype)
         self.eval()
 
     def _last_readers(self, s, n_prev, num_branches):

@@ -7,8 +7,9 @@ puts every bottleneck ConvBN in an int8 mode, "calib", "int8" or "int8u",
 and ``stem_conv`` stays a folded float conv). Its bottleneck is
 HRNet's (same layers, same names). Submodule
 names repeat the Flax module tree (``stem_conv``, ``stem_bn``,
-``layer{s}_{b}.cb{q}``, ``.down``). The input is cast to the dtype of the
-convolutions (``models/hrnet.py::compute_in``), as flax's ``dtype`` does.
+``layer{s}_{b}.cb{q}``, ``.down``). The convolutions compute in the dtype
+that ``models/hrnet.py::compute_in`` gives them, casting their input, as
+flax's ``dtype`` does.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from __future__ import annotations
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stlpose_tpu_torch.models.hrnet import Bottleneck, FlaxBatchNorm2d
+from stlpose_tpu_torch.models.hrnet import (Bottleneck, Conv2d,
+                                            FlaxBatchNorm2d)
 
 
 class ResNet(nn.Module):
@@ -26,7 +28,7 @@ class ResNet(nn.Module):
                  folded: bool = False, quant: str = "none"):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
-        self.stem_conv = nn.Conv2d(3, width, 7, 2, 3, bias=folded)
+        self.stem_conv = Conv2d(3, width, 7, 2, 3, bias=folded)
         self.stem_bn = None if folded else FlaxBatchNorm2d(width)
         cin, planes = width, width
         for s, n_blocks in enumerate(self.stage_sizes):
@@ -40,9 +42,9 @@ class ResNet(nn.Module):
             planes *= 2
 
     def forward(self, x):
-        x = self.stem_conv(x.to(self.stem_conv.weight.dtype))
+        x = self.stem_conv(x)
         if self.stem_bn is not None:
-            x = self.stem_bn(x.float()).to(x.dtype)
+            x = self.stem_bn(x).to(x.dtype)
         x = F.relu(x)
         # implicit -inf padding, as the reference's explicit -inf pad
         x = F.max_pool2d(x, 3, 2, padding=1)

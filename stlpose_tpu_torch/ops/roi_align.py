@@ -6,8 +6,8 @@ Port of ``stlpose_tpu/ops/roi_align.py`` (``_assign_levels``,
 multilevel_roi_align_pallas_batched``: each box reads only its canonically
 assigned level. Sampling runs in the K3 kernel (``kernels/roi_align.py``),
 the int8 quantization in the K3q kernels (``kernels/quantize.py``). Under
-autograd (detector training) the f32 maps get their gradient from K3b,
-through ``kernels/roi_align.py::RoIAlignFunction``.
+autograd (detector training) the f32 or bf16 maps get their gradient
+from K3b, through ``kernels/roi_align.py::RoIAlignFunction``.
 """
 
 from __future__ import annotations
@@ -44,9 +44,10 @@ def multilevel_roi_align(feature_levels, boxes, strides,
     dtype. ``patch_quant`` pools from the int8 pyramid of
     ``quantize_levels`` and dequantizes each box exactly after pooling
     (RoIAlign is linear per channel and a box reads one level). When
-    autograd records and a map requires grad, the f32 maps are pooled
-    through ``RoIAlignFunction`` (K3 forward, K3b backward; any other
-    dtype or ``patch_quant`` raises); inference takes the bare K3 call."""
+    autograd records and a map requires grad, the f32 or bf16 maps are
+    pooled through ``RoIAlignFunction`` (K3 forward, K3b backward, both in
+    the maps' dtype; ``patch_quant`` raises); inference takes the bare K3
+    call."""
     levels = _assign_levels(boxes, len(feature_levels))
     strides = strides[:len(feature_levels)]
     out_dtype = feature_levels[0].dtype

@@ -129,19 +129,27 @@ def test_multilevel_roi_align_routes_by_autograd(scene):
 
 
 def test_backward_refuses_bf16_and_int8(scene):
+    """The gradient runs for f32 maps and for bf16 maps (bf16 training),
+    each of one dtype: float16 maps, a pyramid that mixes bf16 and f32
+    levels, float16 gradients and the int8 patch pyramid are refused."""
     feats, boxes, levels, grad, _ = scene
     bx = torch.from_numpy(boxes)
-    bf16 = [torch.from_numpy(f).bfloat16().requires_grad_() for f in feats]
-    with pytest.raises(ValueError, match="float32 maps only"):
-        _k3.RoIAlignFunction.apply(bx, levels, STRIDES, *bf16)
-    with pytest.raises(ValueError, match="float32 maps only"):
-        roi_ops.multilevel_roi_align(bf16, bx, STRIDES)
-    f32 = [torch.from_numpy(f).requires_grad_() for f in feats]
-    with pytest.raises(ValueError, match="int8 patch pyramid"):
-        roi_ops.multilevel_roi_align(f32, bx, STRIDES, patch_quant=True)
-    with pytest.raises(ValueError, match="float32 gradients only"):
+    f16 = [torch.from_numpy(f).half().requires_grad_() for f in feats]
+    mixed = [torch.from_numpy(f).requires_grad_() for f in feats]
+    mixed[0] = mixed[0].detach().bfloat16().requires_grad_()
+    for maps in (f16, mixed):
+        with pytest.raises(ValueError, match="maps of one dtype only"):
+            _k3.RoIAlignFunction.apply(bx, levels, STRIDES, *maps)
+        with pytest.raises(ValueError, match="maps of one dtype only"):
+            roi_ops.multilevel_roi_align(maps, bx, STRIDES)
+    for dtype in (torch.float32, torch.bfloat16):
+        maps = [torch.from_numpy(f).to(dtype).requires_grad_()
+                for f in feats]
+        with pytest.raises(ValueError, match="int8 patch pyramid"):
+            roi_ops.multilevel_roi_align(maps, bx, STRIDES, patch_quant=True)
+    with pytest.raises(ValueError, match="float32 or bfloat16 gradients"):
         _k3.roi_align_backward_plain(
-            torch.from_numpy(grad).bfloat16(), [f.shape for f in feats], bx,
+            torch.from_numpy(grad).half(), [f.shape for f in feats], bx,
             levels, STRIDES)
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="CUDA"):
