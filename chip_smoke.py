@@ -281,6 +281,35 @@ Phases, each fatal on failure:
      and the live call on the plain versions (indices exact, keypoints
      and boxes 1e-3 px, maxima 1e-4; 0.0 expected from the live call);
      export s, artifact bytes, reloaded and live ms per call in turns;
+  5i. the multi-device programs on torch.distributed (``multi_device_path``;
+     this script started again with ``--rank-worker`` for each rank, its
+     kernels already built): the one-process references in this process
+     (HRNet-W32 two SGD steps at B = 32 on K4 device-warp batches of
+     seeded 640x640 canvases, the second from the first's state, which
+     the ranks load too, phase 4's fused call, the Faster R-CNN
+     ResNet-50-FPN 400x400 step at B = 8 in f32 and in bf16 on the same
+     draws), then 2 gloo ranks on cuda:0 (NCCL refuses two ranks on one
+     card) with every counter at 0: the pose steps on each rank's 16 rows
+     (loss 1e-5 relative, PCK counts equal, BatchNorm statistics and
+     parameters within 1e-4 of their largest magnitude, a BatchNorm's
+     shift and running mean on the scale of that BatchNorm's weight and
+     deviation; both ranks' states equal bit for bit), the sharded fused
+     program (budget_per_device 32) against the one-process program on
+     each rank's rows and budget (indices exact, boxes and keypoints
+     1e-3 px, maxima 1e-4) and against the one-process call at B = 8
+     (indices exact, boxes and keypoints 1e-3 px; its maxima, from
+     cuDNN's algorithms at other shapes, recorded), the detector step
+     on the one-process step's proposals (f32: terms 1e-5 relative,
+     parameters and statistics 1e-4; bf16: each term within its own
+     bf16-vs-f32 drift, the update's largest and median error within the
+     bf16 update's from the f32 one) and a step with a NaN in one of
+     rank 1's images (both ranks' parameters unchanged); K1, K2, K3
+     f32_f32 and bf16_bf16, K3b f32 and bf16, K4 and K5 launched on each
+     rank; then one NCCL rank through get_mesh() from a torchrun
+     environment (two sharded train steps equal to the unsharded ones,
+     K1 and K4 launched); ms per step and per call of the ranks beside the
+     one-process ones (gloo moves every collective through the host: not
+     a scaling figure);
   6. under torch.profiler: the device time of each kernel, its plain
      version and (where one exists) the single PyTorch call computing the
      same function, over 20 repeats with the inputs warm in L2, and for
@@ -6051,6 +6080,675 @@ def forbidden_ops(prof, ops, shapes):
                                     for sh in e.input_shapes)]
 
 
+# ---------------------------------------------------------------------------
+# Phase 5i: the multi-device programs on torch.distributed
+# ---------------------------------------------------------------------------
+
+MD_WORLD = 2                         # gloo ranks, both on cuda:0
+MD_TIMEOUT = 300                     # seconds a rank launch may take
+# SGD: an update linear in the gradient (Adam's lr*sign(g) would turn the
+# rounding of a near-zero gradient into an O(lr) move); lr as DET_LR, so
+# that an update is a small part of each seeded weight
+MD_POSE_EXP = {"training": {"learning_rate": 1e-4, "optimizer": "sgd",
+                            "momentum": 0.9, "nesterov": False},
+               "dataset": {"dataset_name": "coco"}}
+MD_DET_EXP = {"training": {"learning_rate": DET_LR, "optimizer": "sgd",
+                           "momentum": 0.9, "nesterov": False},
+              "dataset": {"dataset_name": "coco"}}
+MD_DET_K = 8                         # GT box slots a detector image
+MD_LOSS_REL, MD_TENSOR_REL = 1e-5, 1e-4   # tensors: of each max abs
+MD_KPT_PX, MD_MAXVAL = 1e-3, 1e-4
+MD_NUDGE_FACTOR = 2.0                # of the step's own rounding response
+MD_REQUIRED = ("heatmap_peaks", "affine_crop", "roi_align",
+               "roi_align_bf16_bf16", "roi_align_backward",
+               "roi_align_backward_bf16", "warp_two_pass", "box_nms_topk")
+
+
+def md_port():
+    """The port's pieces that the phase's ranks and its one-process
+    references both run."""
+    from stlpose_tpu_torch.config import FasterRCNNConfig, get_hrnet_config
+    from stlpose_tpu_torch.data.pipeline import PoseDataPipeline
+    from stlpose_tpu_torch.engines.vase_evaluator import (
+        build_fused_two_stage_sharded)
+    from stlpose_tpu_torch.kernels import decode as k1
+    from stlpose_tpu_torch.kernels import int8_conv as k6
+    from stlpose_tpu_torch.kernels import nms as k5
+    from stlpose_tpu_torch.kernels import quantize as k3q
+    from stlpose_tpu_torch.kernels import roi_align as k3
+    from stlpose_tpu_torch.kernels import warp as k2
+    from stlpose_tpu_torch.kernels import warp_two_pass as k4
+    from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
+    from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
+    from stlpose_tpu_torch.parallel import distributed, mesh
+    from stlpose_tpu_torch.parallel.detector_steps import \
+        make_detector_train_step
+    from stlpose_tpu_torch.parallel.steps import make_train_step
+    from stlpose_tpu_torch.train.state import create_train_state
+    return dict(k1=k1, k2=k2, k3=k3, k3q=k3q, k4=k4, k5=k5, k6=k6,
+                FasterRCNN=FasterRCNN, FasterRCNNConfig=FasterRCNNConfig,
+                PoseHighResolutionNet=PoseHighResolutionNet,
+                get_hrnet_config=get_hrnet_config,
+                PoseDataPipeline=PoseDataPipeline,
+                build_fused_two_stage_sharded=build_fused_two_stage_sharded,
+                make_train_step=make_train_step,
+                make_detector_train_step=make_detector_train_step,
+                create_train_state=create_train_state,
+                distributed=distributed, mesh=mesh)
+
+
+def md_synced_ms(torch, fn):
+    """(fn(), its wall ms between two device syncs)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else \
+        (lambda: None)
+    sync()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def md_digest(torch, state):
+    """sha256 of a state dict's tensors, in key order (the ranks'
+    replicated state compared bit for bit)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(state):
+        h.update(k.encode())
+        h.update(state[k].detach().contiguous().cpu().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def md_pose(torch, P, dev, mesh, samples, seed, first_state=None):
+    """Train steps of seeded HRNet-W32 (SGD) on K4 device-warp batches
+    from ``samples`` (global batches of letterboxed 640x640 uint8
+    canvases); on a mesh each rank warps and steps on its rows. Every
+    step after the first starts from ``first_state`` when it is given (a
+    path: the state after the first step is written there when it does
+    not exist, and read from there when it does), so that two programs
+    are compared a step at a time from the same weights. Returns ([per-
+    step metrics], the last step's ms, the model)."""
+    model = seeded_weights(torch, P["PoseHighResolutionNet"](
+        P["get_hrnet_config"]("w32_256x192"), device=dev), seed + 3)
+    state = P["create_train_state"](model, MD_POSE_EXP)
+    step = P["make_train_step"](mesh=mesh)
+    pipe = P["PoseDataPipeline"]([], TRAIN_B, is_train=True, exp_data=AUG,
+                                 seed=seed, canvas_size=CANVAS, device=dev,
+                                 mesh=mesh)
+    metrics, ms = [], None
+    for i, s in enumerate(samples):
+        if i == 1 and first_state is not None:
+            if os.path.exists(first_state):
+                blob = torch.load(first_state, map_location=dev)
+                model.load_state_dict(blob["model"])
+                state.optimizer.load_state_dict(blob["optimizer"])
+            else:
+                torch.save({"model": model.state_dict(),
+                            "optimizer": state.optimizer.state_dict()},
+                           first_state)
+        m, ms = md_synced_ms(torch, lambda s=s: step(
+            state, pipe._collate_device_warp(s, None)))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, ms, model
+
+
+def md_detector_batch(seed, k=MD_DET_K):
+    """A detector batch of B seeded DET_SIDE x DET_SIDE images in [0, 1]
+    with 1-4 person boxes each (numpy)."""
+    n, S = B, DET_SIDE
+    rng = np.random.RandomState(seed)
+    image = (rng.randint(0, 256, (n, S, S, 3)) / 255.0).astype(np.float32)
+    boxes = np.zeros((n, k, 4), np.float32)
+    mask = np.zeros((n, k), np.float32)
+    for i in range(n):
+        for j in range(rng.randint(1, 5)):
+            w, h = rng.uniform(0.1, 0.5) * S, rng.uniform(0.2, 0.95) * S
+            x, y = rng.uniform(0, S - w), rng.uniform(0, S - h)
+            boxes[i, j], mask[i, j] = [x, y, x + w, y + h], 1.0
+    return {"image": image, "boxes": boxes, "labels": mask.astype(np.int32),
+            "box_mask": mask, "perceptual_loss": np.zeros(n, np.float32)}
+
+
+def md_detector(torch, P, dev, mesh, batch, seed, dtype, proposals,
+                nudge=False):
+    """Faster R-CNN ResNet-50-FPN at 400x400 (phase 5e's seeded weights
+    and BatchNorm) in ``dtype`` on f32 masters, SGD: one step on
+    ``batch`` with the draws of a generator seeded alike everywhere (on a
+    mesh, each rank on its rows of them), then one timed step more. The
+    first step's RoI stage takes the proposals at the path ``proposals``
+    when it exists (this rank's rows of them), else its own, written
+    there: cuDNN's algorithms differ at B = 4 and 8, and near-tied logits
+    then select other proposals in top-k and NMS (``loss_fn(proposals=
+    ...)``, as phase 5e2 pins its bf16 comparison). ``nudge`` moves
+    every input pixel one f32 step up (``nextafter``): the step's own
+    response to rounding, the yardstick of the ranks' gradients. Returns
+    (terms, {parameter: update}, {buffer: after}, timed ms, the state and
+    step)."""
+    import functools
+    cfg = P["FasterRCNNConfig"]()
+    base = seeded_bn_statistics(torch, seeded_weights(
+        torch, P["FasterRCNN"](cfg, dev), seed + 33), seed + 34)
+    det = P["FasterRCNN"](cfg, dev, dtype=dtype, param_dtype=torch.float32)
+    det.load_state_dict(base.state_dict())
+    del base
+    before = {n: p.detach().clone() for n, p in det.named_parameters()}
+    state = P["create_train_state"](det, MD_DET_EXP)
+    step = P["make_detector_train_step"](mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed + 90)
+    local = P["mesh"].shard_batch(mesh, batch, dev)
+    if nudge:
+        local["image"] = torch.nextafter(local["image"],
+                                         torch.full_like(local["image"], 2))
+    log = []
+    if os.path.exists(proposals):
+        pinned = torch.load(proposals, map_location=dev)
+        det.loss_fn = functools.partial(det.loss_fn, proposals=pinned[
+            P["mesh"].local_rows(mesh, pinned.shape[0])])
+        terms = step(state, local, gen)
+        del det.loss_fn
+    else:
+        frcnn = sys.modules[type(det).__module__]
+        with calls_to(frcnn, "roi_targets", log):
+            terms = step(state, local, gen)
+        torch.save(log[0][0][1], proposals)
+    terms = {k: float(v) for k, v in terms.items()}
+    update = {n: (p.detach() - before[n]).cpu()
+              for n, p in det.named_parameters()}
+    buffers = {n: b.detach().clone().cpu() for n, b in det.named_buffers()
+               if n.endswith(("running_mean", "running_var"))}
+    _, ms = md_synced_ms(torch, lambda: step(state, local, gen))
+    return terms, update, buffers, ms, (state, step, gen)
+
+
+def md_fused_outputs(torch, out):
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu()
+            .numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
+
+
+def rank_worker(args):
+    """One rank of the multi-device phase (``--rank-worker gloo|nccl``):
+    the group up, the counters at 0, the legs, the counts and results
+    written to ``--work``."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    P = md_port()
+    dist_mod, mesh_mod = P["distributed"], P["mesh"]
+    import torch.distributed as dist
+    from stlpose_tpu_torch import resolve_device
+    with open(os.path.join(args.work, "pose_samples.pkl"), "rb") as f:
+        samples = pickle.load(f)
+    out = {}
+    if args.rank_worker == "nccl":
+        # torchrun's environment, set by the parent: RANK, WORLD_SIZE,
+        # MASTER_ADDR, MASTER_PORT, LOCAL_RANK; a bare "cuda" device
+        mesh = mesh_mod.get_mesh(device=args.device)
+        dev = resolve_device(args.device)
+        t = torch.full((3,), 2.0, device=dev)
+        dist.all_reduce(t)
+        out["group"] = {"backend": dist.get_backend(),
+                        "world": dist.get_world_size(),
+                        "mesh": type(mesh).__name__, "mesh_size":
+                        mesh.size(), "device": str(dev),
+                        "all_reduce": t.tolist(),
+                        "gathered_rows": len(dist_mod.all_gather_host(
+                            np.zeros((2, 1))))}
+        # two steps each, the second timed (the first pays cuDNN's set-up)
+        reset_counts(P)
+        sharded, sharded_ms, _ = md_pose(torch, P, dev, mesh, samples,
+                                         args.seed)
+        out["launches"] = launch_counts(P)
+        plain, plain_ms, _ = md_pose(torch, P, dev, None, samples,
+                                     args.seed)
+        out.update(sharded=sharded, plain=plain, sharded_ms=sharded_ms,
+                   plain_ms=plain_ms)
+    else:
+        dist_mod.initialize_distributed(f"127.0.0.1:{args.port}",
+                                        args.world, args.rank,
+                                        backend="gloo")
+        dev = resolve_device(args.device)           # cuda:0 on both
+        mesh = mesh_mod.get_mesh(device=dev)
+        batch = dict(np.load(os.path.join(args.work, "det_batch.npz")))
+        reset_counts(P)
+        pose_m, pose_ms, model = md_pose(
+            torch, P, dev, mesh, samples, args.seed,
+            first_state=os.path.join(args.work, "pose_first_step.pt"))
+        pose_state = {k: v.detach().clone().cpu()
+                      for k, v in model.state_dict().items()}
+        del model
+        out["pose"] = {"metrics": pose_m, "ms": pose_ms,
+                       "digest": md_digest(torch, pose_state)}
+        det, pose = (seeded_weights(torch, P["FasterRCNN"](
+            P["FasterRCNNConfig"](), device=dev), args.seed),
+            seeded_weights(torch, P["PoseHighResolutionNet"](
+                P["get_hrnet_config"]("w32_256x192"), device=dev),
+                args.seed + 1))
+        fused = P["build_fused_two_stage_sharded"](
+            det, pose, mesh, bbox_thr=BBOX_THR, max_dets=MAX_DETS,
+            budget_per_device=B // args.world * MAX_DETS, device=dev)
+        images = serving_images(torch, dev, args.seed + 2)
+        fused_out = fused(images)
+        _, fused_ms = md_synced_ms(torch, lambda: fused(images))
+        del det, pose, fused
+        out["fused"] = {"ms": fused_ms}
+        dets = {}
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            terms, update, buffers, ms, (state, step, gen) = md_detector(
+                torch, P, dev, mesh, batch, args.seed, dtype,
+                os.path.join(args.work, f"proposals_{name}.pt"))
+            out[f"det_{name}"] = {"terms": terms, "ms": ms, "digest":
+                                  md_digest(torch, {**update,
+                                                            **buffers})}
+            dets[name] = (update, buffers)
+            if name == "f32":
+                # a NaN in one image of rank 1's rows: the global loss is
+                # not finite on both ranks, and neither moves
+                bad = dict(batch, image=batch["image"].copy())
+                bad["image"][B - 1, 10, 10, 0] = np.nan
+                local = mesh_mod.shard_batch(mesh, bad, dev)
+                held = {n: p.detach().clone()
+                        for n, p in state.model.named_parameters()}
+                m = step(state, local, gen)
+                out["nan_step"] = {
+                    "planted_here": bool(torch.isnan(local["image"]).any()),
+                    "finite": float(m["finite"]),
+                    "loss_finite": bool(torch.isfinite(m["loss"])),
+                    "params_held": all(torch.equal(p, held[n]) for n, p in
+                                       state.model.named_parameters())}
+            del state, step
+        out["launches"] = launch_counts(P)
+        if args.rank == 0:
+            torch.save({"pose_state": pose_state, "fused": fused_out,
+                        "dets": dets},
+                       os.path.join(args.work, "gloo_rank0.pt"))
+    dist_mod.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(args.work, f"{args.rank_worker}_rank"
+                           f"{args.rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def md_launch(tmp, leg, world, seed, device, env=None):
+    """Run ``world`` ranks of ``leg`` (this script with ``--rank-worker``)
+    and return their JSON results; fails the run if a rank exits non-zero
+    or outlasts MD_TIMEOUT (every rank is killed first)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                         "MASTER_PORT")}
+    procs, logs = [], []
+    for r in range(world):
+        e = dict(base, **{k: v.format(rank=r, port=port)
+                          for k, v in (env or {}).items()})
+        logs.append(tempfile.TemporaryFile("w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker", leg,
+             "--rank", str(r), "--world", str(world), "--port", str(port),
+             "--work", tmp, "--seed", str(seed), "--device", device],
+            stdout=logs[-1], stderr=subprocess.STDOUT, text=True, env=e))
+    deadline = time.time() + MD_TIMEOUT
+    try:
+        # a rank that fails ends the launch at once: its peers would wait
+        # in their next collective
+        while any(p.poll() is None for p in procs) and \
+                not any(p.poll() not in (None, 0) for p in procs) and \
+                time.time() < deadline:
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            fail(f"multi-device {leg}: rank {r} exited {p.returncode} "
+                 f"(limit {MD_TIMEOUT} s):\n{text[-4000:]}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{leg}_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def md_tensor_err(got, ref):
+    """max over tensors of |got - ref| over the tensor's max abs (0 for
+    an all-zero reference that ``got`` equals), and the worst name."""
+    errs = {}
+    for n, r in ref.items():
+        d = float((got[n].float() - r.float()).abs().max())
+        scale = float(r.float().abs().max())
+        errs[n] = d / scale if scale else (0.0 if d == 0 else float("inf"))
+    worst = max(errs, key=errs.get)
+    return errs, worst
+
+
+def md_state_errs(got, ref):
+    """|got - ref| of each tensor of a state dict over its scale: its own
+    largest magnitude, and for a BatchNorm's shift and running mean, which
+    start at 0 (so that after two steps they are a few gradients' size),
+    the largest magnitude of that BatchNorm's scale and running standard
+    deviation where larger (the shift moves the BatchNorm's output on the
+    scale of its weight, the mean its input on the scale of its
+    deviation)."""
+    errs = {}
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        if k.endswith(".bias") and k[:-5] + ".running_var" in ref:
+            scale = max(scale, float(ref[k[:-5] + ".weight"].abs().max()))
+        elif k.endswith(".running_mean"):
+            scale = max(scale, float(ref[k[:-5] + "_var"].max()) ** 0.5)
+        d = float((got[k].float() - r.float()).abs().max())
+        errs[k] = d / scale if scale else (0.0 if d == 0 else float("inf"))
+    return errs
+
+
+def md_fused_check(got, ref, n_img, maxval_tol=MD_MAXVAL):
+    """The sharded fused outputs against one-process calls', per image
+    (a one-process compaction orders crops by score across its batch,
+    the sharded one within each rank's rows): the valid selections and
+    each image's crop count exactly, boxes and keypoints within MD_KPT_PX
+    px, maxima within ``maxval_tol`` (None: recorded only)."""
+    if not np.array_equal(got["sel_valid"], ref["sel_valid"]):
+        fail("sharded fused: the valid selections differ")
+    v = ref["sel_valid"]
+    box = float(np.abs(got["sel_boxes"][v] - ref["sel_boxes"][v]).max())
+    kpt = mv = 0.0
+    crops = []
+    for i in range(n_img):
+        pg = (got["img_idx"] == i) & got["picked_valid"]
+        pr = (ref["img_idx"] == i) & ref["picked_valid"]
+        if pg.sum() != pr.sum():
+            fail(f"sharded fused: image {i} has {int(pg.sum())} crops, "
+                 f"one process {int(pr.sum())}")
+        crops.append(int(pr.sum()))
+        for key in ("crop_kpts", "img_kpts"):
+            g, r = got[key][pg], ref[key][pr]
+            kpt = max(kpt, float(np.abs(g[..., :2] - r[..., :2]).max()))
+            mv = max(mv, float(np.abs(g[..., 2] - r[..., 2]).max()))
+    rec = {"crops_per_image": crops, "box_max_abs_px": box,
+           "kpt_max_abs_px": kpt, "maxval_max_abs": mv}
+    rec["maxval_max_abs_of_max"] = mv / float(np.abs(
+        ref["img_kpts"][ref["picked_valid"]][..., 2]).max())
+    if not (box <= MD_KPT_PX and kpt <= MD_KPT_PX and
+            (maxval_tol is None or mv <= maxval_tol)):
+        fail(f"sharded fused against one process: {rec}")
+    return rec
+
+
+def multi_device_path(torch, mods, dev, args, tmp, state):
+    """Phase 5i: the multi-device programs on torch.distributed. The
+    one-process references first, in this process: HRNet-W32 two SGD
+    steps at B = 32 on K4 device-warp batches (the ranks take the second
+    from this process's state after the first, as the CPU tests take
+    theirs from the JAX package's: from their own first step the
+    rounding of a near-tie gradient would compound), phase 4's fused
+    call (B =
+    8, budget 64), the Faster R-CNN ResNet-50-FPN step at B = 8 in f32
+    and bf16 (SGD, the same draws); then 2 gloo ranks on cuda:0 (NCCL
+    refuses two ranks on one card) run the same on their rows: the pose
+    steps (loss 1e-5 relative, PCK counts equal, BatchNorm statistics and
+    parameters within 1e-4 of each max abs, both ranks' state bit for
+    bit), the sharded fused program with budget_per_device 32 against
+    the one-process program on each rank's rows and budget (indices
+    exact, boxes and keypoints 1e-3 px, maxima 1e-4) and against the
+    one-process call at B = 8 (the same, its maxima recorded: cuDNN picks
+    other algorithms at other shapes), the detector step (its RoI stage
+    on the one-process step's proposals: near-tied logits select others
+    at other shapes)
+    (f32: terms 1e-5 relative, parameters and statistics 1e-4; bf16: the
+    bf16 step's own bound, as phase 5e2's: each term within its bf16-vs-
+    f32 drift, the update's worst and median error no larger than the
+    bf16 update's from the f32 one), and a step with a NaN in one of
+    rank 1's images (every rank's parameters unchanged); then one NCCL
+    rank through get_mesh() from a torchrun environment (two sharded
+    train steps equal to the unsharded ones). Every rank's counters start
+    at 0, and K1, K2, K3 f32_f32 and bf16_bf16, K3b f32 and bf16, K4 and
+    K5 must launch in each gloo rank (K1 and K4 in the NCCL one). Gloo
+    moves every collective through the host: the times are not a scaling
+    figure. Returns (launches by path, summary)."""
+    t0 = time.time()
+    P = md_port()
+    images, recs = synthetic_records(mods, args.seed + 80)
+    pipe = mods["PoseDataPipeline"](recs, TRAIN_B, is_train=True,
+                                    exp_data=AUG, seed=args.seed,
+                                    canvas_size=CANVAS, device=dev)
+    samples = [[pipe._letterbox(img, r) for img, r in zip(images, recs)]
+               for _ in range(2)]
+    del images, pipe
+    with open(os.path.join(tmp, "pose_samples.pkl"), "wb") as f:
+        pickle.dump(samples, f)
+    batch = md_detector_batch(args.seed + 81)
+    np.savez(os.path.join(tmp, "det_batch.npz"), **batch)
+
+    # the one-process references
+    ref_pose, ref_pose_ms, model = md_pose(
+        torch, P, dev, None, samples, args.seed,
+        first_state=os.path.join(tmp, "pose_first_step.pt"))
+    ref_state = {k: v.detach().clone().cpu()
+                 for k, v in model.state_dict().items()}
+    del model
+    fused = state[2]
+    images8 = serving_images(torch, dev, args.seed + 2)
+    ref_fused = md_fused_outputs(torch, fused(images8))
+    _, ref_fused_ms = md_synced_ms(torch, lambda: fused(images8))
+    # the same program in one process on each rank's rows and budget:
+    # the shapes, hence cuDNN's algorithms, of the ranks' calls
+    half = B // MD_WORLD
+    halves = mods["build_fused_two_stage"](
+        state[0], state[1], bbox_thr=BBOX_THR, max_dets=MAX_DETS,
+        budget=half * MAX_DETS, device=dev)
+    parts = [md_fused_outputs(torch, halves(images8[r * half:
+                                                     (r + 1) * half]))
+             for r in range(MD_WORLD)]
+    for r, part in enumerate(parts):
+        part["img_idx"] = part["img_idx"] + r * half
+    ref_rows = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    del halves, parts
+    ref_det = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        terms, update, buffers, ms, _ = md_detector(
+            torch, P, dev, None, batch, args.seed, dtype,
+            os.path.join(tmp, f"proposals_{name}.pt"))
+        ref_det[name] = (terms, update, buffers, ms)
+    nudged = md_detector(torch, P, dev, None, batch, args.seed,
+                         torch.float32, os.path.join(tmp, "proposals_f32.pt"),
+                         nudge=True)[:3]
+    if dev.type == "cuda":          # the ranks share this card
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    print(f"multi-device references in {time.time() - t0:.1f} s",
+          flush=True)
+
+    t1 = time.time()
+    ranks = md_launch(tmp, "gloo", MD_WORLD, args.seed,
+                      f"{dev.type}:0" if dev.type == "cuda" else "cpu")
+    gloo_s = time.time() - t1
+    blob = torch.load(os.path.join(tmp, "gloo_rank0.pt"), weights_only=False)
+    for leg in ("pose", "det_f32", "det_bf16"):
+        if len({r[leg]["digest"] for r in ranks}) != 1:
+            fail(f"multi-device {leg}: the ranks' states differ")
+
+    # pose steps
+    pose_rec = []
+    for i, ref in enumerate(ref_pose):
+        got = ranks[0]["pose"]["metrics"][i]
+        rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        pose_rec.append({"loss_rel": rel, "pck": [got["pck_hit"],
+                                                   got["pck_cnt"]],
+                         "one_process_pck": [ref["pck_hit"],
+                                             ref["pck_cnt"]]})
+        if not rel <= MD_LOSS_REL or got["pck_hit"] != ref["pck_hit"] or \
+                got["pck_cnt"] != ref["pck_cnt"] or \
+                any(r["pose"]["metrics"][i] != got for r in ranks):
+            fail(f"multi-device pose step {i}: {got} vs one process {ref}")
+    float_keys = {k: v for k, v in ref_state.items()
+                  if v.is_floating_point()}
+    errs = md_state_errs(blob["pose_state"], float_keys)
+    over = sorted(((e, k) for k, e in errs.items()
+                   if not e <= MD_TENSOR_REL), reverse=True)
+    if over:
+        fail(f"multi-device pose state: {len(over)} tensors beyond "
+             f"{MD_TENSOR_REL} of their max abs: {over[:12]}")
+    # a record: the two steps' summed update against the one process's,
+    # each of its max abs (the gradients' rounding, not a gate)
+    start = seeded_weights(torch, P["PoseHighResolutionNet"](
+        P["get_hrnet_config"]("w32_256x192"), device="cpu"), args.seed + 3)
+    uerr, uworst = md_tensor_err(
+        {n: blob["pose_state"][n] - p.detach()
+         for n, p in start.named_parameters()},
+        {n: ref_state[n] - p.detach() for n, p in start.named_parameters()})
+    del start
+    pose_update = {"state_max_err": max(errs.values()),
+                   "update_max_err_of_max_abs": uerr[uworst],
+                   "update_worst": uworst, "update_median_err": float(
+                       np.median(list(uerr.values())))}
+
+    fused_rec = {
+        "vs_one_process_on_the_ranks_rows": md_fused_check(
+            blob["fused"], ref_rows, B),
+        # B = 8 in one call: other shapes, other cuDNN algorithms (a
+        # record for the maxima)
+        "vs_one_process_b8": md_fused_check(blob["fused"], ref_fused, B,
+                                            maxval_tol=None)}
+
+    det_rec = {}
+    for name in ("f32", "bf16"):
+        terms, update, buffers, _ = ref_det[name]
+        got_terms = ranks[0][f"det_{name}"]["terms"]
+        got_update, got_buffers = blob["dets"][name]
+        rel = {k: abs(got_terms[k] - v) / abs(v) for k, v in terms.items()
+               if k != "finite"}
+        uerr, uworst = md_tensor_err(got_update, update)
+        berr, bworst = md_tensor_err(got_buffers, buffers)
+        det_rec[name] = {"terms_rel": rel, "update_max_err_of_max_abs":
+                         uerr[uworst], "update_worst": uworst,
+                         "update_median_err": float(np.median(
+                             list(uerr.values()))),
+                         "statistics_max_err_of_max_abs": berr[bworst]}
+        if got_terms["finite"] != 1.0:
+            fail(f"multi-device detector {name}: a non-finite loss")
+    f32u, bf16u = ref_det["f32"][1], ref_det["bf16"][1]
+    own, _ = md_tensor_err(bf16u, f32u)
+    det_rec["bf16"]["bf16_vs_f32_update_max_err"] = max(own.values())
+    det_rec["bf16"]["bf16_vs_f32_update_median_err"] = float(
+        np.median(list(own.values())))
+    drift = {k: abs(ref_det["bf16"][0][k] - v) / abs(v)
+             for k, v in ref_det["f32"][0].items() if k != "finite"}
+    det_rec["bf16"]["bf16_vs_f32_terms_rel"] = drift
+    f, b = det_rec["f32"], det_rec["bf16"]
+    # the one-process f32 step's response to its input moved one f32 step
+    # (its gradient's own rounding; deep random weights cancel in the
+    # trunk's backward)
+    nerr, nworst = md_tensor_err(nudged[1], f32u)
+    f["nudged_update_max_err"], f["nudged_update_worst"] = \
+        nerr[nworst], nworst
+    f["nudged_update_median_err"] = float(np.median(list(nerr.values())))
+    f["nudged_terms_rel"] = {k: abs(nudged[0][k] - v) / abs(v) for k, v in
+                             ref_det["f32"][0].items() if k != "finite"}
+    # the state after the step (parameters: before + update) against the
+    # one process's, as the pose state is held
+    start = seeded_bn_statistics(torch, seeded_weights(
+        torch, P["FasterRCNN"](P["FasterRCNNConfig"](), "cpu"),
+        args.seed + 33), args.seed + 34)
+    got, ref, nud = [{**{n: p.detach() + upd[n]
+                         for n, p in start.named_parameters()}, **bufs}
+                     for upd, bufs in (blob["dets"]["f32"],
+                                       ref_det["f32"][1:3], nudged[1:3])]
+    del start
+    serr, nserr = md_state_errs(got, ref), md_state_errs(nud, ref)
+    sworst = max(serr, key=serr.get)
+    f["state_max_err"], f["state_worst"] = serr[sworst], sworst
+    f["nudged_state_max_err"] = max(nserr.values())
+    # the forward is held at 1e-5 and the statistics at 1e-4; the
+    # gradient, where its own rounding exceeds that, at MD_NUDGE_FACTOR
+    # times the step's response to the nudge
+    if not (max(f["terms_rel"].values()) <= MD_LOSS_REL and
+            f["statistics_max_err_of_max_abs"] <= MD_TENSOR_REL and
+            serr[sworst] <= max(MD_TENSOR_REL, MD_NUDGE_FACTOR *
+                                f["nudged_state_max_err"]) and
+            f["update_max_err_of_max_abs"] <= MD_NUDGE_FACTOR *
+            f["nudged_update_max_err"] and
+            f["update_median_err"] <= MD_NUDGE_FACTOR *
+            f["nudged_update_median_err"]):
+        fail(f"multi-device detector f32 step: {f}")
+    if not (all(b["terms_rel"][k] <= max(MD_LOSS_REL, drift[k])
+                for k in drift) and
+            b["update_max_err_of_max_abs"] <=
+            b["bf16_vs_f32_update_max_err"] and
+            b["update_median_err"] <= b["bf16_vs_f32_update_median_err"]):
+        fail(f"multi-device detector bf16 step beyond its own bound: {b}")
+    nan = [r["nan_step"] for r in ranks]
+    if [n["planted_here"] for n in nan] != [False, True] or \
+            not all(n["params_held"] and n["finite"] == 0.0 and
+                    not n["loss_finite"] for n in nan):
+        fail(f"multi-device non-finite guard: {nan}")
+
+    launches = {}
+    for r, res in enumerate(ranks):
+        missing = [k for k in MD_REQUIRED if not res["launches"][k]]
+        if missing:
+            fail(f"multi-device rank {r}: not launched: {missing}")
+        launches[f"multi_device_rank{r}"] = res["launches"]
+
+    # one NCCL rank through get_mesh() from torchrun's environment
+    t1 = time.time()
+    nccl, = md_launch(tmp, "nccl", 1, args.seed, dev.type, env={
+        "RANK": "{rank}", "WORLD_SIZE": "1", "LOCAL_RANK": "{rank}",
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "{port}"})
+    nccl_s = time.time() - t1
+    g = nccl["group"]
+    backend = "nccl" if dev.type == "cuda" else "gloo"   # CPU rehearsal
+    if g["backend"] != backend or g["world"] != 1 or \
+            g["mesh"] != "DeviceMesh" or g["all_reduce"] != [2.0] * 3 or \
+            any(not abs(sm["loss"] - pm["loss"]) / abs(pm["loss"]) <=
+                MD_LOSS_REL or (sm["pck_hit"], sm["pck_cnt"]) !=
+                (pm["pck_hit"], pm["pck_cnt"])
+                for sm, pm in zip(nccl["sharded"], nccl["plain"])):
+        fail(f"NCCL leg: {nccl}")
+    if not (nccl["launches"]["heatmap_peaks"] and
+            nccl["launches"]["warp_two_pass"]):
+        fail(f"NCCL leg: K1 or K4 not launched: {nccl['launches']}")
+    launches["multi_device_nccl"] = nccl["launches"]
+
+    summary = {
+        "note": "2 gloo ranks on one card (every collective through the "
+                "host) beside one process: not a scaling figure",
+        "world": MD_WORLD, "gloo_launch_s": gloo_s, "nccl_launch_s": nccl_s,
+        "pose_step_ms": {"one_process_b32": ref_pose_ms,
+                         "two_ranks_b16_each": [r["pose"]["ms"]
+                                                for r in ranks]},
+        "fused_call_ms": {"one_process_b8": ref_fused_ms,
+                          "two_ranks_b4_each": [r["fused"]["ms"]
+                                                for r in ranks]},
+        "detector_step_ms": {
+            name: {"one_process_b8": ref_det[name][3],
+                   "two_ranks_b4_each": [r[f"det_{name}"]["ms"]
+                                         for r in ranks]}
+            for name in ("f32", "bf16")},
+        "pose": pose_rec, "pose_state": pose_update, "fused": fused_rec,
+        "detector": det_rec,
+        "nan_step": nan,
+        "nccl": {**g, "steps": nccl["sharded"],
+                 "unsharded": nccl["plain"],
+                 "second_step_ms": nccl["sharded_ms"],
+                 "unsharded_second_step_ms": nccl["plain_ms"]},
+        "launches": launches}
+    print("multi-device phase:", json.dumps(summary), flush=True)
+    print(f"multi-device phase in {time.time() - t0:.1f} s", flush=True)
+    return launches, summary
+
+
 def profile_program(torch, fn, ms_per_call, out_dir, label, expect=(),
                     forbid=None):
     """One call of ``fn`` (after one outside it) under torch.profiler:
@@ -6202,12 +6900,21 @@ def main():
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default=None,
                     help="directory for the profile's 40 largest kernels")
+    # one rank of phase 5i, started by the phase itself
+    ap.add_argument("--rank-worker", choices=("gloo", "nccl"),
+                    help=argparse.SUPPRESS)
+    for name in ("--rank", "--world", "--port"):
+        ap.add_argument(name, type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
+    ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.rank_worker:
+        return rank_worker(args)
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import importlib
@@ -6441,6 +7148,10 @@ def main():
         serve_launches, serving_export = serving_export_path(
             torch, mods, dev, args, tmp, state)
     serving_export["card"] = card
+    with tempfile.TemporaryDirectory() as tmp:
+        md_launches, multi_device = multi_device_path(torch, mods, dev, args,
+                                                      tmp, state)
+    multi_device["card"] = card
 
     # torch.profiler from here on: every host-clock and CUDA-event time
     # above was taken before its first session
@@ -6460,7 +7171,8 @@ def main():
                    "retrieval": ret_launches[k["name"]],
                    **{p: n[k["name"]] for p, n in effdet_launches.items()},
                    **{f"serving_export_{p}": n[k["name"]]
-                      for p, n in serve_launches.items()}}
+                      for p, n in serve_launches.items()},
+                   **{p: n[k["name"]] for p, n in md_launches.items()}}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         kernels.append(k)
@@ -6576,7 +7288,8 @@ def main():
                       "style": style, "detector_training": det_train,
                       "detector_training_bf16": det_bf16,
                       "retrieval": retrieval, "efficientdet": effdet,
-                      "serving_export": serving_export}))
+                      "serving_export": serving_export,
+                      "multi_device": multi_device}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -107,12 +107,13 @@ def load_dataset(exp_data: dict, train: bool = True, validation: bool = True,
                  shuffle_train: bool = False, shuffle_valid: bool = False,
                  perceptual_loss_dict=None, num_workers: int | None = None,
                  pad_multiple: int = 1, data_path: str | None = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """Pose pipelines for the experiment, cropping on the device or on the
     host as ``dataset.device_warp`` says and making their batches on
-    ``device``; ``dataset.inline_style`` stylizes the train crops (and
-    the validation crops with ``apply_to_valid``) on ``device``. Returns
-    (train_pipeline, valid_pipeline); either may be None."""
+    ``device`` (on a ``mesh``, this rank's rows); ``dataset.inline_style``
+    stylizes the train crops (and the validation crops with
+    ``apply_to_valid``) on ``device``. Returns (train_pipeline,
+    valid_pipeline); either may be None."""
     d = exp_data["dataset"]
     dw = bool(d.get("device_warp", False))
     ics = d.get("inline_style")
@@ -130,7 +131,7 @@ def load_dataset(exp_data: dict, train: bool = True, validation: bool = True,
             shuffle=shuffle_train, num_workers=nw,
             pad_multiple=pad_multiple, drop_last=True, device_warp=dw,
             device=device, stylizer=stylizer, style_bank=style_bank,
-            style_alpha=style_alpha)
+            style_alpha=style_alpha, mesh=mesh)
     if validation:
         recs = build_pose_records(exp_data, "valid", perceptual_loss_dict,
                                   data_path=data_path)
@@ -139,7 +140,7 @@ def load_dataset(exp_data: dict, train: bool = True, validation: bool = True,
             num_workers=nw, pad_multiple=pad_multiple, device_warp=dw,
             device=device, stylizer=stylizer if styled_valid else None,
             style_bank=style_bank if styled_valid else None,
-            style_alpha=style_alpha)
+            style_alpha=style_alpha, mesh=mesh)
     return train_pipe, valid_pipe
 
 

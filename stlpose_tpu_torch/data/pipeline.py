@@ -25,6 +25,12 @@ its crops on the device before they are normalised (the inline AdaIN
 stylizer, ``models/adain.py``, with a bank of style exemplars; the
 exemplar of each crop drawn from the pipeline's ``RandomState`` after
 padding, as in the JAX package); the device-warp mode refuses a stylizer.
+
+On a ``mesh`` of W ranks every rank's pipeline draws the same global
+batch (same records, order and augmentation draws), padded to a multiple
+of W, and uploads, warps and finalizes only its own rows
+(``parallel/mesh.py::shard_batch``): the batch's device tensors are this
+rank's rows, its host metadata the global batch's.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from stlpose_tpu_torch.data.pose_dataset import (HEATMAP_SIZE, IMAGE_SIZE,
 from stlpose_tpu_torch.ops.affine import apply_affine, get_affine_matrix
 from stlpose_tpu_torch.ops.heatmap import generate_targets
 from stlpose_tpu_torch.ops.warp import affine_warp, affine_warp_two_pass
+from stlpose_tpu_torch.parallel.mesh import shard_batch
 
 
 def _normalise(crops):
@@ -109,6 +116,7 @@ class PoseDataPipeline:
       stylizer, style_bank, style_alpha: the inline stylizer (an
         ``AdaINStylizer`` on ``device``), its exemplars (S, 256, 192, 3)
         in [0, 1] and its alpha; host warp only.
+      mesh: make only this rank's rows on the device (None: all rows).
     """
 
     def __init__(self, records: Sequence[PoseRecord], batch_size: int,
@@ -117,7 +125,7 @@ class PoseDataPipeline:
                  pad_multiple: int = 1, drop_last: bool = False,
                  seed: int = 13, device_warp: bool = True,
                  canvas_size: int = 640, device="cuda", stylizer=None,
-                 style_bank=None, style_alpha=1.0):
+                 style_bank=None, style_alpha=1.0, mesh=None):
         self.records = list(records)
         self.batch_size = batch_size
         self.is_train = is_train
@@ -128,6 +136,7 @@ class PoseDataPipeline:
         self.device_warp = device_warp
         self.canvas_size = canvas_size
         self.device = resolve_device(device)
+        self.mesh = mesh
         if device_warp and stylizer is not None:
             # the device-warp finalize normalises inside its own program;
             # skipping the stylizer there would be a wrong result
@@ -262,16 +271,16 @@ class PoseDataPipeline:
             n_valid, [np.stack([s[k] for s in samples]) for k in range(3)],
             [s[3] for s in samples])
         dev = self.device
-        crops_dev = torch.from_numpy(crops.astype(np.uint8)).to(dev)
+        sidx = None
         if self.stylizer is not None and self.style_bank is not None:
             sidx = self.rng.randint(0, len(self.style_bank), len(crops))
+        crops_dev, joints_dev, vis_dev, sidx = shard_batch(
+            self.mesh, [crops.astype(np.uint8), joints, vis, sidx], dev)
+        if sidx is not None:
             crops_dev = self.stylizer(
-                crops_dev.to(torch.float32) / 255.0,
-                self.style_bank[torch.from_numpy(sidx).to(dev)],
+                crops_dev.to(torch.float32) / 255.0, self.style_bank[sidx],
                 alpha=self.style_alpha) * 255.0
-        x, target, weight = device_finalize(
-            crops_dev, torch.from_numpy(joints).to(dev),
-            torch.from_numpy(vis).to(dev))
+        x, target, weight = device_finalize(crops_dev, joints_dev, vis_dev)
         return {"image": x, "target": target, "target_weight": weight,
                 "joints": joints, "joints_vis": vis,
                 **self._host_meta(metas, n_valid)}
@@ -285,15 +294,12 @@ class PoseDataPipeline:
         arrays = [np.stack([s[k] for s in samples]) for k in (0, 1, 2, 4, 5)]
         arrays.insert(3, np.asarray([s[3] for s in samples], np.float32))
         arrays, metas = self._pad(n_valid, arrays, [s[6] for s in samples])
-        canvases, centers, scales, rots, joints, vis = arrays
-        dev = self.device
         x, target, weight, joints_crop = device_warp_finalize(
-            *(torch.from_numpy(a).to(dev) for a in
-              (canvases, centers, scales, rots, joints, vis)),
+            *shard_batch(self.mesh, arrays, self.device),
             # no augmentation: rot is 0, the conditioning test is skipped
             may_rotate=self.aug is not None)
         return {"image": x, "target": target, "target_weight": weight,
-                "joints": joints_crop, "joints_vis": vis,
+                "joints": joints_crop, "joints_vis": arrays[5],
                 **self._host_meta(metas, n_valid)}
 
 

@@ -12,18 +12,24 @@ valid pipeline, with a plateau scheduler on AP (mode max);
 ``detector_logs.json`` and checkpoints under ``models/detector/``; resume
 from a checkpoint.
 
-One device, ``device`` ("cuda" unless the caller asks for the CPU). The
-serving flavors are arguments, where the JAX factory and detector read
-``STLPOSE_DTYPE``, ``STLPOSE_FRCNN_TRUNK_QUANT`` and
-``STLPOSE_PALLAS_ROI_INT8``; the scripts read those names and pass them
-on. Training runs the live trunk on f32 weights, computing in the
-trainer's ``dtype`` (f32, or bf16 on f32 master weights as the reference
-trains under ``STLPOSE_DTYPE=bfloat16``); its checkpoints hold f32
-weights either way. ``DetectorEvaluator`` serves
-every trunk flavor: live, folded, and the int8 PTQ trunks, calibrated on
-the first validation batch. Both reference families build here: Faster
-R-CNN and EfficientDet (``efficientdet`` with ``model.detector_type`` d0
-or d3, ``efficientdet_d0``, ``efficientdet_d3``, ``efficientdet_tiny``),
+On ``device`` ("cuda" unless the caller asks for the CPU), and on a
+data-parallel mesh of every rank when the process group is up
+(``parallel/mesh.py::get_mesh``): the pipelines pad their batches to a
+multiple of the mesh, each rank uploads its rows, the train step reduces
+over the mesh (``parallel/detector_steps.py``), predictions are gathered
+onto every rank before the AP, and rank 0 writes logs, stats and
+checkpoint files. The serving flavors are arguments, where the JAX
+factory and detector read ``STLPOSE_DTYPE``,
+``STLPOSE_FRCNN_TRUNK_QUANT`` and ``STLPOSE_PALLAS_ROI_INT8``; the
+scripts read those names and pass them on. Training runs the live trunk
+on f32 weights, computing in the trainer's ``dtype`` (f32, or bf16 on
+f32 master weights as the reference trains under
+``STLPOSE_DTYPE=bfloat16``); its checkpoints hold f32 weights either
+way. ``DetectorEvaluator`` serves every trunk flavor: live, folded, and
+the int8 PTQ trunks, calibrated on the first validation batch. Both
+reference families build here: Faster R-CNN and EfficientDet
+(``efficientdet`` with ``model.detector_type`` d0 or d3,
+``efficientdet_d0``, ``efficientdet_d3``, ``efficientdet_tiny``),
 whose only serving flavor is ``dtype``.
 """
 
@@ -52,6 +58,9 @@ from stlpose_tpu_torch.models.faster_rcnn import FasterRCNN
 from stlpose_tpu_torch.models import quantize
 from stlpose_tpu_torch.parallel.detector_steps import (
     make_detector_predict, make_detector_train_step)
+from stlpose_tpu_torch.parallel.distributed import (all_gather_host,
+                                                    process_index)
+from stlpose_tpu_torch.parallel.mesh import get_mesh, shard_batch
 from stlpose_tpu_torch.parallel.steps import MetricAccumulator
 from stlpose_tpu_torch.train.loss import load_perceptual_loss_dict
 from stlpose_tpu_torch.train.optim import (build_scheduler, get_current_lr,
@@ -156,13 +165,12 @@ def _detection_pipeline(exp_data, det_cfg, split, **kw):
     return get_detection_dataset(exp, split, **kw)
 
 
-def _device_batch(batch, device) -> dict:
+def _device_batch(batch, device, mesh=None) -> dict:
     """The train step's inputs of a pipeline batch, on ``device``: the
     image (a host array, or the stylizer's device tensor) and the padded
-    targets."""
-    return {k: torch.as_tensor(batch[k], device=device)
-            for k in ("image", "boxes", "labels", "box_mask",
-                      "perceptual_loss")}
+    targets; on a ``mesh``, this rank's rows."""
+    return shard_batch(mesh, {k: batch[k] for k in (
+        "image", "boxes", "labels", "box_mask", "perceptual_loss")}, device)
 
 
 class DetectorTrainer:
@@ -201,10 +209,11 @@ class DetectorTrainer:
                 self.use_perceptual_loss)
         except FileNotFoundError as e:
             print_(str(e), type="warning")
+        self.mesh = get_mesh(device=self.device)
         self.detector, self.det_cfg = live_template_detector(
             self.exp_data, self.detector_config, self.device, self.dtype)
         kw = dict(num_workers=self.num_workers, data_path=self.data_path,
-                  device=self.device)
+                  device=self.device, pad_multiple=self.mesh.size())
         self.train_pipe = _detection_pipeline(
             self.exp_data, self.det_cfg, "train",
             shuffle=self.exp_data["dataset"].get("shuffle_train", False),
@@ -236,7 +245,8 @@ class DetectorTrainer:
                      or self.exp_data["training"].get("perceptual_loss"))):
             perceptual_cfg = {**self.exp_data, "training": {
                 **self.exp_data["training"], "perceptual_loss": True}}
-        self.train_step = make_detector_train_step(perceptual_cfg)
+        self.train_step = make_detector_train_step(perceptual_cfg,
+                                                   mesh=self.mesh)
         self.predict = make_detector_predict(self.detector)
         self.generator = torch.Generator(device=self.device).manual_seed(
             CONFIG["random_seed"] + 1)
@@ -245,9 +255,9 @@ class DetectorTrainer:
     def train_epoch(self, epoch: int) -> float:
         acc = MetricAccumulator(finite_only=("loss",))
         for batch in self.train_pipe:
-            metrics = self.train_step(self.state,
-                                      _device_batch(batch, self.device),
-                                      self.generator)
+            metrics = self.train_step(
+                self.state, _device_batch(batch, self.device, self.mesh),
+                self.generator)
             acc.update(metrics)                 # device-side; no host sync
         stats = acc.fetch()                     # one fetch per train epoch
         # nan when no batch gave a finite loss, as the reference returns
@@ -260,7 +270,7 @@ class DetectorTrainer:
                          ) -> float:
         """COCO bbox AP over the valid pipeline."""
         ap = evaluate_detector(self.predict, self.valid_pipe, self.device,
-                               limit=limit)
+                               limit=limit, mesh=self.mesh)
         print_(f"Detector valid AP: {ap[0]:.4f}")
         return float(ap[0])
 
@@ -268,7 +278,10 @@ class DetectorTrainer:
         exp = self.exp_data
         num_epochs = exp["training"]["num_epochs"]
         save_freq = exp["training"]["save_frequency"]
-        if self.checkpoint is None or not self.resume_training:
+        rank0 = process_index() == 0
+        if not rank0:
+            self.logs = None
+        elif self.checkpoint is None or not self.resume_training:
             self.logs = create_detector_logs(self.exp_path)
         else:
             self.logs = load_detector_logs(self.exp_path)
@@ -282,8 +295,9 @@ class DetectorTrainer:
                 if new_lr != lr:
                     print_(f"LR {lr} -> {new_lr}")
                     set_current_lr(self.state.optimizer, new_lr)
-            update_detector_logs(self.exp_path, self.logs, train_loss,
-                                 valid_ap)
+            if rank0:
+                update_detector_logs(self.exp_path, self.logs, train_loss,
+                                     valid_ap)
             if epoch % save_freq == 0:
                 save_checkpoint(self.state, self.exp_path, epoch,
                                 scheduler=self.scheduler, detector=True)
@@ -313,17 +327,20 @@ def load_detector_pretrained(detector, pth_path: str | None):
 
 
 def evaluate_detector(predict, pipe, device, limit: int | None = None,
-                      score_thr: float = 0.0):
+                      score_thr: float = 0.0, mesh=None):
     """Detections over a pipeline and their COCO bbox AP (12 stats)
     against the pipeline's own ground truth, built in memory; all -1 when
-    nothing was detected."""
+    nothing was detected. On a ``mesh`` each rank predicts its rows of
+    each batch and the detections are gathered onto every rank, which all
+    score the same AP."""
     gt_samples, results = [], []
     for bi, batch in enumerate(pipe):
         if limit is not None and bi >= limit:
             break
-        dets = predict(torch.as_tensor(batch["image"], device=device))
-        dets = {k: v.float().cpu().numpy() if v.is_floating_point()
-                else v.cpu().numpy() for k, v in dets.items()}
+        dets = predict(shard_batch(mesh, batch["image"], device))
+        dets = all_gather_host({k: v.float().cpu().numpy()
+                                if v.is_floating_point() else v.cpu().numpy()
+                                for k, v in dets.items()})
         for i in range(batch["n_valid"]):
             img_id = int(batch["image_id"][i])
             scale = float(batch["scale"][i])
@@ -378,10 +395,11 @@ class DetectorEvaluator:
         trunks calibrate on the first validation batch."""
         template, self.det_cfg = live_template_detector(
             self.exp_data, self.detector_config, self.device)
+        self.mesh = get_mesh(device=self.device)
         self.pipe = _detection_pipeline(
             self.exp_data, self.det_cfg, "valid",
             num_workers=self.num_workers, data_path=self.data_path,
-            device=self.device)
+            device=self.device, pad_multiple=self.mesh.size())
         if self.checkpoint is not None:
             load_detector_checkpoint(template, self.exp_path,
                                      self.checkpoint)
@@ -398,8 +416,9 @@ class DetectorEvaluator:
         self.predict = make_detector_predict(self.detector)
 
     def evaluate(self, save_stats: bool = True):
-        stats = evaluate_detector(self.predict, self.pipe, self.device)
-        if save_stats:
+        stats = evaluate_detector(self.predict, self.pipe, self.device,
+                                  mesh=self.mesh)
+        if save_stats and process_index() == 0:
             save_evaluation_stats(
                 self.exp_path, stats, detector=True,
                 dataset_name=self.exp_data["dataset"]["dataset_name"],

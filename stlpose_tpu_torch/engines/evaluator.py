@@ -8,7 +8,14 @@ rescoring and OKS-NMS -> submission file -> COCO keypoint AP over the
 evaluated images -> stats JSON keyed by checkpoint.
 
 Batch k's keypoints come to the host only after batch k+1's step is
-enqueued, and the metric sums are fetched once, after the last batch. The
+enqueued, and the metric sums are fetched once, after the last batch.
+
+On a data-parallel mesh (``parallel/mesh.py::get_mesh``: every rank of
+the process group) each rank's loader makes the same global batch, padded
+to a multiple of the mesh, and warps and evaluates its own rows; the
+decoded keypoints are gathered onto every rank (``all_gather_host``) and
+the padding dropped; rank 0 writes the submission and scores it, and the
+stats are broadcast, so every rank returns the same vector. The
 compute dtype is the constructor's ``dtype`` (the reference reads the
 ``STLPOSE_DTYPE`` environment variable); BatchNorm and the heatmaps stay
 f32.
@@ -30,6 +37,10 @@ from stlpose_tpu_torch.eval.submission import (compute_precision,
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
 from stlpose_tpu_torch.ops.affine import get_affine_matrix_np
 from stlpose_tpu_torch.ops.pose_entries import unnormalize
+from stlpose_tpu_torch.parallel.distributed import (all_gather_host,
+                                                    broadcast_host,
+                                                    process_index)
+from stlpose_tpu_torch.parallel.mesh import get_mesh, shard_batch
 from stlpose_tpu_torch.parallel.steps import (MetricAccumulator,
                                               make_eval_decode_step)
 from stlpose_tpu_torch.train.state import create_train_state
@@ -69,12 +80,13 @@ def records_to_coco_gt(records):
                  "categories": [{"id": 1, "name": "person"}]})
 
 
-def device_batch(batch, device):
+def device_batch(batch, device, mesh=None):
     """The eval step's inputs from a pipeline batch: the device tensors,
-    with the host metadata's centres and scales uploaded."""
+    with the host metadata's centres and scales uploaded (on a ``mesh``,
+    this rank's rows)."""
     out = {k: batch[k] for k in ("image", "target", "target_weight")}
-    for k in ("center", "scale"):
-        out[k] = torch.from_numpy(batch[k]).to(device)
+    out.update(shard_batch(mesh, {k: batch[k] for k in ("center", "scale")},
+                           device))
     return out
 
 
@@ -106,9 +118,11 @@ class PoseEvaluator:
 
     def setup_model_dataset(self, config_name: str = "w32_256x192",
                             pretrained: str | None = "default"):
+        self.mesh = get_mesh(device=self.device)
         _, self.valid_pipe = load_dataset(
             self.exp_data, train=False, data_path=self.data_path,
-            num_workers=self.num_workers, device=self.device)
+            num_workers=self.num_workers, device=self.device,
+            pad_multiple=self.mesh.size(), mesh=self.mesh)
         # random init from the experiment seed, without touching the
         # caller's generator
         with torch.random.fork_rng(devices=[]):
@@ -124,7 +138,8 @@ class PoseEvaluator:
             self.state, _ = load_checkpoint(self.state, self.exp_path,
                                             self.checkpoint, only_model=True)
         self.eval_decode = make_eval_decode_step(self.model,
-                                                 flip_tta=self.flip)
+                                                 flip_tta=self.flip,
+                                                 mesh=self.mesh)
 
     def evaluate_model(self, labels_file: str | None = None,
                        write_every: int = 2000):
@@ -137,22 +152,24 @@ class PoseEvaluator:
                                            "person_keypoints_val.json")
             else:
                 labels_file = records_to_coco_gt(self.valid_pipe.records)
-        reset_predictions_file(self.exp_path)
+        rank0 = process_index() == 0
+        if rank0:
+            reset_predictions_file(self.exp_path)
         self._pending_host = ([], [], [])
         self._write_every = write_every
 
         acc = MetricAccumulator()
         pending = None
         for batch in self.valid_pipe:
-            preds, metrics = self.eval_decode(device_batch(batch,
-                                                           self.device))
+            preds, metrics = self.eval_decode(device_batch(
+                batch, self.device, self.mesh))
             acc.update(metrics)                 # device-side; no host sync
             if pending is not None:
                 self.consume(*pending)
             pending = (preds, batch)
         if pending is not None:
             self.consume(*pending)
-        if self._pending_host[2]:
+        if self._pending_host[2] and rank0:
             self._flush()
 
         stats = acc.fetch()                     # the one metrics fetch
@@ -162,8 +179,10 @@ class PoseEvaluator:
                           if stats.get("pck_cnt_sum") else 0.0)
         print_(f"Eval Loss: {self.valid_loss}  PCK: {self.valid_acc}")
 
-        stats = compute_precision(self.preds_file, labels_file)
-        if self.save_results:
+        stats = (compute_precision(self.preds_file, labels_file) if rank0
+                 else None)
+        stats = broadcast_host(stats)
+        if self.save_results and rank0:
             save_evaluation_stats(
                 self.exp_path, stats,
                 dataset_name=exp["dataset"]["dataset_name"],
@@ -176,11 +195,13 @@ class PoseEvaluator:
         """Host side of one batch: fetch its decoded keypoints (called after
         the next batch's step is enqueued, so the fetch overlaps that
         forward), keep them with their boxes and image ids, and write the
-        submission every ``write_every`` persons."""
+        submission every ``write_every`` persons. On a mesh the ranks'
+        keypoints are gathered first, and rank 0 draws and writes."""
         all_preds, all_boxes, image_ids = self._pending_host
         n = batch["n_valid"]
-        preds = preds_dev[:n].cpu().numpy()
-        if self.save_visualizations and \
+        preds = all_gather_host(preds_dev.cpu().numpy())[:n]
+        rank0 = process_index() == 0
+        if self.save_visualizations and rank0 and \
                 self._n_vis < self.max_visualizations:
             self._dump_visualizations(batch, preds)
         center, scale = batch["center"][:n], batch["scale"][:n]
@@ -190,7 +211,9 @@ class PoseEvaluator:
             [center, scale, area[:, None], batch["score"][:n, None]], axis=1))
         image_ids.extend(batch["image_id"][:n].tolist())
         if len(image_ids) >= self._write_every:
-            self._flush()
+            if rank0:
+                self._flush()
+            self._pending_host = ([], [], [])
 
     def _dump_visualizations(self, batch, preds):
         """The predicted skeletons drawn over the un-normalised input crops
@@ -198,7 +221,9 @@ class PoseEvaluator:
         ``max_visualizations`` crops are drawn."""
         out_dir = os.path.join(self.exp_path, "plots", "eval_examples")
         os.makedirs(out_dir, exist_ok=True)
-        n = min(len(preds), self.max_visualizations - self._n_vis)
+        # on a mesh rank 0 holds the first rows of the batch's crops
+        n = min(len(preds), self.max_visualizations - self._n_vis,
+                batch["image"].shape[0])
         imgs = batch["image"][:n].float().cpu().numpy()
         for i in range(n):
             # image-space predictions into the crop

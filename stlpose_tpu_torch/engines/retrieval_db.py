@@ -10,7 +10,10 @@ Port of ``stlpose_tpu/engines/retrieval_db.py``, the engines behind
   coordinates scaled to the 256x192 crop frame and a ``maxval >=
   kpt_thr`` visibility flag; pickled as ``database_{ds}_{exp}_eval.pkl``.
   The database holds numpy arrays, so either package's 06 reads the
-  other's 05 output. The compute dtype is the constructor's ``dtype``
+  other's 05 output. On a data-parallel mesh (every rank of the process
+  group) each rank infers its rows of each batch, padded to a multiple of
+  the mesh, the peaks are gathered onto every rank and rank 0 writes the
+  database. The compute dtype is the constructor's ``dtype``
   (the reference reads ``STLPOSE_DTYPE``).
 - ``RetrievalExperimenter``: query-all retrieval scoring at character and
   narrative level with grouped result JSONs (host numpy, as in the JAX
@@ -31,10 +34,14 @@ from stlpose_tpu_torch.config import CONFIG, get_hrnet_config
 from stlpose_tpu_torch.data.loaders import load_dataset
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
 from stlpose_tpu_torch.ops.decode import heatmap_argmax
+from stlpose_tpu_torch.parallel.distributed import (all_gather_host,
+                                                    barrier, process_index)
+from stlpose_tpu_torch.parallel.mesh import get_mesh
 from stlpose_tpu_torch.parallel.steps import make_infer_fn
 from stlpose_tpu_torch.retrieval import (get_neighbors_idxs, load_knn,
                                          process_pose_vector, save_database,
                                          score_retrievals)
+from stlpose_tpu_torch.retrieval.pose_db import database_path
 from stlpose_tpu_torch.train.state import create_train_state
 from stlpose_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                 load_pretrained_variables)
@@ -67,9 +74,11 @@ class ArchDataExtractor:
         self.retrieval_db = {}
 
     def setup(self, config_name: str = "w32_256x192", pretrained=None):
+        self.mesh = get_mesh(device=self.device)
         _, self.pipe = load_dataset(
             self.exp_data, train=False, data_path=self.data_path,
-            num_workers=self.num_workers, device=self.device)
+            num_workers=self.num_workers, device=self.device,
+            pad_multiple=self.mesh.size(), mesh=self.mesh)
         # random init from the experiment seed, without touching the
         # caller's generator
         with torch.random.fork_rng(devices=[]):
@@ -83,7 +92,8 @@ class ArchDataExtractor:
                                             self.checkpoint, only_model=True)
         # flip-TTA heatmaps, no image-space decode: the database's poses
         # live in crop coordinates
-        self.infer = make_infer_fn(self.model, flip_tta=True, decode=False)
+        self.infer = make_infer_fn(self.model, flip_tta=True, decode=False,
+                                   mesh=self.mesh)
 
     def batch_peaks(self, images, n: int):
         """The device work of one batch: flip-TTA heatmaps, then K1's
@@ -123,14 +133,22 @@ class ArchDataExtractor:
         character_name}} over the eval split."""
         records = records if records is not None else self.pipe.records
         for batch in self.pipe:
-            peaks, hw = self.batch_peaks(batch["image"], batch["n_valid"])
-            self.add_batch(peaks.cpu().numpy(), hw, batch, records)
+            # this rank's rows (all of them: the padding is dropped after
+            # the gather)
+            peaks, hw = self.batch_peaks(batch["image"],
+                                         batch["image"].shape[0])
+            peaks = all_gather_host(peaks.cpu().numpy())[:batch["n_valid"]]
+            self.add_batch(peaks, hw, batch, records)
         return self.retrieval_db
 
     def save_retrieval_db(self, root=None) -> str:
+        """Rank 0 writes the database; every rank returns its path."""
         name = (f"{self.exp_data['dataset']['dataset_name']}_"
                 f"{os.path.basename(self.exp_path)}")
-        return save_database(self.retrieval_db, name, "eval", root)
+        if process_index() == 0:
+            save_database(self.retrieval_db, name, "eval", root)
+        barrier()
+        return database_path(name, "eval", root)
 
 
 def load_character_narrative_maps(dict_path: str | None = None):

@@ -11,9 +11,15 @@ tensorboardX, no plots without matplotlib); a checkpoint every
 traces the first train epoch. Metrics stay on the device and are fetched
 once per epoch or logging window.
 
-One device, ``device`` ("cuda" unless the caller asks for the CPU), and
-the compute ``dtype`` as an argument (the reference reads
-``STLPOSE_DTYPE``; the scripts read it and pass it on). Parameters,
+On ``device`` ("cuda" unless the caller asks for the CPU), and on a
+data-parallel mesh of every rank when the process group is up (``torchrun
+--nproc-per-node N``; ``parallel/mesh.py::get_mesh``): every rank's
+loader yields the same global batch, padded to a multiple of the mesh,
+and uploads and warps its own rows; the steps reduce gradients and
+metrics over the mesh; logs, plots, the TensorBoard writer and the
+checkpoint files come from rank 0. The compute ``dtype`` is an argument
+(the reference reads ``STLPOSE_DTYPE``; the scripts read it and pass it
+on). Parameters,
 gradients and the optimizer's moments are f32 in either dtype: with bf16
 each convolution runs on a bf16 cast of its f32 weight, and BatchNorm and
 the loss stay f32, as in the JAX package.
@@ -30,6 +36,9 @@ from stlpose_tpu_torch import resolve_device
 from stlpose_tpu_torch.config import CONFIG, get_hrnet_config
 from stlpose_tpu_torch.data.loaders import load_dataset
 from stlpose_tpu_torch.models.hrnet import PoseHighResolutionNet
+from stlpose_tpu_torch.parallel.distributed import (initialize_distributed,
+                                                    process_index)
+from stlpose_tpu_torch.parallel.mesh import get_mesh, shard_batch
 from stlpose_tpu_torch.parallel.steps import (MetricAccumulator,
                                               make_eval_step,
                                               make_train_step)
@@ -81,6 +90,9 @@ class PoseTrainer:
         self.writer = self._make_writer()
 
     def _make_writer(self):
+        initialize_distributed()
+        if process_index() != 0:
+            return None
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
@@ -96,11 +108,13 @@ class PoseTrainer:
                 self.use_perceptual_loss)
         except FileNotFoundError as e:
             print_(str(e), type="warning")
+        self.mesh = get_mesh(device=self.device)
         self.train_pipe, self.valid_pipe = load_dataset(
             self.exp_data,
             shuffle_train=self.exp_data["dataset"].get("shuffle_train", False),
             perceptual_loss_dict=ploss, data_path=self.data_path,
-            num_workers=self.num_workers, device=self.device)
+            num_workers=self.num_workers, device=self.device,
+            pad_multiple=self.mesh.size(), mesh=self.mesh)
 
     def setup_model(self, config_name: str = "w32_256x192",
                     pretrained: str | None = "default"):
@@ -136,8 +150,9 @@ class PoseTrainer:
                      or self.exp_data["training"].get("perceptual_loss"))):
             perceptual_cfg = {**self.exp_data, "training": {
                 **self.exp_data["training"], "perceptual_loss": True}}
-        self.train_step = make_train_step(perceptual_cfg=perceptual_cfg)
-        self.eval_step = make_eval_step()
+        self.train_step = make_train_step(perceptual_cfg=perceptual_cfg,
+                                          mesh=self.mesh)
+        self.eval_step = make_eval_step(mesh=self.mesh)
 
     # ------------------------------------------------------------ epochs
     def _run_valid_epoch(self, epoch: int) -> tuple[float, float]:
@@ -158,7 +173,7 @@ class PoseTrainer:
         prev = {"n": 0.0, "loss_sum": 0.0}       # last fetched window
         for batch in self.train_pipe:
             metrics = self.train_step(self.state, self._step_view(batch))
-            timer.tick(batch["image"].shape[0])
+            timer.tick(len(batch["center"]))      # the global batch
             acc.update(metrics)                 # device-side; no host sync
             self.iterations += 1
             if self.writer is not None and self.iterations % log_freq == 0:
@@ -173,7 +188,8 @@ class PoseTrainer:
                         global_step=self.iterations)
                 prev = snap
         loss, pck = _epoch_means(acc.fetch())   # one fetch per train epoch
-        save_timing(self.exp_path, "train_epoch", timer.stats())
+        if process_index() == 0:
+            save_timing(self.exp_path, "train_epoch", timer.stats())
         print_(f"Train Loss: {loss}  "
                f"({timer.stats()['examples_per_sec']} ex/s)")
         print_(f"Train Accuracy: {pck}")
@@ -184,8 +200,8 @@ class PoseTrainer:
         per-sample perceptual losses, uploaded from the host."""
         return {"image": batch["image"], "target": batch["target"],
                 "target_weight": batch["target_weight"],
-                "perceptual_loss": torch.as_tensor(batch["perceptual_loss"],
-                                                   device=self.device)}
+                "perceptual_loss": shard_batch(
+                    self.mesh, batch["perceptual_loss"], self.device)}
 
     # -------------------------------------------------------------- loop
     def training_loop(self):
@@ -193,12 +209,14 @@ class PoseTrainer:
         num_epochs = exp["training"]["num_epochs"]
         save_freq = exp["training"]["save_frequency"]
 
-        if self.checkpoint is None or not self.resume_training:
+        rank0 = process_index() == 0
+        if not rank0:
+            self.logs = None
+        elif self.checkpoint is None or not self.resume_training:
             self.logs = create_train_logs(self.exp_path)
         else:
             self.logs = load_train_logs(self.exp_path)
-
-        profile_dir = os.environ.get("STLPOSE_PROFILE")
+        profile_dir = os.environ.get("STLPOSE_PROFILE") if rank0 else None
         for epoch in range(self.cur_epoch, num_epochs):
             valid_loss, valid_acc = self._run_valid_epoch(epoch)
             # a torch.profiler trace of the first train epoch
@@ -213,10 +231,12 @@ class PoseTrainer:
                     print_(f"LR {lr} -> {new_lr}")
                     set_current_lr(self.state.optimizer, new_lr)
 
-            update_train_logs(self.exp_path, self.logs, self.iterations,
-                              train_loss=train_loss, valid_loss=valid_loss,
-                              train_acc=train_acc, valid_acc=valid_acc,
-                              make_plots=self.make_plots)
+            if rank0:
+                update_train_logs(self.exp_path, self.logs, self.iterations,
+                                  train_loss=train_loss,
+                                  valid_loss=valid_loss, train_acc=train_acc,
+                                  valid_acc=valid_acc,
+                                  make_plots=self.make_plots)
             if epoch % save_freq == 0:
                 print_("Saving model checkpoint")
                 save_checkpoint(self.state, self.exp_path, epoch,

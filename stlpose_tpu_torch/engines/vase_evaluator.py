@@ -24,6 +24,16 @@ device-to-host copy of its packed outputs per call. Its host path (score
 filter, ordering and crop batching on the host, the pose forward and the
 decode on the device) is kept as the equality oracle, as in the JAX
 package. Rendering is host matplotlib (``utils/visualization.py``).
+
+On a data-parallel mesh of W ranks (``parallel/mesh.py::get_mesh``, every
+rank of the process group) ``build_fused_two_stage_sharded`` runs the
+fused program on each rank's rows with its own crop budget and gathers
+the outputs (the reference's ``shard_map`` form). ``VaseEvaluator`` then
+takes the host path unless ``use_fused=True`` (the fused form needs the
+batch divisible by W): each rank detects its rows, the detections are
+gathered, every rank filters them alike, the crop budget is bucketed to
+a multiple of W, each rank crops, poses and decodes its share of the
+crops, and the keypoints are gathered; rank 0 renders.
 """
 
 from __future__ import annotations
@@ -49,6 +59,10 @@ from stlpose_tpu_torch.ops.bbox_utils import bbox_filtering
 from stlpose_tpu_torch.ops.decode import decode_heatmaps, heatmap_argmax
 from stlpose_tpu_torch.ops.nms import top_k
 from stlpose_tpu_torch.ops.warp import crop_from_center_scale_batched
+from stlpose_tpu_torch.parallel.distributed import (all_gather_host,
+                                                    process_index)
+from stlpose_tpu_torch.parallel.mesh import (get_mesh, local_rows,
+                                             mesh_rank, shard_batch)
 from stlpose_tpu_torch.parallel.steps import make_infer_fn
 from stlpose_tpu_torch.serving.packing import (_fused_pack_spec,
                                                _pack_fused_outputs,
@@ -165,6 +179,35 @@ def build_fused_two_stage(detector, pose_model, *, bbox_thr: float,
     return fused
 
 
+def build_fused_two_stage_sharded(detector, pose_model, mesh, *,
+                                  bbox_thr: float, max_dets: int,
+                                  budget_per_device: int, device="cuda"):
+    """The fused program data-parallel over ``mesh``: ``sharded(images)``
+    takes the global batch (B, S, S, 3) (B divisible by the mesh), and each
+    rank runs ``build_fused_two_stage`` on its rows with its own crop
+    budget ``budget_per_device``, with no collective inside; its
+    ``img_idx`` are offset to global image indices (rank * B / W), and the
+    outputs are gathered onto every rank as host numpy arrays in rank
+    order: the per-image outputs (B, ...), the crop outputs (W *
+    budget_per_device, ...). With ``budget_per_device = B / W *
+    max_dets`` nothing is dropped and each image's results equal the
+    one-process fused call's."""
+    inner = build_fused_two_stage(detector, pose_model, bbox_thr=bbox_thr,
+                                  max_dets=max_dets,
+                                  budget=budget_per_device, device=device)
+
+    def sharded(images):
+        local = shard_batch(mesh, images, device)
+        out = inner(local)
+        out["img_idx"] = out["img_idx"] + mesh_rank(mesh) * local.shape[0]
+        return all_gather_host({k: v.float().cpu().numpy()
+                                if v.dtype == torch.bfloat16
+                                else v.cpu().numpy() for k, v in out.items()})
+
+    sharded.inner = inner
+    return sharded
+
+
 def _seeded(build):
     """``build()`` with the global generator seeded from the experiment
     seed, the caller's generator state restored after."""
@@ -182,10 +225,11 @@ class VaseEvaluator:
     "int8u"; the int8 trunks calibrate on the first batch of the vase
     subset) and ``roi_patch_quant`` are the detector's serving flavors
     (the JAX detector reads ``STLPOSE_FRCNN_TRUNK_QUANT`` and
-    ``STLPOSE_PALLAS_ROI_INT8``). ``use_fused`` None or True runs the
-    fused program, False the host path. ``crop_budget`` is the fused
-    program's crop budget; None (or more) gives B * max_dets, so nothing
-    is dropped."""
+    ``STLPOSE_PALLAS_ROI_INT8``). ``use_fused`` True runs the fused
+    program, False the host path, None the fused program on one rank and
+    the host path on a mesh of several (as the reference). ``crop_budget``
+    is the fused program's crop budget; None (or more) gives B *
+    max_dets, so nothing is dropped."""
 
     def __init__(self, exp_path: str, checkpoint=None,
                  detector_checkpoint=None, dataset_name: str = "red_black",
@@ -197,6 +241,7 @@ class VaseEvaluator:
                  trunk_quant: str = "none", roi_patch_quant: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
+        self.mesh = get_mesh(device=self.device)
         self.exp_path = exp_path
         self.exp_data = load_experiment_parameters(exp_path)
         self.checkpoint = checkpoint
@@ -285,6 +330,18 @@ class VaseEvaluator:
         shape: ``program(images)`` returns every output packed into one
         f32 device buffer."""
         key = (B, budget)
+        n_dev = self.mesh.size()
+        if key not in self._fused_cache and n_dev > 1:
+            if B % n_dev:
+                raise ValueError(
+                    f"fused two-stage on a {n_dev}-rank mesh needs the "
+                    f"batch ({B}) divisible by the mesh; use the host "
+                    "path (use_fused=False) for ragged batches")
+            self._fused_cache[key] = (build_fused_two_stage_sharded(
+                self.detector, self.pose_model, self.mesh,
+                bbox_thr=self.bbox_thr, max_dets=self.max_dets,
+                budget_per_device=-(-budget // n_dev), device=self.device),
+                None)
         if key not in self._fused_cache:
             inner = build_fused_two_stage(
                 self.detector, self.pose_model, bbox_thr=self.bbox_thr,
@@ -312,12 +369,14 @@ class VaseEvaluator:
         m = min(self.max_dets, self.det_cfg.detections_per_img)
         return min(self.crop_budget or B * m, B * m)
 
-    def _unpack(self, buf, spec):
+    def _unpack(self, out, spec):
         """Host side of one fused call: one device-to-host copy of the
         packed buffer (a fresh host array each call: the outputs are
-        views of it, and the ``kpt_thr`` zeroing writes through them),
-        then the split per image."""
-        out = _unpack_fused_outputs(buf.cpu().numpy(), spec)
+        views of it, and the ``kpt_thr`` zeroing writes through them), or
+        the gathered outputs of the sharded program (``spec`` None), then
+        the split per image."""
+        if spec is not None:
+            out = _unpack_fused_outputs(out.cpu().numpy(), spec)
         crop_kpts, img_kpts = out["crop_kpts"], out["img_kpts"]
         for arr in (crop_kpts, img_kpts):
             arr[arr[..., 2] < self.kpt_thr] = 0
@@ -333,9 +392,10 @@ class VaseEvaluator:
         return results
 
     def _process_images_fused(self, images01):
-        imgs = self._upload(images01)
-        B = imgs.shape[0]
+        B = images01.shape[0]
         fused, spec = self._get_fused(B, self._fused_budget(B))
+        # the sharded program uploads each rank's rows itself
+        imgs = self._upload(images01) if spec is not None else images01
         return self._unpack(fused(imgs), spec)
 
     # -------------------------------------------------------- host path
@@ -351,10 +411,14 @@ class VaseEvaluator:
                 else imgs.astype(np.float32))
         B = imgs.shape[0]
         dev = self.device
-        dets = self.detector.predict(torch.from_numpy(imgs).to(dev))
+        n_dev = self.mesh.size()
+        # each rank detects its rows of the batch padded to the mesh
+        padded = np.concatenate([imgs, np.repeat(imgs[-1:], -B % n_dev, 0)])
+        dets = self.detector.predict(shard_batch(self.mesh, padded, dev))
         # a bf16 detector's scores come to the host as their f32 values
-        dets = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
-                for k, v in dets.items()}
+        dets = all_gather_host({
+            k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+            for k, v in dets.items()})
 
         per_image, flat_boxes, flat_idx = [], [], []
         for i in range(B):
@@ -374,11 +438,13 @@ class VaseEvaluator:
         if K == 0:
             return [dict(empty, boxes=b, scores=s) for b, s in per_image]
 
-        # the crop batch padded to the next power of two, so that the pose
-        # forward meets at most log2 shapes
-        budget = 1
-        while budget < K:
-            budget *= 2
+        # the crop batch padded to the next power of two a rank, so that
+        # the pose forward meets at most log2 shapes; each rank crops,
+        # poses and decodes its rows of it
+        bucket = 1
+        while bucket * n_dev < K:
+            bucket *= 2
+        budget = bucket * n_dev
         boxes_cat = np.concatenate(flat_boxes)
         idx_cat = np.concatenate(flat_idx)
         pad = budget - K
@@ -387,11 +453,12 @@ class VaseEvaluator:
         idx_cat = np.concatenate(
             [idx_cat, np.full(pad, idx_cat[-1], np.int32)])
 
+        mine = local_rows(self.mesh, budget)
         centers, scales = coords_to_center_scale(
-            torch.from_numpy(boxes_cat).to(dev), CROP_W / CROP_H)
+            torch.from_numpy(boxes_cat[mine]).to(dev), CROP_W / CROP_H)
         crops = crop_from_center_scale_batched(
             torch.from_numpy(imgs * 255.0).to(dev), centers, scales,
-            torch.from_numpy(idx_cat).to(dev), (CROP_W, CROP_H))
+            torch.from_numpy(idx_cat[mine]).to(dev), (CROP_W, CROP_H))
         mean = torch.as_tensor(IMAGENET_MEAN, device=dev)
         std = torch.as_tensor(IMAGENET_STD, device=dev)
         hm = self.pose_infer((crops / 255.0 - mean) / std)
@@ -408,6 +475,7 @@ class VaseEvaluator:
         preds, mv, _ = decode_heatmaps(hm, centers, scales)
         img_kpts = np.concatenate(
             [preds.cpu().numpy(), mv.cpu().numpy()[..., None]], axis=-1)
+        crop_kpts, img_kpts = all_gather_host((crop_kpts, img_kpts))
         # zero out sub-threshold keypoints, as for drawing
         for arr in (crop_kpts, img_kpts):
             arr[arr[..., 2] < self.kpt_thr] = 0
@@ -432,7 +500,8 @@ class VaseEvaluator:
         detector's dtype as f32), and per-crop (crop space, K x J x 3) and
         full-image keypoints (x, y, score; zero below ``kpt_thr``)."""
         if use_fused is None:
-            use_fused = self.use_fused is not False
+            use_fused = (self.use_fused if self.use_fused is not None
+                         else self.mesh.size() == 1)
         with torch.inference_mode():
             if use_fused:
                 return self._process_images_fused(images01)
@@ -460,7 +529,7 @@ class VaseEvaluator:
             for i in range(n):
                 img = images[i]
                 res = batch_res[i]
-                if self.save:
+                if self.save and process_index() == 0:
                     name = f"img_{int(batch['image_id'][i]):04d}"
                     visualize_bbox(
                         img, res["boxes"], res["scores"],

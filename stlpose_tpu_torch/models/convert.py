@@ -303,8 +303,9 @@ def adain_decoder_to_flax_params(decoder: AdaINDecoder) -> dict:
 
 def _optax_leaf_state(opt_state, field):
     """The first state in optax's nested tuples that has ``field`` (``mu``
-    for Adam's moments, ``trace`` for SGD's momentum)."""
-    if hasattr(opt_state, field):
+    for Adam's moments, ``trace`` for SGD's momentum; an array's own
+    ``trace`` method is no such state)."""
+    if hasattr(opt_state, field) and not isinstance(opt_state, np.ndarray):
         return opt_state
     if isinstance(opt_state, tuple):
         for sub in opt_state:

@@ -264,15 +264,15 @@ class EfficientDet(nn.Module):
                 generate_det_anchors(self.config, shapes)).to(device)
         return self._anchors[key]
 
-    def loss_fn(self, batch, generator=None, uniforms=None):
+    def loss_fn(self, batch, generator=None, uniforms=None, rows=None):
         """Total loss and loss dict for a batch {image (B, S, S, 3) in [0,
         1], boxes (B, K, 4), labels (B, K), box_mask (B, K)} of tensors on
         the model's device: focal classification and smooth-L1 box
         regression (beta 0.11), each divided by the image's positive
         count (at least 1), then the mean over images. BatchNorm on batch
         statistics, running statistics updated in place. Nothing is
-        sampled: ``generator`` and ``uniforms`` are taken for the
-        detector protocol and not used."""
+        sampled: ``generator``, ``uniforms`` and ``rows`` are taken for
+        the detector protocol and not used."""
         if not self.training:
             self.train()
         cfg = self.config

@@ -152,16 +152,31 @@ def _rank_desc(values):
     return torch.empty_like(order).scatter_(-1, order, ar.expand_as(order))
 
 
+def draw_uniforms(shape, generator=None, device=None, rows=None):
+    """Two draws (u1, u2) in [0, 1) of ``shape`` (B, ...) from
+    ``generator``. ``rows`` (start, total): rows [start, start + B) of the
+    draws of a (total, ...) batch, which a data-parallel rank takes so that
+    its sampling is the one-process step's on the global batch."""
+    if rows is None:
+        return [torch.rand(shape, generator=generator, device=device)
+                for _ in range(2)]
+    start, total = rows
+    full = (total,) + tuple(shape[1:])
+    return [torch.rand(full, generator=generator, device=device)
+            [start:start + shape[0]] for _ in range(2)]
+
+
 def sample_balanced(labels, batch_size: int, positive_fraction: float,
-                    uniforms=None, generator=None):
+                    uniforms=None, generator=None, rows=None):
     """Rank-mask minibatch sampling over the last axis: up to
     batch*fraction positives, negatives fill the remainder. labels: 1
     positive, 0 negative, -1 ignored. ``uniforms``: the two draws (u1, u2),
     each of labels' shape in [0, 1), or None to draw them from
-    ``generator``. Returns (pos_mask, neg_mask)."""
+    ``generator`` (``rows``: see ``draw_uniforms``). Returns (pos_mask,
+    neg_mask)."""
     if uniforms is None:
-        uniforms = [torch.rand(labels.shape, generator=generator,
-                               device=labels.device) for _ in range(2)]
+        uniforms = draw_uniforms(labels.shape, generator, labels.device,
+                                 rows)
     u1, u2 = uniforms
     pos = labels == 1
     neg = labels == 0
@@ -239,7 +254,7 @@ def bce_logits(logits, targets):
 
 
 def rpn_loss(cfg, anchors, logits_flat, deltas_flat, gt_boxes, gt_mask,
-             uniforms=None, generator=None):
+             uniforms=None, generator=None, rows=None):
     """RPN objectness and box regression, per image: logits (B, A),
     deltas (B, A, 4) over the anchors (A, 4); GT boxes (B, G, 4) and mask
     (B, G); ``uniforms`` the sampling's (u1, u2), each (B, A). Returns
@@ -251,7 +266,7 @@ def rpn_loss(cfg, anchors, logits_flat, deltas_flat, gt_boxes, gt_mask,
     labels = torch.where(no_gt, torch.where(labels == -1, -1, 0), labels)
     pos_sel, neg_sel = sample_balanced(labels, cfg.rpn_batch_per_image,
                                        cfg.rpn_positive_fraction, uniforms,
-                                       generator)
+                                       generator, rows)
     sampled = pos_sel | neg_sel
     n_sampled = torch.clamp(sampled.sum(-1), min=1)
 
@@ -265,7 +280,7 @@ def rpn_loss(cfg, anchors, logits_flat, deltas_flat, gt_boxes, gt_mask,
 
 
 def roi_targets(cfg, proposals, gt_boxes, gt_labels, gt_mask, uniforms=None,
-                generator=None):
+                generator=None, rows=None):
     """Match proposals (B, P, 4) to GT and sample the RoI minibatch, per
     image; GT boxes join the proposal pool first (torchvision's rule).
     ``uniforms``: the sampling's (u1, u2), each (B, P + G). Returns boxes
@@ -280,7 +295,7 @@ def roi_targets(cfg, proposals, gt_boxes, gt_labels, gt_mask, uniforms=None,
     labels = torch.where(is_pos, torch.gather(gt_labels, 1, matched), 0)
     pos_sel, neg_sel = sample_balanced(
         is_pos.to(torch.int64), cfg.roi_batch_per_image,
-        cfg.roi_positive_fraction, uniforms, generator)
+        cfg.roi_positive_fraction, uniforms, generator, rows)
     sampled = pos_sel | neg_sel
     # compact the sampled rows to a fixed R by a ranked top-k
     priority = sampled.to(torch.float32) * 2 + pos_sel.to(torch.float32)
@@ -390,7 +405,8 @@ class FasterRCNN(nn.Module):
         deltas = [d.permute(0, 2, 3, 1).reshape(B, -1, 4) for d in deltas]
         return feats, logits, deltas, anchors
 
-    def loss_fn(self, batch, generator=None, uniforms=None, proposals=None):
+    def loss_fn(self, batch, generator=None, uniforms=None, proposals=None,
+                rows=None):
         """Total loss and loss dict for a batch {image (B, S, S, 3) in [0,
         1], boxes (B, K, 4), labels (B, K), box_mask (B, K)} of tensors on
         the model's device: the torchvision loss dict that the reference
@@ -402,7 +418,9 @@ class FasterRCNN(nn.Module):
         post_nms_top_n_train, 4), if given, are the RoI stage's proposals
         in place of those selected from the RPN's outputs: a comparison
         pinned on another program's proposals, since bf16 logits tie in
-        the selection's top-k and NMS."""
+        the selection's top-k and NMS. ``rows`` (start, total): the
+        generator's draws are a (total, ...) batch's, of which this batch
+        holds rows [start, start + B) (a data-parallel rank's share)."""
         if self.trunk_quant != "none":
             raise ValueError(
                 "training requires the live-BN trunk; construct "
@@ -418,7 +436,7 @@ class FasterRCNN(nn.Module):
         l_obj, l_rpn = rpn_loss(cfg, torch.cat(anchors_l),
                                 torch.cat(logits, dim=1),
                                 torch.cat(deltas, dim=1), gt_boxes, gt_mask,
-                                uniforms.get("rpn"), generator)
+                                uniforms.get("rpn"), generator, rows)
         with torch.no_grad():       # the proposals are constants of the loss
             if proposals is None:
                 proposals, _ = select_proposals(
@@ -426,7 +444,7 @@ class FasterRCNN(nn.Module):
                     [d.detach() for d in deltas], train=True)
             boxes, labels, regs, pos, sampled = roi_targets(
                 cfg, proposals, gt_boxes, gt_labels, gt_mask,
-                uniforms.get("roi"), generator)
+                uniforms.get("roi"), generator, rows)
         cls_logits, box_deltas = self.roi_batched(feats[:4], boxes)
         l_cls, l_box = roi_loss(cfg, cls_logits, box_deltas, labels, regs,
                                 pos, sampled)

@@ -30,10 +30,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from stlpose_tpu_torch import resolve_device
 from stlpose_tpu_torch.kernels import int8_conv
+from stlpose_tpu_torch.parallel.distributed import all_reduce_sum
 from stlpose_tpu_torch.config import HRNetConfig, HRNetStageConfig, \
     get_hrnet_config
 
@@ -58,12 +60,27 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     statistics, running statistics and output in f32, as every BatchNorm
     of the JAX package (``nn.BatchNorm(dtype=float32)``) computes them on
     a bf16 convolution's output; the caller rounds the output back to its
-    compute dtype after the activation, where the reference does."""
+    compute dtype after the activation, where the reference does.
+
+    Given a ``process_group`` of more than one rank
+    (``set_batchnorm_group``), train mode takes the statistics over the
+    group's global batch, as a BatchNorm under GSPMD does over the mesh:
+    one all-reduce of the per-channel sums and the count gives the mean,
+    a second of the squared deviations from it the biased variance (two
+    passes, as here on one rank, summed in f64 as the CPU's
+    ``F.batch_norm`` sums), both through ``all_reduce_sum``, whose
+    backward sums the ranks' gradients; the running statistics move with
+    the global n. Eval mode and one rank are unchanged."""
+
+    process_group = None
 
     def forward(self, x):
         x = x.to(self.weight.dtype)
         if not self.training:
             return super().forward(x)
+        group = self.process_group
+        if group is not None and dist.get_world_size(group) > 1:
+            return self._global_forward(x, group)
         n = x.numel() // x.shape[1]
         keep = 1.0 - self.momentum                  # flax's momentum, 0.9
         # the op keeps its running_var for backward: hand it a copy
@@ -73,6 +90,35 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.mul_(keep / n).add_(upd, alpha=1.0 - 1.0 / n)
         return y
+
+    def _global_forward(self, x, group):
+        dims = (0, 2, 3)
+        f64 = torch.float64                 # sums kept as F.batch_norm's
+        local_n = torch.full((1,), x.numel() // x.shape[1], dtype=f64,
+                             device=x.device)
+        sums = all_reduce_sum(torch.cat([x.sum(dims, dtype=f64), local_n]),
+                              group)
+        n = sums[-1]
+        mean = (sums[:-1] / n).to(x.dtype)
+        xc = x - mean[None, :, None, None]
+        var = (all_reduce_sum(xc.to(f64).square().sum(dims), group) /
+               n).to(x.dtype)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = xc * scale[None, :, None, None] + self.bias[None, :, None, None]
+        keep = 1.0 - self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+        return y
+
+
+def set_batchnorm_group(module: nn.Module, group) -> nn.Module:
+    """Take every ``FlaxBatchNorm2d`` of ``module``'s train-mode statistics
+    over ``group`` (None: this rank's batch alone)."""
+    for m in module.modules():
+        if isinstance(m, FlaxBatchNorm2d):
+            m.process_group = group
+    return module
 
 
 def compute_in(module: nn.Module, dtype, param_dtype=None):

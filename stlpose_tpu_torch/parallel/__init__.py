@@ -1,2 +1,3 @@
-"""Train and eval steps of the port on one device (counterparts of
-stlpose_tpu/parallel/steps.py)."""
+"""The port's steps, on one device or data-parallel over a mesh of ranks,
+and the torch.distributed plumbing (counterparts of
+stlpose_tpu/parallel/)."""

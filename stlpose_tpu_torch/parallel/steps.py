@@ -1,12 +1,12 @@
-"""Pose train, eval and inference steps on one device, and the device-side
-metric accumulator.
+"""Pose train, eval and inference steps, on one device or data-parallel
+over a mesh, and the device-side metric accumulator.
 
 Port of ``stlpose_tpu/parallel/steps.py`` (``make_train_step``,
 ``make_eval_step``, ``make_infer_fn``, ``make_eval_decode_step``,
-``_pck_from_heatmaps``, ``MetricAccumulator``) for a single device: no
-mesh. One train step is HRNet's train-mode forward, the masked MSE
-(optionally weighted by the perceptual loss), autograd's backward, the
-optimizer update and the PCK metric, whose two peak searches run on K1.
+``_pck_from_heatmaps``, ``MetricAccumulator``). One train step is HRNet's
+train-mode forward, the masked MSE (optionally weighted by the perceptual
+loss), autograd's backward, the optimizer update and the PCK metric, whose
+two peak searches run on K1.
 The eval and inference functions run under ``torch.no_grad()``; with
 flip-TTA the mirrored crops (``torch.flip`` of the width axis) go into the
 same batch for one forward of 2N crops, and the two halves are combined
@@ -20,6 +20,18 @@ train step): ``model.eval()`` or ``model.train()`` walks HRNet-W32's
 every call.
 Nothing is fetched to the host: the metrics stay device tensors.
 
+With a ``mesh`` of W ranks (``parallel/mesh.py``) each rank holds the same
+model and optimizer (the reference's replicated state) and steps on its
+rows of the global batch. The train step takes BatchNorm's statistics over
+the global batch (``FlaxBatchNorm2d`` on the mesh's group), sums the
+gradients and the metrics in one flattened all-reduce and divides the
+gradients by W, so every rank takes the same optimizer step; the loss
+comes back as the mean of the ranks' means (exact: the MSE is a plain
+mean over equal shards) and the PCK counts summed, on every rank (the
+reference's replicated outputs). The eval steps' metrics are reduced the
+same way; heatmaps and keypoints stay this rank's rows. A perceptual
+weighting takes the global batch's mean perceptual loss.
+
 The inference functions close over the model, which holds its weights:
 ``make_infer_fn`` and ``make_eval_decode_step`` return functions of the
 batch alone, where the reference's take the train state first.
@@ -30,9 +42,12 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from stlpose_tpu_torch.models.hrnet import set_batchnorm_group
 from stlpose_tpu_torch.ops.decode import decode_heatmaps, heatmap_argmax
 from stlpose_tpu_torch.ops.flip import average_flip_tta_nhwc
+from stlpose_tpu_torch.parallel.mesh import mesh_group, mesh_size
 from stlpose_tpu_torch.train.loss import (apply_perceptual_loss,
                                           person_mse_loss)
 from stlpose_tpu_torch.train.state import PoseTrainState
@@ -111,29 +126,96 @@ class MetricAccumulator:
         return out
 
 
-def make_train_step(perceptual_cfg: dict | None = None) -> Callable:
+def use_global_batchnorm(model, group) -> None:
+    """Point the model's BatchNorms at ``group`` once (a walk of its
+    modules), and again only when the group changes."""
+    if getattr(model, "_batchnorm_group", None) is not group:
+        set_batchnorm_group(model, group)
+        model._batchnorm_group = group
+
+
+def global_mean(x, group, world: int):
+    """A one-element tensor: the mean over the ranks of ``x``'s local
+    mean (the global mean of equal shards)."""
+    m = torch.as_tensor(x, dtype=torch.float32).mean().reshape(1)
+    dist.all_reduce(m, group=group)
+    return m / world
+
+
+def reduce_gradients(params, extras, group, world: int):
+    """Sum the parameters' gradients and the scalars ``extras`` over the
+    group in one flattened all-reduce; the gradients are divided by
+    ``world`` in place (a missing gradient counts as zero). The buffer
+    is f32, or the gradients' wider dtype. Returns the summed extras as
+    scalars of that dtype."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    dtype = torch.float32
+    for g in grads:
+        dtype = torch.promote_types(dtype, g.dtype)
+    flat = torch.cat([g.reshape(-1).to(dtype) for g in grads] +
+                     [torch.as_tensor(e).reshape(1).to(dtype)
+                      for e in extras])
+    dist.all_reduce(flat, group=group)
+    ng = flat.numel() - len(extras)
+    flat[:ng] /= world
+    off = 0
+    for p, g in zip(params, grads):
+        n = g.numel()
+        p.grad = flat[off:off + n].view_as(g).to(g.dtype)
+        off += n
+    return list(flat[ng:])
+
+
+def _reduce_metrics(metrics, group, world: int):
+    """Global eval metrics: the mean of the ranks' mean losses and the
+    summed PCK counts."""
+    flat = torch.stack([metrics[k].to(torch.float32)
+                        for k in ("loss", "pck_hit", "pck_cnt")])
+    dist.all_reduce(flat, group=group)
+    return {"loss": flat[0] / world,
+            "pck_hit": flat[1].round().to(metrics["pck_hit"].dtype),
+            "pck_cnt": flat[2].round().to(metrics["pck_cnt"].dtype)}
+
+
+def make_train_step(perceptual_cfg: dict | None = None,
+                    mesh=None) -> Callable:
     """step(state, batch) -> metrics: one update of ``state`` in place.
 
     ``batch`` holds "image" (N, 256, 192, 3), "target" (N, J, 64, 48),
     "target_weight" (N, J) and, with ``perceptual_cfg`` (the experiment
-    dict), "perceptual_loss" (N,). Metrics: "loss" (before the update),
-    "pck_hit" and "pck_cnt" of the forward's heatmaps."""
+    dict), "perceptual_loss" (N,): with a ``mesh``, this rank's rows.
+    Metrics: "loss" (before the update), "pck_hit" and "pck_cnt" of the
+    forward's heatmaps, over the global batch."""
+    group, world = mesh_group(mesh), mesh_size(mesh)
 
     def step(state: PoseTrainState, batch):
         model = state.model
+        if group is not None:
+            use_global_batchnorm(model, group)
         if not model.training:
             model.train()
         pred = _nhwc_to_njhw(model(batch["image"]))
         loss = person_mse_loss(pred, batch["target"], batch["target_weight"])
         if perceptual_cfg is not None:
-            loss = apply_perceptual_loss(perceptual_cfg, loss,
-                                         batch.get("perceptual_loss", 0.0))
+            perc = batch.get("perceptual_loss", 0.0)
+            if group is not None:
+                perc = global_mean(perc, group, world).to(loss.device)
+            loss = apply_perceptual_loss(perceptual_cfg, loss, perc)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        hit, cnt = _pck_from_heatmaps(pred.detach(), batch["target"])
+        loss = loss.detach()
+        if group is not None:
+            params = [p for p in model.parameters() if p.requires_grad]
+            total, hits, cnts = reduce_gradients(params, [loss, hit, cnt],
+                                                 group, world)
+            loss = total / world
+            hit = hits.round().to(hit.dtype)
+            cnt = cnts.round().to(cnt.dtype)
         state.optimizer.step()
         state.step += 1
-        hit, cnt = _pck_from_heatmaps(pred.detach(), batch["target"])
-        return {"loss": loss.detach(), "pck_hit": hit, "pck_cnt": cnt}
+        return {"loss": loss, "pck_hit": hit, "pck_cnt": cnt}
 
     return step
 
@@ -151,31 +233,37 @@ def _forward_heatmaps(model, images, flip_tta: bool):
     return _nhwc_to_njhw(average_flip_tta_nhwc(out[:n], out[n:]))
 
 
-def _eval_metrics(pred_njhw, batch):
+def _eval_metrics(pred_njhw, batch, group=None, world: int = 1):
     loss = person_mse_loss(pred_njhw, batch["target"], batch["target_weight"])
     hit, cnt = _pck_from_heatmaps(pred_njhw, batch["target"])
-    return {"loss": loss, "pck_hit": hit, "pck_cnt": cnt}
+    metrics = {"loss": loss, "pck_hit": hit, "pck_cnt": cnt}
+    if group is not None:
+        metrics = _reduce_metrics(metrics, group, world)
+    return metrics
 
 
-def make_eval_step(flip_tta: bool = False) -> Callable:
+def make_eval_step(flip_tta: bool = False, mesh=None) -> Callable:
     """step(state, batch) -> (heatmaps (N, J, H, W), metrics): eval-mode
-    forward (optionally flip-TTA), loss and PCK."""
+    forward (optionally flip-TTA), loss and PCK. With a ``mesh`` the
+    heatmaps are this rank's rows and the metrics global."""
+    group, world = mesh_group(mesh), mesh_size(mesh)
 
     def step(state: PoseTrainState, batch):
         with torch.no_grad():
             pred = _forward_heatmaps(state.model, batch["image"], flip_tta)
-            return pred, _eval_metrics(pred, batch)
+            return pred, _eval_metrics(pred, batch, group, world)
 
     return step
 
 
-def make_infer_fn(model, flip_tta: bool = True,
-                  decode: bool = True) -> Callable:
+def make_infer_fn(model, flip_tta: bool = True, decode: bool = True,
+                  mesh=None) -> Callable:
     """Crops -> heatmaps -> keypoints in source-image pixels.
 
     Returns fn(images, centers, scales) -> (preds (N, J, 3) [x, y,
     maxval], heatmaps (N, J, H, W)) when ``decode``, else fn(images) ->
-    heatmaps. Runs where ``model`` lives."""
+    heatmaps. Runs where ``model`` lives; on a ``mesh`` each rank infers
+    its own rows (no collective: the reference's data-sharded outputs)."""
 
     def infer_hm(images):
         with torch.no_grad():
@@ -193,18 +281,21 @@ def make_infer_fn(model, flip_tta: bool = True,
     return infer
 
 
-def make_eval_decode_step(model, flip_tta: bool = True) -> Callable:
+def make_eval_decode_step(model, flip_tta: bool = True,
+                          mesh=None) -> Callable:
     """The evaluator's whole per-batch device work: flip-TTA forward, loss,
     PCK and decoded keypoints from one forward.
 
     Returns fn(batch) -> (preds (N, J, 3) [x, y, maxval] in source-image
     pixels, metrics); ``batch`` holds image, target, target_weight, center
-    and scale as tensors on the model's device."""
+    and scale as tensors on the model's device. With a ``mesh`` the
+    keypoints are this rank's rows and the metrics global."""
+    group, world = mesh_group(mesh), mesh_size(mesh)
 
     def step(batch):
         with torch.no_grad():
             hm = _forward_heatmaps(model, batch["image"], flip_tta)
-            metrics = _eval_metrics(hm, batch)
+            metrics = _eval_metrics(hm, batch, group, world)
             preds, maxvals, _ = decode_heatmaps(hm, batch["center"],
                                                 batch["scale"])
             return torch.cat([preds, maxvals[..., None]], dim=-1), metrics

@@ -10,6 +10,12 @@ three modes: full resume, weights only, and weights with the head left
 at the template's (transfer to another keypoint or class count). A
 detector checkpoint loads weights-only into a detector of any serving
 flavor (``load_detector_checkpoint``).
+
+Multi-process: every rank calls ``save_checkpoint`` with its (identical)
+state; rank 0 writes the bundle and its meta sidecar, and the ranks meet
+at a barrier before any returns, so a load that follows reads a whole
+file. The bundle holds no trace of the run's ranks: one written by W
+ranks loads in one process and on any other W.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from stlpose_tpu_torch.models.convert import (load_strict,
                                               load_torch_statedict,
                                               torch_statedict_to_port)
 from stlpose_tpu_torch.models.quantize import flavored_state_dict
+from stlpose_tpu_torch.parallel.distributed import barrier, process_index
 from stlpose_tpu_torch.train.optim import get_current_lr, set_current_lr
 from stlpose_tpu_torch.train.state import PoseTrainState
 
@@ -47,18 +54,21 @@ def save_checkpoint(state: PoseTrainState, exp_path: str, epoch,
                     finished: bool = False) -> str:
     """Save the bundle; ``epoch='final'`` or ``finished=True`` writes the
     final checkpoint's name. Tensors are saved from wherever they live and
-    load onto any device. Returns the path without its suffix."""
+    load onto any device. In a multi-process run every rank calls it;
+    rank 0 writes. Returns the path without its suffix."""
     label = "final" if (finished or epoch == "final") else epoch
     path = checkpoint_path(exp_path, label, detector)
-    torch.save({"model_state_dict": state.model.state_dict(),
-                "optimizer_state_dict": state.optimizer.state_dict(),
-                "step": int(state.step)}, path + ".pt")
-    meta = {"epoch": int(epoch) if not isinstance(epoch, str) else epoch,
-            "lr": get_current_lr(state.optimizer),
-            "scheduler": (scheduler.state_dict()
-                          if scheduler is not None else None)}
-    with open(path + ".meta.json", "w") as f:
-        json.dump(meta, f)
+    if process_index() == 0:
+        torch.save({"model_state_dict": state.model.state_dict(),
+                    "optimizer_state_dict": state.optimizer.state_dict(),
+                    "step": int(state.step)}, path + ".pt")
+        meta = {"epoch": int(epoch) if not isinstance(epoch, str) else epoch,
+                "lr": get_current_lr(state.optimizer),
+                "scheduler": (scheduler.state_dict()
+                              if scheduler is not None else None)}
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f)
+    barrier()
     return path
 
 

@@ -14,6 +14,8 @@ import inspect
 import os
 import traceback
 
+from stlpose_tpu_torch.parallel.distributed import process_index
+
 _LOGGER = None
 
 
@@ -46,7 +48,10 @@ def get_logger() -> Logger | None:
 
 def print_(message: str, type: str = "info"):
     """Tee a message to console and the active log file
-    (reference: lib/logger.py:37-45)."""
+    (reference: lib/logger.py:37-45); in a multi-process run, on rank 0
+    only."""
+    if process_index() != 0:
+        return
     print(message)
     if _LOGGER is not None:
         _LOGGER.log_info(str(message), type=type)
