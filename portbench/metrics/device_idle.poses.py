@@ -1,0 +1,5 @@
+"""Idle share of the card in the profiled stretch (moves poses_per_s)."""
+
+from portbench import readers
+
+read = readers.device_idle

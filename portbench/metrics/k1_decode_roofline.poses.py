@@ -1,0 +1,5 @@
+"""K1's share of its roofline (moves poses_per_s)."""
+
+from portbench import readers
+
+read = readers.roofline("k1_decode")

@@ -1,0 +1,5 @@
+"""The whole call's share of the card's f32 peak (moves train_samples_per_s)."""
+
+from portbench import readers
+
+read = readers.mfu
