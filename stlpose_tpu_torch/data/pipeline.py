@@ -31,6 +31,13 @@ batch (same records, order and augmentation draws), padded to a multiple
 of W, and uploads, warps and finalizes only its own rows
 (``parallel/mesh.py::shard_batch``): the batch's device tensors are this
 rank's rows, its host metadata the global batch's.
+
+Spans (``utils/profiling.py``), in either mode: ``pipeline.batch`` a
+batch, around ``pipeline.load`` (the main thread's wait on the decode
+threads), ``pipeline.stack`` (stack and pad), ``pipeline.upload``
+(``shard_batch``) and ``pipeline.finalize``; the counter
+``pipeline.aug_lock_wait_s`` (the decode threads' wait for the
+augmentation sampler, summed).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from stlpose_tpu_torch.ops.affine import apply_affine, get_affine_matrix
 from stlpose_tpu_torch.ops.heatmap import generate_targets
 from stlpose_tpu_torch.ops.warp import affine_warp, affine_warp_two_pass
 from stlpose_tpu_torch.parallel.mesh import shard_batch
+from stlpose_tpu_torch.utils.profiling import span
 
 
 def _normalise(crops):
@@ -173,10 +181,19 @@ class PoseDataPipeline:
         img = read_image(rec.image)
         if self.aug is None:
             return process_sample(rec, img, None)
-        with self._aug_lock:
-            drawn = self.aug.sample(rec.center, rec.scale, rec.joints,
-                                    rec.joints_vis)
+        drawn = self._draw(rec.center, rec.scale, rec.joints, rec.joints_vis)
         return process_sample(rec, img, _FrozenAug(*drawn))
+
+    def _draw(self, *args):
+        """One augmentation draw, serialised (the draws share one
+        RandomState); the wait for the lock is the span
+        ``pipeline.aug_lock_wait`` (a counter in a decode thread)."""
+        with span("pipeline.aug_lock_wait"):
+            self._aug_lock.acquire()
+        try:
+            return self.aug.sample(*args)
+        finally:
+            self._aug_lock.release()
 
     def _load_one_raw(self, rec: PoseRecord):
         """Device-warp stage: decode, then ``_letterbox``."""
@@ -192,8 +209,7 @@ class PoseDataPipeline:
         vis = rec.joints_vis.copy()
         c, s, r = rec.center.copy(), rec.scale.copy(), 0.0
         if self.aug is not None:
-            with self._aug_lock:
-                c, s, r, do_flip = self.aug.sample(c, s, joints, vis)
+            c, s, r, do_flip = self._draw(c, s, joints, vis)
             if do_flip:
                 img = img[:, ::-1, :]
                 perm = flip_perm(len(joints))
@@ -233,9 +249,12 @@ class PoseDataPipeline:
                 idx = order[start:start + self.batch_size]
                 if self.drop_last and len(idx) < self.batch_size:
                     break
-                samples = list(pool.map(
-                    lambda i: loader(self.records[i]), idx))
-                yield collate(samples, [self.records[i] for i in idx])
+                with span("pipeline.batch"):
+                    with span("pipeline.load"):
+                        samples = list(pool.map(
+                            lambda i: loader(self.records[i]), idx))
+                    batch = collate(samples, [self.records[i] for i in idx])
+                yield batch
 
     def _pad(self, n_valid: int, arrays: list, metas: list):
         """Repeat samples to fill the batch to a multiple of
@@ -246,6 +265,11 @@ class PoseDataPipeline:
         sel = np.arange(pad) % n_valid
         return ([np.concatenate([a, a[sel]]) for a in arrays],
                 metas + [metas[i] for i in sel])
+
+    def _upload(self, arrays: list) -> list:
+        """``shard_batch`` of the host arrays (span ``pipeline.upload``)."""
+        with span("pipeline.upload"):
+            return shard_batch(self.mesh, arrays, self.device)
 
     @staticmethod
     def _host_meta(metas: list, n_valid: int) -> dict:
@@ -267,20 +291,23 @@ class PoseDataPipeline:
         (exemplar indices drawn after padding) and finalize; ``joints``
         and ``joints_vis`` stay host arrays, as in the JAX pipeline."""
         n_valid = len(samples)
-        (crops, joints, vis), metas = self._pad(
-            n_valid, [np.stack([s[k] for s in samples]) for k in range(3)],
-            [s[3] for s in samples])
-        dev = self.device
+        with span("pipeline.stack"):
+            (crops, joints, vis), metas = self._pad(
+                n_valid,
+                [np.stack([s[k] for s in samples]) for k in range(3)],
+                [s[3] for s in samples])
         sidx = None
         if self.stylizer is not None and self.style_bank is not None:
             sidx = self.rng.randint(0, len(self.style_bank), len(crops))
-        crops_dev, joints_dev, vis_dev, sidx = shard_batch(
-            self.mesh, [crops.astype(np.uint8), joints, vis, sidx], dev)
-        if sidx is not None:
-            crops_dev = self.stylizer(
-                crops_dev.to(torch.float32) / 255.0, self.style_bank[sidx],
-                alpha=self.style_alpha) * 255.0
-        x, target, weight = device_finalize(crops_dev, joints_dev, vis_dev)
+        crops_dev, joints_dev, vis_dev, sidx = self._upload(
+            [crops.astype(np.uint8), joints, vis, sidx])
+        with span("pipeline.finalize"):
+            if sidx is not None:
+                crops_dev = self.stylizer(
+                    crops_dev.to(torch.float32) / 255.0,
+                    self.style_bank[sidx], alpha=self.style_alpha) * 255.0
+            x, target, weight = device_finalize(crops_dev, joints_dev,
+                                                vis_dev)
         return {"image": x, "target": target, "target_weight": weight,
                 "joints": joints, "joints_vis": vis,
                 **self._host_meta(metas, n_valid)}
@@ -291,13 +318,18 @@ class PoseDataPipeline:
         ``joints`` (crop space) stays on the device; the metadata stays on
         the host, in original image coordinates."""
         n_valid = len(samples)
-        arrays = [np.stack([s[k] for s in samples]) for k in (0, 1, 2, 4, 5)]
-        arrays.insert(3, np.asarray([s[3] for s in samples], np.float32))
-        arrays, metas = self._pad(n_valid, arrays, [s[6] for s in samples])
-        x, target, weight, joints_crop = device_warp_finalize(
-            *shard_batch(self.mesh, arrays, self.device),
-            # no augmentation: rot is 0, the conditioning test is skipped
-            may_rotate=self.aug is not None)
+        with span("pipeline.stack"):
+            arrays = [np.stack([s[k] for s in samples])
+                      for k in (0, 1, 2, 4, 5)]
+            arrays.insert(3, np.asarray([s[3] for s in samples], np.float32))
+            arrays, metas = self._pad(n_valid, arrays,
+                                      [s[6] for s in samples])
+        uploaded = self._upload(arrays)
+        with span("pipeline.finalize"):
+            x, target, weight, joints_crop = device_warp_finalize(
+                *uploaded,
+                # no augmentation: rot is 0, the conditioning test is skipped
+                may_rotate=self.aug is not None)
         return {"image": x, "target": target, "target_weight": weight,
                 "joints": joints_crop, "joints_vis": arrays[5],
                 **self._host_meta(metas, n_valid)}

@@ -14,7 +14,9 @@ Port of ``stlpose_tpu/engines/retrieval_db.py``, the engines behind
   group) each rank infers its rows of each batch, padded to a multiple of
   the mesh, the peaks are gathered onto every rank and rank 0 writes the
   database. The compute dtype is the constructor's ``dtype``
-  (the reference reads ``STLPOSE_DTYPE``).
+  (the reference reads ``STLPOSE_DTYPE``). Spans: ``extract.batch`` a
+  batch, around ``extract.peaks``, ``extract.fetch`` and
+  ``extract.add_batch`` (05 records them with ``STLPOSE_PROFILE``).
 - ``RetrievalExperimenter``: query-all retrieval scoring at character and
   narrative level with grouped result JSONs (host numpy, as in the JAX
   package).
@@ -48,6 +50,7 @@ from stlpose_tpu_torch.utils.checkpoint import (load_checkpoint,
 from stlpose_tpu_torch.utils.experiment import (load_experiment_parameters,
                                                 timestamp)
 from stlpose_tpu_torch.utils.logger import print_
+from stlpose_tpu_torch.utils.profiling import span
 
 RES_KEYS = ("p@1", "p@5", "p@10", "p@rel", "mAP",
             "r@1", "r@5", "r@10", "r@rel", "mAR")
@@ -99,9 +102,11 @@ class ArchDataExtractor:
         """The device work of one batch: flip-TTA heatmaps, then K1's
         peaks of the ``n`` real entries as one (n, J, 3) [x, y, maxval]
         tensor, and the heatmaps' (H, W)."""
-        hm = self.infer(images)
-        coords, maxvals = heatmap_argmax(hm[:n])
-        return torch.cat([coords, maxvals[..., None]], dim=-1), hm.shape[2:]
+        with span("extract.peaks"):
+            hm = self.infer(images)
+            coords, maxvals = heatmap_argmax(hm[:n])
+            return (torch.cat([coords, maxvals[..., None]], dim=-1),
+                    hm.shape[2:])
 
     def add_batch(self, peaks, hw, batch, records):
         """Host side of one batch: ``peaks`` (numpy, from
@@ -109,36 +114,40 @@ class ArchDataExtractor:
         reference decodes from bilinearly x4-upsampled maps,
         align_corners=True), the visibility flag, one database entry
         each."""
-        coords = peaks[..., :2].copy()
-        maxvals = peaks[..., 2]
-        Hh, Hw = hw
-        coords[..., 0] *= (CROP_W - 1.0) / (Hw - 1)
-        coords[..., 1] *= (CROP_H - 1.0) / (Hh - 1)
-        visible = (maxvals >= self.kpt_thr).astype(np.float32)
-        for b in range(len(peaks)):
-            i = len(self.retrieval_db)
-            rec = records[min(i, len(records) - 1)]
-            joints = np.concatenate([coords[b], visible[b][:, None]],
-                                    axis=1).astype(np.float32)
-            self.retrieval_db[f"img_{i}"] = {
-                "img": os.path.basename(rec.image),
-                "joints": joints,
-                "center": batch["center"][b],
-                "scale": batch["scale"][b],
-                "character_name": rec.character_name,
-            }
+        with span("extract.add_batch"):
+            coords = peaks[..., :2].copy()
+            maxvals = peaks[..., 2]
+            Hh, Hw = hw
+            coords[..., 0] *= (CROP_W - 1.0) / (Hw - 1)
+            coords[..., 1] *= (CROP_H - 1.0) / (Hh - 1)
+            visible = (maxvals >= self.kpt_thr).astype(np.float32)
+            for b in range(len(peaks)):
+                i = len(self.retrieval_db)
+                rec = records[min(i, len(records) - 1)]
+                joints = np.concatenate([coords[b], visible[b][:, None]],
+                                        axis=1).astype(np.float32)
+                self.retrieval_db[f"img_{i}"] = {
+                    "img": os.path.basename(rec.image),
+                    "joints": joints,
+                    "center": batch["center"][b],
+                    "scale": batch["scale"][b],
+                    "character_name": rec.character_name,
+                }
 
     def extract_retrieval_dataset(self, records=None):
         """Build {img_N: {img, joints (17, 3), center, scale,
         character_name}} over the eval split."""
         records = records if records is not None else self.pipe.records
         for batch in self.pipe:
-            # this rank's rows (all of them: the padding is dropped after
-            # the gather)
-            peaks, hw = self.batch_peaks(batch["image"],
-                                         batch["image"].shape[0])
-            peaks = all_gather_host(peaks.cpu().numpy())[:batch["n_valid"]]
-            self.add_batch(peaks, hw, batch, records)
+            with span("extract.batch"):
+                # this rank's rows (all of them: the padding is dropped
+                # after the gather)
+                peaks, hw = self.batch_peaks(batch["image"],
+                                             batch["image"].shape[0])
+                with span("extract.fetch"):
+                    peaks = all_gather_host(
+                        peaks.cpu().numpy())[:batch["n_valid"]]
+                self.add_batch(peaks, hw, batch, records)
         return self.retrieval_db
 
     def save_retrieval_db(self, root=None) -> str:

@@ -188,6 +188,7 @@ class PoseTrainer:
                         global_step=self.iterations)
                 prev = snap
         loss, pck = _epoch_means(acc.fetch())   # one fetch per train epoch
+        timer.stop()                    # the rates end at the fetch's sync
         if process_index() == 0:
             save_timing(self.exp_path, "train_epoch", timer.stats())
         print_(f"Train Loss: {loss}  "

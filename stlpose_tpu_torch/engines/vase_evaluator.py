@@ -24,6 +24,11 @@ device-to-host copy of its packed outputs per call. Its host path (score
 filter, ordering and crop batching on the host, the pose forward and the
 decode on the device) is kept as the equality oracle, as in the JAX
 package. Rendering is host matplotlib (``utils/visualization.py``).
+Spans (``utils/profiling.py``): ``serve.call`` a call, around
+``serve.upload``, the program's ``serve.detect`` (and the detector's
+``detect.*`` inside it), ``serve.select``, ``serve.crop``, ``serve.pose``,
+``serve.decode`` and ``serve.pack``, then ``serve.fetch`` (the packed
+buffer's copy to the host) and ``serve.unpack``.
 
 On a data-parallel mesh of W ranks (``parallel/mesh.py::get_mesh``, every
 rank of the process group) ``build_fused_two_stage_sharded`` runs the
@@ -72,6 +77,7 @@ from stlpose_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                 load_detector_checkpoint,
                                                 load_pretrained_variables)
 from stlpose_tpu_torch.utils.experiment import load_experiment_parameters
+from stlpose_tpu_torch.utils.profiling import span
 from stlpose_tpu_torch.utils.visualization import draw_pose, visualize_bbox
 
 CROP_W, CROP_H = 192, 256
@@ -104,45 +110,52 @@ class FusedTwoStage(torch.nn.Module):
             images01 = images.to(torch.float32) / 255.0
         else:
             images01 = images.to(torch.float32)
-        dets = self.detector.predict(images01)
-        boxes, scores = dets["boxes"], dets["scores"]
-        keep = (dets["valid"] & (dets["labels"] == 1) &
-                (scores >= self.bbox_thr))
-        masked = torch.where(keep, scores, -torch.inf)
-        m = min(self.max_dets, masked.shape[1])
-        top_s, top_i = top_k(masked, m)                            # (B, m)
-        sel_boxes = torch.gather(boxes, 1,
-                                 top_i[..., None].expand(-1, -1, 4))
-        sel_valid = top_s > -torch.inf
-        # cross-batch compaction: key = valid-first, then score (scores
-        # lie in (0, 1), so within one image the order is its score order);
-        # summed in the scores' dtype
-        key_flat = ((sel_valid.reshape(-1) * 10.0).to(top_s.dtype) +
-                    torch.where(sel_valid, top_s, 0.0).reshape(-1))
-        _, idx = top_k(key_flat, self.budget)
-        img_idx = (idx // m).to(torch.int32)
-        flat_boxes = sel_boxes.reshape(-1, 4)[idx]
-        picked_valid = sel_valid.reshape(-1)[idx]
-        # invalid slots get a unit box: their crops are discarded, but a
-        # degenerate box must not feed non-finite math to the warp
-        flat_boxes = torch.where(picked_valid[:, None], flat_boxes,
-                                 self.unit_box)
-        centers, scales = coords_to_center_scale(flat_boxes,
-                                                 CROP_W / CROP_H)
-        crops = crop_from_center_scale_batched(
-            images01 * 255.0, centers, scales, img_idx, (CROP_W, CROP_H))
-        x = (crops / 255.0 - self.mean) / self.std
-        hm = self.pose_model(x).permute(0, 3, 1, 2)           # (K, J, H, W)
-        Hh, Hw = hm.shape[2], hm.shape[3]
-        # one K1 launch gives both the unrefined crop-space peaks and the
-        # quarter-pixel shift of the refined image-space ones
-        coords, maxvals, shift = _k1.heatmap_peaks(hm)
-        crop_xy = coords * torch.tensor(
-            [(CROP_W - 1.0) / (Hw - 1), (CROP_H - 1.0) / (Hh - 1)],
-            device=device)
-        crop_kpts = torch.cat([crop_xy, maxvals[..., None]], dim=-1)
-        preds = transform_preds(coords + shift, centers, scales, (Hw, Hh))
-        img_kpts = torch.cat([preds, maxvals[..., None]], dim=-1)
+        with span("serve.detect"):
+            dets = self.detector.predict(images01)
+        with span("serve.select"):
+            boxes, scores = dets["boxes"], dets["scores"]
+            keep = (dets["valid"] & (dets["labels"] == 1) &
+                    (scores >= self.bbox_thr))
+            masked = torch.where(keep, scores, -torch.inf)
+            m = min(self.max_dets, masked.shape[1])
+            top_s, top_i = top_k(masked, m)                        # (B, m)
+            sel_boxes = torch.gather(boxes, 1,
+                                     top_i[..., None].expand(-1, -1, 4))
+            sel_valid = top_s > -torch.inf
+            # cross-batch compaction: key = valid-first, then score (scores
+            # lie in (0, 1), so within one image the order is its score
+            # order); summed in the scores' dtype
+            key_flat = ((sel_valid.reshape(-1) * 10.0).to(top_s.dtype) +
+                        torch.where(sel_valid, top_s, 0.0).reshape(-1))
+            _, idx = top_k(key_flat, self.budget)
+            img_idx = (idx // m).to(torch.int32)
+            flat_boxes = sel_boxes.reshape(-1, 4)[idx]
+            picked_valid = sel_valid.reshape(-1)[idx]
+            # invalid slots get a unit box: their crops are discarded, but a
+            # degenerate box must not feed non-finite math to the warp
+            flat_boxes = torch.where(picked_valid[:, None], flat_boxes,
+                                     self.unit_box)
+        with span("serve.crop"):
+            centers, scales = coords_to_center_scale(flat_boxes,
+                                                     CROP_W / CROP_H)
+            crops = crop_from_center_scale_batched(
+                images01 * 255.0, centers, scales, img_idx,
+                (CROP_W, CROP_H))
+            x = (crops / 255.0 - self.mean) / self.std
+        with span("serve.pose"):
+            hm = self.pose_model(x).permute(0, 3, 1, 2)       # (K, J, H, W)
+        with span("serve.decode"):
+            Hh, Hw = hm.shape[2], hm.shape[3]
+            # one K1 launch gives both the unrefined crop-space peaks and
+            # the quarter-pixel shift of the refined image-space ones
+            coords, maxvals, shift = _k1.heatmap_peaks(hm)
+            crop_xy = coords * torch.tensor(
+                [(CROP_W - 1.0) / (Hw - 1), (CROP_H - 1.0) / (Hh - 1)],
+                device=device)
+            crop_kpts = torch.cat([crop_xy, maxvals[..., None]], dim=-1)
+            preds = transform_preds(coords + shift, centers, scales,
+                                    (Hw, Hh))
+            img_kpts = torch.cat([preds, maxvals[..., None]], dim=-1)
         return {"sel_boxes": sel_boxes, "sel_scores": top_s,
                 "sel_valid": sel_valid, "img_idx": img_idx,
                 "picked_valid": picked_valid, "crop_kpts": crop_kpts,
@@ -351,7 +364,9 @@ class VaseEvaluator:
                                     self.pose_model.config.num_joints)
 
             def packed(images):
-                return _pack_fused_outputs(inner(images), spec)
+                out = inner(images)
+                with span("serve.pack"):
+                    return _pack_fused_outputs(out, spec)
 
             self._fused_cache[key] = (packed, spec)
         return self._fused_cache[key]
@@ -359,11 +374,12 @@ class VaseEvaluator:
     def _upload(self, images01):
         """The batch on the device: uint8 (0-255) goes up as bytes and is
         converted there, anything else as f32 in [0, 1]."""
-        t = images01 if isinstance(images01, torch.Tensor) else \
-            torch.from_numpy(np.asarray(images01))
-        if t.dtype != torch.uint8:
-            t = t.to(torch.float32)
-        return t.to(self.device)
+        with span("serve.upload"):
+            t = images01 if isinstance(images01, torch.Tensor) else \
+                torch.from_numpy(np.asarray(images01))
+            if t.dtype != torch.uint8:
+                t = t.to(torch.float32)
+            return t.to(self.device)
 
     def _fused_budget(self, B: int) -> int:
         m = min(self.max_dets, self.det_cfg.detections_per_img)
@@ -374,22 +390,26 @@ class VaseEvaluator:
         packed buffer (a fresh host array each call: the outputs are
         views of it, and the ``kpt_thr`` zeroing writes through them), or
         the gathered outputs of the sharded program (``spec`` None), then
-        the split per image."""
+        the split per image (spans ``serve.fetch``, ``serve.unpack``)."""
         if spec is not None:
-            out = _unpack_fused_outputs(out.cpu().numpy(), spec)
-        crop_kpts, img_kpts = out["crop_kpts"], out["img_kpts"]
-        for arr in (crop_kpts, img_kpts):
-            arr[arr[..., 2] < self.kpt_thr] = 0
-        results = []
-        for i in range(out["sel_valid"].shape[0]):
-            v = out["sel_valid"][i]
-            pick = (out["img_idx"] == i) & out["picked_valid"]
-            results.append({
-                "boxes": out["sel_boxes"][i][v],
-                "scores": out["sel_scores"][i][v],
-                "crop_keypoints": crop_kpts[pick],
-                "image_keypoints": img_kpts[pick]})
-        return results
+            with span("serve.fetch"):
+                out = out.cpu().numpy()
+        with span("serve.unpack"):
+            if spec is not None:
+                out = _unpack_fused_outputs(out, spec)
+            crop_kpts, img_kpts = out["crop_kpts"], out["img_kpts"]
+            for arr in (crop_kpts, img_kpts):
+                arr[arr[..., 2] < self.kpt_thr] = 0
+            results = []
+            for i in range(out["sel_valid"].shape[0]):
+                v = out["sel_valid"][i]
+                pick = (out["img_idx"] == i) & out["picked_valid"]
+                results.append({
+                    "boxes": out["sel_boxes"][i][v],
+                    "scores": out["sel_scores"][i][v],
+                    "crop_keypoints": crop_kpts[pick],
+                    "image_keypoints": img_kpts[pick]})
+            return results
 
     def _process_images_fused(self, images01):
         B = images01.shape[0]
@@ -502,7 +522,7 @@ class VaseEvaluator:
         if use_fused is None:
             use_fused = (self.use_fused if self.use_fused is not None
                          else self.mesh.size() == 1)
-        with torch.inference_mode():
+        with torch.inference_mode(), span("serve.call"):
             if use_fused:
                 return self._process_images_fused(images01)
             return self._process_images_host(images01)

@@ -54,6 +54,7 @@ from stlpose_tpu_torch.ops.boxes import (box_iou, clip_boxes, decode_boxes,
                                          encode_boxes, smooth_l1)
 from stlpose_tpu_torch.ops.nms import box_nms_topk, top_k
 from stlpose_tpu_torch.ops.roi_align import multilevel_roi_align
+from stlpose_tpu_torch.utils.profiling import span
 
 
 class FPN(nn.Module):
@@ -461,36 +462,41 @@ class FasterRCNN(nn.Module):
         """images (B, S, S, 3) float in [0, 1] -> {boxes (B, D, 4) f32,
         scores (B, D) in the compute dtype, labels (B, D), valid (B, D)},
         padded to ``detections_per_img``. Eval-mode BatchNorm, also right
-        after a train step."""
+        after a train step. Spans: ``detect.trunk_rpn``, ``.proposals``
+        (K5), ``.roi_heads`` (K3, the box head) and ``.detections`` (the
+        class loop, K5, top-k), inside whatever span the caller opened."""
         if self.training:
             self.eval()
         cfg = self.config
-        feats, logits, deltas, anchors = self._rpn(images)
+        with span("detect.trunk_rpn"):
+            feats, logits, deltas, anchors = self._rpn(images)
         B = images.shape[0]
-        props, _ = select_proposals(cfg, anchors, logits, deltas)
-        cls_b, deltas_b = self.roi_batched(feats[:4], props)
-
-        scores = softmax(cls_b)
-        nc = cfg.num_classes
-        out_boxes, out_scores, out_labels = [], [], []
-        for c in range(1, nc):
-            d = deltas_b.reshape(B, -1, nc, 4)[:, :, c]
-            boxes = clip_boxes(decode_boxes(d, props, cfg.box_weights),
-                               (cfg.image_size, cfg.image_size))
-            sc = scores[..., c]
-            ok = sc > cfg.score_thresh
-            keep = box_nms_topk(boxes, torch.where(ok, sc, -torch.inf),
-                                cfg.nms_thresh, ok, cfg.detections_per_img)
-            out_boxes.append(boxes)
-            out_scores.append(torch.where(keep & ok, sc, -torch.inf))
-            out_labels.append(torch.full(sc.shape, c, dtype=torch.int32,
-                                         device=sc.device))
-        boxes = torch.cat(out_boxes, dim=1)
-        sc = torch.cat(out_scores, dim=1)
-        lb = torch.cat(out_labels, dim=1)
-        top_s, top_i = top_k(sc, cfg.detections_per_img)
-        return {"boxes": torch.gather(boxes, 1,
-                                      top_i[..., None].expand(-1, -1, 4)),
-                "scores": torch.clamp(top_s, min=0.0),
-                "labels": torch.gather(lb, 1, top_i),
-                "valid": top_s > -torch.inf}
+        with span("detect.proposals"):
+            props, _ = select_proposals(cfg, anchors, logits, deltas)
+        with span("detect.roi_heads"):
+            cls_b, deltas_b = self.roi_batched(feats[:4], props)
+        with span("detect.detections"):
+            scores = softmax(cls_b)
+            nc = cfg.num_classes
+            out_boxes, out_scores, out_labels = [], [], []
+            for c in range(1, nc):
+                d = deltas_b.reshape(B, -1, nc, 4)[:, :, c]
+                boxes = clip_boxes(decode_boxes(d, props, cfg.box_weights),
+                                   (cfg.image_size, cfg.image_size))
+                sc = scores[..., c]
+                ok = sc > cfg.score_thresh
+                keep = box_nms_topk(boxes, torch.where(ok, sc, -torch.inf),
+                                    cfg.nms_thresh, ok, cfg.detections_per_img)
+                out_boxes.append(boxes)
+                out_scores.append(torch.where(keep & ok, sc, -torch.inf))
+                out_labels.append(torch.full(sc.shape, c, dtype=torch.int32,
+                                             device=sc.device))
+            boxes = torch.cat(out_boxes, dim=1)
+            sc = torch.cat(out_scores, dim=1)
+            lb = torch.cat(out_labels, dim=1)
+            top_s, top_i = top_k(sc, cfg.detections_per_img)
+            return {"boxes": torch.gather(boxes, 1,
+                                          top_i[..., None].expand(-1, -1, 4)),
+                    "scores": torch.clamp(top_s, min=0.0),
+                    "labels": torch.gather(lb, 1, top_i),
+                    "valid": top_s > -torch.inf}

@@ -18,7 +18,11 @@ already in the one it needs (eval for the eval functions, train for the
 train step): ``model.eval()`` or ``model.train()`` walks HRNet-W32's
 ~1,000 modules, some milliseconds of host time before the first launch of
 every call.
-Nothing is fetched to the host: the metrics stay device tensors.
+Nothing is fetched to the host: the metrics stay device tensors. A train
+step is the span ``train.step`` (``utils/profiling.py``) around
+``train.forward`` (model, loss, perceptual weighting), ``train.backward``
+(``zero_grad`` and autograd), ``train.metrics`` (PCK) and ``train.update``
+(the gradients' all-reduce on a mesh, ``optimizer.step``).
 
 With a ``mesh`` of W ranks (``parallel/mesh.py``) each rank holds the same
 model and optimizer (the reference's replicated state) and steps on its
@@ -51,6 +55,7 @@ from stlpose_tpu_torch.parallel.mesh import mesh_group, mesh_size
 from stlpose_tpu_torch.train.loss import (apply_perceptual_loss,
                                           person_mse_loss)
 from stlpose_tpu_torch.train.state import PoseTrainState
+from stlpose_tpu_torch.utils.profiling import span
 
 
 def _nhwc_to_njhw(hm):
@@ -190,30 +195,39 @@ def make_train_step(perceptual_cfg: dict | None = None,
     group, world = mesh_group(mesh), mesh_size(mesh)
 
     def step(state: PoseTrainState, batch):
+        with span("train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         model = state.model
         if group is not None:
             use_global_batchnorm(model, group)
         if not model.training:
             model.train()
-        pred = _nhwc_to_njhw(model(batch["image"]))
-        loss = person_mse_loss(pred, batch["target"], batch["target_weight"])
-        if perceptual_cfg is not None:
-            perc = batch.get("perceptual_loss", 0.0)
-            if group is not None:
-                perc = global_mean(perc, group, world).to(loss.device)
-            loss = apply_perceptual_loss(perceptual_cfg, loss, perc)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        hit, cnt = _pck_from_heatmaps(pred.detach(), batch["target"])
+        with span("train.forward"):
+            pred = _nhwc_to_njhw(model(batch["image"]))
+            loss = person_mse_loss(pred, batch["target"],
+                                   batch["target_weight"])
+            if perceptual_cfg is not None:
+                perc = batch.get("perceptual_loss", 0.0)
+                if group is not None:
+                    perc = global_mean(perc, group, world).to(loss.device)
+                loss = apply_perceptual_loss(perceptual_cfg, loss, perc)
+        with span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("train.metrics"):
+            hit, cnt = _pck_from_heatmaps(pred.detach(), batch["target"])
         loss = loss.detach()
-        if group is not None:
-            params = [p for p in model.parameters() if p.requires_grad]
-            total, hits, cnts = reduce_gradients(params, [loss, hit, cnt],
-                                                 group, world)
-            loss = total / world
-            hit = hits.round().to(hit.dtype)
-            cnt = cnts.round().to(cnt.dtype)
-        state.optimizer.step()
+        with span("train.update"):
+            if group is not None:
+                params = [p for p in model.parameters() if p.requires_grad]
+                total, hits, cnts = reduce_gradients(
+                    params, [loss, hit, cnt], group, world)
+                loss = total / world
+                hit = hits.round().to(hit.dtype)
+                cnt = cnts.round().to(cnt.dtype)
+            state.optimizer.step()
         state.step += 1
         return {"loss": loss, "pck_hit": hit, "pck_cnt": cnt}
 

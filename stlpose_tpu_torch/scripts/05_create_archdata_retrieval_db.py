@@ -12,7 +12,9 @@ saved as ``<database root>/database_{dataset}_{experiment}_eval.pkl``.
 Environment: ``STLPOSE_MODEL_CONFIG`` (default w32_256x192),
 ``STLPOSE_PRETRAINED`` (a reference-format HRNet ``.pth``; none by
 default), ``STLPOSE_DTYPE=bfloat16`` for bf16 compute and
-``STLPOSE_DATABASE_PATH`` for the database root.
+``STLPOSE_DATABASE_PATH`` for the database root, ``STLPOSE_PROFILE=<dir>``
+for a ``torch.profiler`` trace of the extraction written there, with its
+``extract.*`` and ``pipeline.*`` spans (``utils/profiling.py::trace``).
 """
 
 import os
@@ -26,6 +28,7 @@ from stlpose_tpu_torch.engines.retrieval_db import ArchDataExtractor  # noqa: E4
 from stlpose_tpu_torch.utils.arguments import (get_directory_argument,  # noqa: E402
                                                model_dtype)
 from stlpose_tpu_torch.utils.logger import Logger, print_  # noqa: E402
+from stlpose_tpu_torch.utils.profiling import trace  # noqa: E402
 
 
 def main(argv=None):
@@ -40,7 +43,10 @@ def main(argv=None):
     extractor.setup(
         config_name=os.environ.get("STLPOSE_MODEL_CONFIG", "w32_256x192"),
         pretrained=os.environ.get("STLPOSE_PRETRAINED") or None)
-    extractor.extract_retrieval_dataset()
+    profile_dir = os.environ.get("STLPOSE_PROFILE")
+    with trace(profile_dir, enabled=bool(profile_dir),
+               device=extractor.device):
+        extractor.extract_retrieval_dataset()
     path = extractor.save_retrieval_db()
     print_(f"Saved retrieval database with {len(extractor.retrieval_db)} "
            f"poses to {path}")

@@ -222,7 +222,7 @@ def test_experimenter_matches_jax(method, penalization, jax_native,
 
 def test_scripts_chain_on_the_cpu(workspace, tmp_path, monkeypatch, capsys):
     """aux_map -> 05 -> 06 -> 07 (knn) -> 07_retrieval_test -> 07_display
-    through each script's main(argv)."""
+    through each script's main(argv); 05 under ``STLPOSE_PROFILE``."""
     from stlpose_tpu_torch.config import CONFIG
     monkeypatch.setitem(CONFIG["paths"], "database_path",
                         str(tmp_path / "databases"))
@@ -235,9 +235,16 @@ def test_scripts_chain_on_the_cpu(workspace, tmp_path, monkeypatch, capsys):
         ["--narratives_json", str(narratives), "--dict_path", dicts])
     assert c2n == {"Heracles": "myth", "satyr": "dionysian",
                    "maenad": "dionysian"}
+    profile = tmp_path / "profile"
+    monkeypatch.setenv("STLPOSE_PROFILE", str(profile))
     db_path = script("05_create_archdata_retrieval_db").main(
         ["-d", workspace["exp"], "--checkpoint", "final", "--data_path",
          workspace["data"], "--device", "cpu"])
+    spans, = [f for f in os.listdir(profile) if f.startswith("spans_")]
+    with open(profile / spans) as f:
+        names = {s["name"] for s in json.load(f)["spans"]}
+    assert {"extract.batch", "extract.peaks", "extract.fetch",
+            "extract.add_batch", "pipeline.batch"} <= names
     assert os.path.basename(db_path) == (
         f"database_arch_data_{os.path.basename(workspace['exp'])}_eval.pkl")
     name = script("06_fit_knn_tree").main(
