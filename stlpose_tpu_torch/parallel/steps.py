@@ -18,11 +18,21 @@ already in the one it needs (eval for the eval functions, train for the
 train step): ``model.eval()`` or ``model.train()`` walks HRNet-W32's
 ~1,000 modules, some milliseconds of host time before the first launch of
 every call.
-Nothing is fetched to the host: the metrics stay device tensors. A train
-step is the span ``train.step`` (``utils/profiling.py``) around
-``train.forward`` (model, loss, perceptual weighting), ``train.backward``
-(``zero_grad`` and autograd), ``train.metrics`` (PCK) and ``train.update``
-(the gradients' all-reduce on a mesh, ``optimizer.step``).
+Nothing is fetched to the host: the metrics stay device tensors, and PCK
+makes its (H, W) divisor on the device, with no copy from the host.
+
+On one CUDA device the train step replays a CUDA graph: forward, loss,
+backward and the Adam update, ~7,500 kernels for HRNet-W32 at B = 32
+(capturable Adam's bias corrections take ~1,750 of them), become one
+``CUDAGraph.replay`` a step (``make_train_step``). The CPU, a mesh, an
+optimizer with no capturable mode and each batch signature's first step
+run eagerly. An eager train step is the span ``train.step``
+(``utils/profiling.py``) around ``train.forward`` (model, loss,
+perceptual weighting), ``train.backward`` (``zero_grad`` and autograd),
+``train.metrics`` (PCK) and ``train.update`` (the gradients' all-reduce on
+a mesh, ``optimizer.step``); a graph step is ``train.step`` around
+``train.capture`` (a signature's capture), ``train.replay`` (the batch
+copied into the graph's inputs, the replay) and ``train.metrics``.
 
 With a ``mesh`` of W ranks (``parallel/mesh.py``) each rank holds the same
 model and optimizer (the reference's replicated state) and steps on its
@@ -43,6 +53,7 @@ batch alone, where the reference's take the train state first.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import torch
@@ -70,8 +81,11 @@ def _pck_from_heatmaps(pred_njhw, target_njhw, thr=0.5):
     H, W = pred_njhw.shape[2], pred_njhw.shape[3]
     pred, _ = heatmap_argmax(pred_njhw)
     gt, _ = heatmap_argmax(target_njhw)
-    norm = torch.tensor([H, W], dtype=torch.float32,
-                        device=pred.device) / 10.0
+    # [H, W] filled on the device: a list copied from the host would wait
+    # for every launch before it
+    norm = torch.full((2,), H, dtype=torch.float32, device=pred.device)
+    norm[1].fill_(W)
+    norm = norm / 10.0
     valid = (gt[..., 0] > 1) & (gt[..., 1] > 1)
     dist = torch.linalg.norm((pred - gt) / norm, dim=-1)
     return ((dist < thr) & valid).sum(), valid.sum()
@@ -183,6 +197,159 @@ def _reduce_metrics(metrics, group, world: int):
             "pck_cnt": flat[2].round().to(metrics["pck_cnt"].dtype)}
 
 
+GRAPH_INPUTS = ("image", "target", "target_weight")
+
+
+def graph_signature(device, group, optimizer, batch):
+    """The key under which a train step replays a CUDA graph, or None
+    where it runs eagerly: parameters off CUDA, a mesh (``group``: NCCL
+    collectives and global BatchNorm), or an optimizer with no capturable
+    mode (SGD). The key holds the shapes and dtypes of image, target and
+    target_weight, and the shape of perceptual_loss (None: absent)."""
+    if (torch.device(device).type != "cuda" or group is not None
+            or "capturable" not in optimizer.defaults):
+        return None
+    perc = batch.get("perceptual_loss")
+    return (tuple((tuple(batch[k].shape), batch[k].dtype)
+                  for k in GRAPH_INPUTS),
+            None if perc is None else tuple(torch.as_tensor(perc).shape))
+
+
+def graph_route(signature, warm, graphs) -> str:
+    """How a step of ``signature`` runs: "eager" (no signature),
+    "warm-up" (eager, the signature's first step), "capture" (warm but
+    not captured: capture, then replay) or "replay"."""
+    if signature is None:
+        return "eager"
+    if signature in graphs:
+        return "replay"
+    return "capture" if signature in warm else "warm-up"
+
+
+def captured_state(state):
+    """What a captured step holds by address or bakes in: the model, the
+    optimizer, its state dict and state tensors (``load_state_dict``
+    replaces them), each param group's settings (the learning rate that
+    ``set_current_lr`` changes among them) and the storage of each
+    parameter and buffer (BatchNorm's statistics). A graph replays only
+    while this compares equal."""
+    opt = state.optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    return (id(state.model), id(opt), id(opt.state),
+            [{k: v for k, v in g.items() if k != "params"}
+             for g in opt.param_groups],
+            [p.data_ptr() for p in params],
+            [b.data_ptr() for b in state.model.buffers()],
+            [id(t) for p in params for t in opt.state.get(p, {}).values()])
+
+
+def make_capturable(optimizer) -> None:
+    """Adam's capturable mode in every param group (bias corrections from
+    a step count on the device), a step count held on the host moved to
+    its parameter's device."""
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st and st["step"].device != p.device:
+                st["step"] = st["step"].to(p.device)
+
+
+class _Captured:
+    """One captured step: the graph, its input tensors (the batch is
+    copied in before each replay) and its heatmaps and loss."""
+
+    def __init__(self, graph, inputs, pred, loss):
+        self.graph, self.inputs, self.pred, self.loss = (graph, inputs,
+                                                         pred, loss)
+
+    def replay(self, batch):
+        for k, t in self.inputs.items():
+            t.copy_(torch.as_tensor(batch[k]))
+        self.graph.replay()
+
+
+class _StepGraphs:
+    """The CUDA graphs of one train step function, one a batch signature,
+    and the side stream that warms up and captures them."""
+
+    def __init__(self, eager: Callable, perceptual_cfg):
+        self.eager = eager
+        self.perceptual_cfg = perceptual_cfg
+        self.graphs = {}          # signature -> _Captured
+        self.warm = set()         # signatures with an eager step behind
+        self.held = None          # captured_state the two above belong to
+        self.stream = None
+
+    def __call__(self, state, batch, signature, device):
+        held = captured_state(state)
+        if held != self.held:
+            self.graphs.clear()
+            self.warm.clear()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        route = graph_route(signature, self.warm, self.graphs)
+        if route == "warm-up":
+            metrics = self._warm_up(state, batch)
+            self.warm.add(signature)
+        else:
+            if route == "capture":
+                with span("train.capture"):
+                    self.graphs[signature] = self._capture(state, batch,
+                                                           device)
+            cap = self.graphs[signature]
+            with span("train.replay"):
+                cap.replay(batch)
+            with span("train.metrics"):
+                hit, cnt = _pck_from_heatmaps(cap.pred, cap.inputs["target"])
+            state.step += 1
+            metrics = {"loss": cap.loss.clone(), "pck_hit": hit,
+                       "pck_cnt": cnt}
+        if route != "replay":
+            self.held = captured_state(state)
+        return metrics
+
+    def _warm_up(self, state, batch):
+        """The eager step, Adam made capturable, on the capture's stream:
+        Adam's moments, cuDNN's plans and the stream's workspaces exist
+        before the capture."""
+        make_capturable(state.optimizer)
+        main = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream), warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", message="This instance was constructed with "
+                "capturable=True")
+            metrics = self.eager(state, batch)
+        main.wait_stream(self.stream)
+        return metrics
+
+    def _capture(self, state, batch, device):
+        """Forward, loss, perceptual weighting, backward (into gradients
+        the capture allocates) and ``optimizer.step()`` as one graph."""
+        inputs = {k: torch.empty_like(batch[k]) for k in GRAPH_INPUTS}
+        perc = None
+        if self.perceptual_cfg is not None:
+            if "perceptual_loss" in batch:
+                perc = inputs["perceptual_loss"] = torch.empty(
+                    torch.as_tensor(batch["perceptual_loss"]).shape,
+                    dtype=torch.float32, device=device)
+            else:                 # the eager step's 0.0, made on the card
+                perc = torch.zeros((), dtype=torch.float32, device=device)
+        model, opt = state.model, state.optimizer
+        opt.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.stream):
+            pred = _nhwc_to_njhw(model(inputs["image"]))
+            loss = person_mse_loss(pred, inputs["target"],
+                                   inputs["target_weight"])
+            if self.perceptual_cfg is not None:
+                loss = apply_perceptual_loss(self.perceptual_cfg, loss, perc)
+            loss.backward()
+            opt.step()
+        return _Captured(graph, inputs, pred.detach(), loss.detach())
+
+
 def make_train_step(perceptual_cfg: dict | None = None,
                     mesh=None) -> Callable:
     """step(state, batch) -> metrics: one update of ``state`` in place.
@@ -191,19 +358,40 @@ def make_train_step(perceptual_cfg: dict | None = None,
     "target_weight" (N, J) and, with ``perceptual_cfg`` (the experiment
     dict), "perceptual_loss" (N,): with a ``mesh``, this rank's rows.
     Metrics: "loss" (before the update), "pck_hit" and "pck_cnt" of the
-    forward's heatmaps, over the global batch."""
+    forward's heatmaps, over the global batch: each step's own tensors.
+
+    The step runs eagerly on the CPU, on a mesh (NCCL collectives and
+    global BatchNorm) and with an optimizer that has no capturable mode
+    (``graph_signature``). On one CUDA device it keeps a CUDA graph per
+    batch signature (``graph_route``): the signature's first step runs
+    eagerly on a side stream, with the optimizer made capturable
+    (``make_capturable``: Adam's bias corrections from a device step
+    count); the second captures forward, loss, weighting, backward and
+    ``optimizer.step()`` on that stream (same kernels, same order: cuDNN's
+    convolutions and BatchNorm, foreach Adam) and replays the capture;
+    each later step copies the batch into the graph's inputs and replays.
+    PCK runs eagerly on the replay's heatmaps (K1), ``state.step`` and the
+    model's mode are set on the host. The graphs are dropped, and the
+    next step warms up again, when ``captured_state`` changes: another
+    learning rate, ``optimizer.load_state_dict``, parameters or buffers
+    moved."""
     group, world = mesh_group(mesh), mesh_size(mesh)
 
     def step(state: PoseTrainState, batch):
         with span("train.step"):
-            return _step(state, batch)
+            if not state.model.training:
+                state.model.train()
+            device = state.optimizer.param_groups[0]["params"][0].device
+            signature = graph_signature(device, group, state.optimizer,
+                                        batch)
+            if signature is None:
+                return _step(state, batch)
+            return graphs(state, batch, signature, device)
 
     def _step(state, batch):
         model = state.model
         if group is not None:
             use_global_batchnorm(model, group)
-        if not model.training:
-            model.train()
         with span("train.forward"):
             pred = _nhwc_to_njhw(model(batch["image"]))
             loss = person_mse_loss(pred, batch["target"],
@@ -231,6 +419,7 @@ def make_train_step(perceptual_cfg: dict | None = None,
         state.step += 1
         return {"loss": loss, "pck_hit": hit, "pck_cnt": cnt}
 
+    graphs = _StepGraphs(_step, perceptual_cfg)
     return step
 
 

@@ -37,3 +37,8 @@ def trained_tiny_frcnn(detector_scene_batch):
     det = FasterRCNN(FASTER_RCNN_TINY)
     trained = overfit_detector(det, detector_scene_batch, steps=300)
     return det, trained
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA GPU (skips without one)")
